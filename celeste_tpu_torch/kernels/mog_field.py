@@ -1,0 +1,275 @@
+"""Fused MoG-field render + Poisson log-likelihood: the stamp kernel.
+
+Counterpart of ``celeste_tpu/kernels/mog_field.py``.  Chains are the batch
+axis B; each chain carries C Gaussian components in precision form as six
+[B, C] float32 planes (amplitude with every normaliser folded in, centre,
+inverse-covariance entries).  Pixels come as five lane-padded [1, PIX_PAD]
+arrays from :func:`stamp_pixel_data`; padded pixels have mask 0 and sky 1.
+The function returns one log-likelihood per chain, [B].
+
+Dispatch follows the tensors' device, with no switch and no fallback:
+
+- CUDA tensors launch the hand-written Hopper kernels of
+  ``csrc/mog_field.cu`` (``mog_field_loglik_fwd`` forward and, under
+  autograd, ``mog_field_loglik_bwd`` backward).  A build or launch failure
+  raises.
+- CPU tensors take the plain PyTorch version, :func:`_loglik_torch`, whose
+  gradient is torch autograd.
+
+:func:`_loglik_torch` and :func:`_loglik_bwd_torch` are the kernels' plain
+versions: the tests hold them against the JAX package, and ``chip_smoke.py``
+holds the kernels against them on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from celeste_tpu_torch.likelihood._pixel import LAMBDA_MIN, pixel_loglik
+
+LANE = 128
+_SOURCES = ("mog_field.cu",)
+
+
+def stamp_pixel_data(stamp):
+    """Flatten a Stamp's pixel grids into kernel-ready padded [1, PIX_PAD]
+    tensors (px, py, counts, sky, mask); PIX_PAD is H*W rounded up to 128."""
+    px, py = stamp.pixel_grid()
+    counts = stamp.counts.reshape(-1)
+    sky = stamp.sky.reshape(-1)
+    mask = stamp.mask.reshape(-1)
+    pix = px.shape[0]
+    pad = ((pix + LANE - 1) // LANE) * LANE - pix
+    px = F.pad(px, (0, pad))[None, :]
+    py = F.pad(py, (0, pad))[None, :]
+    counts = F.pad(counts, (0, pad))[None, :]
+    sky = F.pad(sky, (0, pad), value=1.0)[None, :]   # keep log() finite
+    mask = F.pad(mask, (0, pad))[None, :]
+    return px, py, counts, sky, mask
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions of the two kernels
+# ---------------------------------------------------------------------------
+
+def _loglik_torch(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask,
+                  centered: bool = False):
+    """Identical math to the forward kernel, dense: [B, C] planes, [1, P]
+    pixels -> [B] log-likelihoods."""
+    dx = px[:, None, :] - mx[..., None]          # [B, C, P]
+    dy = py[:, None, :] - my[..., None]
+    quad = pa[..., None] * dx * dx + 2.0 * pb[..., None] * dx * dy + pc[..., None] * dy * dy
+    lam = sky + torch.sum(amp[..., None] * torch.exp(-0.5 * quad), dim=1)
+    ll = pixel_loglik(lam, counts, centered) * mask
+    return torch.sum(ll, dim=-1)
+
+
+def _loglik_bwd_torch(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
+    """The backward kernel's algebra, dense: the cotangents of the six
+    planes, given the cotangent ``g`` [B] of the output.  Independent of
+    ``centered``: centering adds parameter-free terms only."""
+    dx = px[:, None, :] - mx[..., None]          # [B, C, P]
+    dy = py[:, None, :] - my[..., None]
+    pa_, pb_, pc_ = pa[..., None], pb[..., None], pc[..., None]
+    e = torch.exp(-0.5 * pa_ * dx * dx - pb_ * dx * dy - 0.5 * pc_ * dy * dy)
+    lam = sky + torch.sum(amp[..., None] * e, dim=1)                  # [B, P]
+    active = (lam > LAMBDA_MIN).to(lam.dtype)
+    g_lam = (g[:, None] * mask) * (counts / torch.clamp(lam, min=LAMBDA_MIN) - 1.0) * active
+    ge = g_lam[:, None, :] * e
+    dq = -0.5 * ge * amp[..., None]
+    return (ge.sum(-1),
+            (dq * -2.0 * (pa_ * dx + pb_ * dy)).sum(-1),
+            (dq * -2.0 * (pb_ * dx + pc_ * dy)).sum(-1),
+            (dq * dx * dx).sum(-1),
+            (2.0 * dq * dx * dy).sum(-1),
+            (dq * dy * dy).sum(-1))
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels: ctypes wrappers
+# ---------------------------------------------------------------------------
+
+def _declare(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mog_field_loglik_fwd.argtypes = [p] * 12 + [i] * 4 + [p]
+    lib.mog_field_loglik_fwd.restype = i
+    lib.mog_field_loglik_bwd.argtypes = [p] * 18 + [i] * 3 + [p]
+    lib.mog_field_loglik_bwd.restype = i
+    lib.mog_field_error_string.argtypes = [i]
+    lib.mog_field_error_string.restype = ctypes.c_char_p
+
+
+def _lib():
+    from celeste_tpu_torch.kernels._build import load_library
+
+    return load_library("mog_field", _SOURCES, _declare)
+
+
+def build_kernels():
+    """Build and load the CUDA library now (it is otherwise built at the
+    first launch).  Returns the path of the shared library."""
+    return Path(_lib()._name)
+
+
+def _check_inputs(planes, pixels, extra=()):
+    """Raise unless every tensor is a contiguous float32 CUDA tensor on one
+    device with planes [B, C] and pixels [1, P]."""
+    amp = planes[0]
+    if amp.dim() != 2:
+        raise ValueError(f"planes must be [B, C], got {tuple(amp.shape)}")
+    n_pix = pixels[0].shape[-1]
+    device = amp.device
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
+    named = ([(t, tuple(amp.shape), "plane") for t in planes]
+             + [(t, (1, n_pix), "pixel array") for t in pixels]
+             + [(t, shape, name) for t, shape, name in extra])
+    for t, shape, name in named:
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, expected {device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected torch.float32")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    return amp.shape[0], amp.shape[1], n_pix, device
+
+
+def _raise_on_error(lib, err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.mog_field_error_string(err).decode()} ({err})")
+
+
+def _ptrs(ts):
+    return [t.data_ptr() for t in ts]
+
+
+def loglik_fwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask,
+                    centered: bool = False):
+    """Launch the forward kernel: [B] log-likelihoods on the planes' card."""
+    planes = (amp, mx, my, pa, pb, pc)
+    pixels = (px, py, counts, sky, mask)
+    b, c, p, device = _check_inputs(planes, pixels)
+    out = torch.empty(b, dtype=torch.float32, device=device)
+    if b == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.mog_field_loglik_fwd(*_ptrs(planes), *_ptrs(pixels), out.data_ptr(),
+                                       b, c, p, int(bool(centered)), stream)
+    _raise_on_error(lib, err, "mog_field_loglik_fwd")
+    loglik_fwd_cuda.launches += 1
+    return out
+
+
+loglik_fwd_cuda.launches = 0
+
+
+def loglik_bwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
+    """Launch the backward kernel: the six [B, C] plane cotangents."""
+    planes = (amp, mx, my, pa, pb, pc)
+    pixels = (px, py, counts, sky, mask)
+    b, c, p, device = _check_inputs(planes, pixels, extra=[(g, (amp.shape[0],), "g")])
+    grads = tuple(torch.empty(b, c, dtype=torch.float32, device=device) for _ in range(6))
+    if b == 0:
+        return grads
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.mog_field_loglik_bwd(*_ptrs(planes), *_ptrs(pixels), g.data_ptr(),
+                                       *_ptrs(grads), b, c, p, stream)
+    _raise_on_error(lib, err, "mog_field_loglik_bwd")
+    loglik_bwd_cuda.launches += 1
+    return grads
+
+
+loglik_bwd_cuda.launches = 0
+
+
+def reset_launch_counts():
+    loglik_fwd_cuda.launches = 0
+    loglik_bwd_cuda.launches = 0
+
+
+def launch_counts():
+    return {"mog_field_loglik_fwd": loglik_fwd_cuda.launches,
+            "mog_field_loglik_bwd": loglik_bwd_cuda.launches}
+
+
+class _LoglikKernel(torch.autograd.Function):
+    """Forward kernel with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, centered):
+        ctx.save_for_backward(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask)
+        return loglik_fwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, centered)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = loglik_bwd_cuda(*ctx.saved_tensors, g.contiguous())
+        return (*grads,) + (None,) * 6
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+def mog_field_loglik(amp, mx, my, pa, pb, pc, pixel_data, *, centered: bool = False):
+    """Poisson log-likelihood of a batched MoG field.
+
+    ``amp..pc``: [B, C] float32 planes (amplitude with the normaliser folded
+    in: ``amp = weight * exp(lognorm)``); ``pixel_data`` from
+    :func:`stamp_pixel_data`.  Returns [B].  Differentiable on both devices.
+    """
+    px, py, counts, sky, mask = pixel_data
+    if amp.device.type == "cuda":
+        planes = [t.contiguous() for t in (amp, mx, my, pa, pb, pc)]
+        return _LoglikKernel.apply(*planes, px, py, counts, sky, mask, bool(centered))
+    if amp.device.type == "cpu":
+        return _loglik_torch(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, centered)
+    raise ValueError(f"mog_field_loglik has no implementation on {amp.device}")
+
+
+# ---------------------------------------------------------------------------
+# model integration: flat parameter batches -> fused loglik
+# ---------------------------------------------------------------------------
+
+def _field_planes(vecs, stamp, band, kind: str, n_bands: int):
+    """[B, D] unconstrained source vectors -> six [B, C] planes in
+    precision form with the normalisers folded into the amplitude."""
+    from celeste_tpu_torch.model.params import GalaxyParams, StarParams
+    from celeste_tpu_torch.model.render import galaxy_unit_mog, star_unit_mog
+    from celeste_tpu_torch.mog import precision_form
+
+    if kind == "star":
+        params = StarParams.from_vector(vecs, n_bands)
+        unit = star_unit_mog(params, stamp)
+    elif kind == "galaxy":
+        params = GalaxyParams.from_vector(vecs, n_bands)
+        unit = galaxy_unit_mog(params, stamp)
+    else:
+        raise ValueError(kind)
+    w, mu, prec, lognorm = precision_form(unit)
+    amp = stamp.iota * params.flux[..., band, None] * w * torch.exp(lognorm)
+    shape = mu.shape[:-1]   # [B, C]: a star's PSF terms are shared by every chain
+    planes = (amp, mu[..., 0], mu[..., 1], prec[..., 0], prec[..., 1], prec[..., 2])
+    return tuple(t.expand(shape) for t in planes)
+
+
+def batched_stamp_loglik(vecs, stamp, band=0, kind: str = "star", n_bands: int = 5,
+                         pixel_data=None, centered: bool = False):
+    """Fused likelihood of a [B, D] batch of unconstrained source vectors
+    against one stamp -> [B].  The [B, C] parameter preparation is plain
+    PyTorch; the [B, PIX] work runs in the kernel.  Differentiable.  This is
+    the function the samplers and the evals/s measurement drive."""
+    planes = _field_planes(vecs, stamp, band, kind, n_bands)
+    if pixel_data is None:
+        pixel_data = stamp_pixel_data(stamp)
+    return mog_field_loglik(*planes, pixel_data, centered=centered)
