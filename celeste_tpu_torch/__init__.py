@@ -5,11 +5,13 @@ module's counterpart is found at the same path under ``celeste_tpu/``.  It
 imports ``torch`` and NumPy only; the pure-NumPy pieces of the JAX package
 (profile tables, the oracle forward model) are copied in.
 
-Plain tensor code is PyTorch.  The one hot-path kernel, the fused stamp
-render + Poisson log-likelihood and its backward, is CUDA C++ for Hopper
-(``csrc/mog_field.cu``), built with ``nvcc`` at first use and bound with
-``ctypes`` (``kernels/_build.py``).  A CUDA tensor always goes through the
-kernel; a CPU tensor takes the kernel's plain PyTorch version.
+Plain tensor code is PyTorch.  The hot-path kernels are CUDA C++ for
+Hopper, built with ``nvcc`` at first use and bound with ``ctypes``
+(``kernels/_build.py``): the fused stamp render + Poisson log-likelihood
+and its backward (``csrc/mog_field.cu``), and the block-sparse tiled field
+log-likelihood of crowded fields, forward, forward keeping lambda, and
+backward (``csrc/tiled_field.cu``).  A CUDA tensor always goes through the
+kernels; a CPU tensor takes their plain PyTorch versions.
 """
 
 __version__ = "0.1.0"

@@ -43,24 +43,17 @@
 
 #include <cuda_runtime.h>
 
+#include "mog_common.cuh"
+
 namespace {
 
-constexpr float kLambdaMin = 1e-10f;
+using celeste::clamp_min;
+using celeste::kLambdaMin;
+using celeste::launch_prep;
+using celeste::warp_sum;
+
 constexpr int kWarps = 8;               // chains per block
 constexpr int kThreads = kWarps * 32;
-constexpr int kDefaultSmem = 48 * 1024;
-
-// max(v, lo) that propagates NaN like jnp.maximum / torch.clamp
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-  return v < lo ? lo : v;
-}
-
-// Butterfly sum over the warp; every lane ends with the total.
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 template <bool kCentered>
 __global__ void __launch_bounds__(kThreads)
@@ -124,10 +117,8 @@ loglik_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
       lam += expf(w_la[c] + w_ha[c] * dx * dx + w_hb[c] * dx * dy + w_hc[c] * dy * dy);
     }
     lam = clamp_min(lam, kLambdaMin);
-    const float cnt = s_cnt[p];
-    const float ll = kCentered ? cnt * (logf(lam) - s_lxt[p]) + (cnt - lam)
-                               : cnt * logf(lam) - lam;
-    acc += ll * s_mask[p];
+    acc += celeste::pixel_loglik<kCentered>(lam, s_cnt[p], kCentered ? s_lxt[p] : 0.0f)
+           * s_mask[p];
   }
   acc = warp_sum(acc);
   if (lane == 0) out[b] = acc;
@@ -239,18 +230,6 @@ loglik_bwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
       d_pc[i] = s_pc;
     }
   }
-}
-
-// Allow the kernel more than the default dynamic shared memory when it needs
-// it.  A failure is also cleared from the runtime's last-error slot, so that
-// it cannot be reported again by the next launch's cudaGetLastError().
-template <typename Kernel>
-cudaError_t launch_prep(Kernel kernel, size_t smem) {
-  if (smem <= kDefaultSmem) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) cudaGetLastError();
-  return err;
 }
 
 // Shared-memory bytes each kernel needs for C components and P pixels; a

@@ -3,14 +3,20 @@
 Ported so far:
 
   star_single    — BASELINE config 1: r-band point source on a 25x25
-                   stamp, MH over (position, flux) as written, or HMC with
-                   its adaptive warmup (``sampler=hmc``).
+                   stamp, MH over (position, flux) as written.
+  crowded_field  — BASELINE config 5's setting: a joint multi-source field
+                   sampled by a chain ensemble, ChEES in the whitened space
+                   of a pooled dense metric by default; ``tiled=true`` takes
+                   the block-sparse tiled likelihood, ``n_galaxies`` mixes
+                   galaxies into the scene.
 
-Every other config of the JAX package, and the NUTS, ChEES and slice
-samplers, the dense metric, multi-band scenes and checkpoint/resume, raise
-"not yet ported" (ROADMAP.md lists them).
+Samplers: mh, hmc, nuts and chees, each after an adaptive HMC warmup
+(except mh); ``metric=dense`` samples in the whitened space.  The other
+configs of the JAX package, the slice and tempered samplers, multi-band
+scenes and checkpoint/resume raise "not yet ported" (ROADMAP.md lists them).
 
 Run:  python -m celeste_tpu_torch.run config=star_single n_chains=64 n_steps=2000
+      python -m celeste_tpu_torch.run config=crowded_field tiled=true n_galaxies=2
 Flat ``key=value`` overrides are parsed onto the dataclass.  ``device``
 defaults to ``cuda`` and raises where CUDA is absent; ``device=cpu`` runs
 the plain PyTorch path.
@@ -28,7 +34,7 @@ import torch
 @dataclass
 class ExperimentConfig:
     name: str = "star_single"
-    sampler: str = "mh"            # mh | hmc
+    sampler: str = "mh"            # mh | hmc | nuts | chees
     n_chains: int = 64
     n_steps: int = 1000
     n_warmup: int = 300
@@ -37,11 +43,15 @@ class ExperimentConfig:
     # scene
     shape: tuple = (25, 25)
     flux_r: float = 30.0
+    n_sources: int = 1
     bands: tuple = (2,)
     # sampler knobs
     step_size: float = 0.0         # 0 = auto (warmup adaptation)
+    max_depth: int = 6
     n_leapfrog: int = 16
-    metric: str = "diag"           # diag (dense is not yet ported)
+    metric: str = "diag"           # diag | dense (pooled ensemble whitening)
+    tiled: bool = False            # crowded_field: block-sparse tiled loglik
+    n_galaxies: int = 0            # crowded_field: mixed star/galaxy scenes
     # io
     out: str = ""
     checkpoint_every: int = 0      # not yet ported: must stay 0
@@ -79,6 +89,11 @@ def parse_overrides(cfg: ExperimentConfig, argv):
 CONFIGS = {
     "star_single": ExperimentConfig(name="star_single", sampler="mh", n_chains=64,
                                     n_steps=3000, bands=(2,)),
+    # chees + dense metric: the JAX package's measured-best crowded sampler;
+    # sampler=nuts metric=diag restores the reference-style configuration
+    "crowded_field": ExperimentConfig(name="crowded_field", sampler="chees", metric="dense",
+                                      n_chains=256, n_steps=500, shape=(41, 41),
+                                      n_sources=10, bands=(2,)),
 }
 
 
@@ -109,25 +124,95 @@ def _star_problem(cfg: ExperimentConfig, device):
     return scene, logd, x0
 
 
+def _crowded_problem(cfg: ExperimentConfig, device):
+    from celeste_tpu_torch.data.synthetic import galaxy_source, make_synthetic_stamp, star_source
+    from celeste_tpu_torch.parallel.crowded import (
+        CrowdedScene, make_crowded_logdensity, make_tiled_crowded_logdensity,
+    )
+
+    rng = np.random.default_rng(cfg.seed)
+    half = cfg.shape[0] * 0.396 / 2.0 - 2.0
+    n_gal = min(cfg.n_galaxies, cfg.n_sources)
+    kinds = tuple("galaxy" if i < n_gal else "star" for i in range(cfg.n_sources))
+    srcs = []
+    for i in range(cfg.n_sources):
+        de, dn = rng.uniform(-half, half, 2)
+        u = (30 + de / 3600 / np.cos(np.deg2rad(10)), 10 + dn / 3600)
+        if kinds[i] == "galaxy":
+            srcs.append(galaxy_source(u=u, flux_r=2.0 * cfg.flux_r, sigma=0.8, ab=0.6))
+        else:
+            srcs.append(star_source(u=u, flux_r=cfg.flux_r * rng.uniform(0.5, 2.0)))
+    scene = make_synthetic_stamp(srcs, shape=cfg.shape, bands=cfg.bands, seed=cfg.seed,
+                                 device=device)
+    cs = CrowdedScene(kinds=kinds, n_bands=1)
+    stamp = scene.stamps[0]
+    if cfg.tiled:
+        # BASELINE config 5's production path: block-sparse tiles with
+        # per-block amplitude-aware support radii
+        from celeste_tpu_torch.model.galaxy import block_support_radii
+
+        du = torch.as_tensor(np.stack([scene.wcs.equa2duas(s["u"]) for s in srcs]),
+                             dtype=torch.float32, device=device)
+        pos_px = stamp.duas2pixel(du).cpu().numpy()
+        psf_sig = float(np.sqrt(np.max(np.linalg.eigvalsh(stamp.psf.cov.cpu().numpy()))))
+        radii = block_support_radii(kinds, psf_sigma_px=psf_sig, gal_sigma_px=1.5 * 0.8 / 0.396)
+        logd, _ = make_tiled_crowded_logdensity(cs, stamp, band=0, positions_px=pos_px,
+                                                radii_px=radii)
+    else:
+        logd = make_crowded_logdensity(cs, [stamp], bands=[0])
+    parts = []
+    for s_, kind in zip(srcs, kinds):
+        du = scene.wcs.equa2duas(s_["u"])
+        if kind == "star":
+            parts.append(np.concatenate([du, [np.log(s_["flux"][cfg.bands[0]])]]))
+        else:
+            th, ab = s_["theta_dev"], s_["ab"]
+            parts.append(np.concatenate(
+                [du, [np.log(s_["flux"][cfg.bands[0]]), np.log(th / (1 - th)),
+                      np.log(s_["sigma"]), np.log(ab / (1 - ab)), s_["phi"]]]))
+    x0 = np.concatenate(parts).astype(np.float32)
+    return scene, logd, x0
+
+
+_PROBLEMS = {"star_single": _star_problem, "crowded_field": _crowded_problem}
+
+
 def _check_ported(cfg: ExperimentConfig):
-    if cfg.name != "star_single":
+    if cfg.name not in _PROBLEMS:
         raise NotImplementedError(f"config {cfg.name!r} is not yet ported to "
                                   f"celeste_tpu_torch (see ROADMAP.md)")
-    if cfg.sampler not in ("mh", "hmc"):
+    if cfg.sampler not in ("mh", "hmc", "nuts", "chees"):
         raise NotImplementedError(f"sampler {cfg.sampler!r} is not yet ported")
-    if cfg.metric != "diag":
-        raise NotImplementedError(f"metric={cfg.metric!r} (whitening) is not yet ported")
+    if cfg.metric not in ("diag", "dense"):
+        raise ValueError(f"metric must be diag or dense, got {cfg.metric!r}")
     if len(cfg.bands) != 1:
-        raise NotImplementedError("multi-band star posteriors (config 2) are not yet ported")
+        raise NotImplementedError("multi-band posteriors (config 2) are not yet ported")
     if cfg.checkpoint_every or cfg.resume:
         raise NotImplementedError("checkpoint/resume is not yet ported")
+    if cfg.sampler == "chees" and cfg.thin != 1:
+        raise ValueError("the chees sampler does not support thinning")
+
+
+def _dense_metric(cfg, gen, logd, states, step_size, inv_mass, logger):
+    """Pool a dense metric from a short NUTS probe with the diagonal metric,
+    whiten, and re-warm the step size in z-space.  Returns the z-space
+    (logd, states, step size, unit inverse mass) and the map back to x."""
+    from celeste_tpu_torch.inference import dense_metric_from_probe
+
+    out = dense_metric_from_probe(gen, logd, states, step_size, inv_mass,
+                                  probe_steps=min(16, max(4, cfg.n_warmup // 8)),
+                                  n_zwarm=max(20, cfg.n_warmup // 5),
+                                  n_leapfrog=cfg.n_leapfrog, max_depth=cfg.max_depth)
+    logger.log("dense_metric", step_size=out["step_z"])
+    return out["logd_z"], out["states_z"], out["step_z"], torch.ones_like(inv_mass), out["to_x"]
 
 
 def run_experiment(cfg: ExperimentConfig):
     """Execute one experiment; returns a results dict (also written to
     ``cfg.out`` if set)."""
     from celeste_tpu_torch.inference import (
-        hmc_kernel, hmc_warmup, mh_init, mh_kernel, run_chains_ensemble, summarize,
+        chees_warmup, hmc_kernel, hmc_warmup, mh_init, mh_kernel, nuts_kernel,
+        run_chains_ensemble, run_chees_ensemble, summarize,
     )
     from celeste_tpu_torch.utils.metrics import MetricsLogger
 
@@ -137,7 +222,7 @@ def run_experiment(cfg: ExperimentConfig):
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     logger.log("start", config=dataclasses.asdict(cfg) | {"device_kind": kind})
 
-    scene, logd, x0 = _star_problem(cfg, device)
+    scene, logd, x0 = _PROBLEMS[cfg.name](cfg, device)
     d = x0.shape[0]
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
@@ -145,7 +230,8 @@ def run_experiment(cfg: ExperimentConfig):
     x0b = (torch.as_tensor(x0, **kw)[None, :]
            + 0.01 * torch.randn((cfg.n_chains, d), generator=gen, **kw))
 
-    step_size = None
+    result = {}
+    to_x = None
     with torch.no_grad():
         if cfg.sampler == "mh":
             kern = mh_kernel(logd, step_scales=torch.full((d,), 0.01, **kw))
@@ -157,22 +243,48 @@ def run_experiment(cfg: ExperimentConfig):
             step_size = cfg.step_size or float(torch.quantile(ss, 0.5))
             inv_mass = torch.mean(im, dim=0)
             logger.log("warmup", step_size=step_size)
-            kern = hmc_kernel(logd, step_size, inv_mass, n_leapfrog=cfg.n_leapfrog)
-        samples, _, info = run_chains_ensemble(gen, kern, init, n_steps=cfg.n_steps,
-                                               thin=cfg.thin)
+            if cfg.metric == "dense":
+                logd, init, step_size, inv_mass, to_x = _dense_metric(
+                    cfg, gen, logd, init, step_size, inv_mass, logger)
+            result["step_size"] = step_size
+            if cfg.sampler == "hmc":
+                kern = hmc_kernel(logd, step_size, inv_mass, n_leapfrog=cfg.n_leapfrog)
+            elif cfg.sampler == "nuts":
+                kern = nuts_kernel(logd, step_size, inv_mass, max_depth=cfg.max_depth)
+            else:
+                # ensemble-adaptive jittered HMC: joint (eps, T) adaptation
+                # pooled across the chains; it assumes unit mass, which the
+                # dense metric supplies
+                init, eps, traj = chees_warmup(gen, logd, init.x,
+                                               n_warmup=max(100, cfg.n_warmup // 2),
+                                               init_step_size=step_size,
+                                               max_leapfrog=4 * cfg.n_leapfrog)
+                result["step_size"], result["trajectory_length"] = float(eps), float(traj)
+                logger.log("chees_warmup", step_size=float(eps), trajectory_length=float(traj))
+        if cfg.sampler == "chees":
+            samples, _, info = run_chees_ensemble(
+                gen, logd, init, n_steps=cfg.n_steps, step_size=result["step_size"],
+                trajectory_length=result["trajectory_length"], max_leapfrog=4 * cfg.n_leapfrog)
+            accept, diverged = info.accept_rate, info.divergence_rate
+        else:
+            samples, _, info = run_chains_ensemble(gen, kern, init, n_steps=cfg.n_steps,
+                                                   thin=cfg.thin)
+            accept = info.accept_prob if cfg.sampler == "nuts" else info.accepted
+            diverged = info.diverged if cfg.sampler == "nuts" else None
+        if to_x is not None:
+            samples = to_x(samples)
         kept = samples[:, samples.shape[1] // 4:]
         summ = summarize(kept)
-        accept_rate = float(torch.mean(info.accepted.to(torch.float32)))
+        result["accept_rate"] = float(torch.mean(accept.to(torch.float32)))
+        if diverged is not None:
+            result["divergence_rate"] = float(torch.mean(diverged.to(torch.float32)))
     logger.log("done", rhat_max=float(torch.max(summ["rhat"])),
-               ess_min=float(torch.min(summ["ess"])), accept_rate=accept_rate,
+               ess_min=float(torch.min(summ["ess"])), accept_rate=result["accept_rate"],
                mean=summ["mean"], std=summ["std"])
     logger.close()
-    result = {"samples": samples.cpu().numpy(), "x0": x0,
-              "mean": summ["mean"].cpu().numpy(), "std": summ["std"].cpu().numpy(),
-              "rhat": summ["rhat"].cpu().numpy(), "ess": summ["ess"].cpu().numpy(),
-              "accept_rate": accept_rate}
-    if step_size is not None:
-        result["step_size"] = step_size
+    result.update({"samples": samples.cpu().numpy(), "x0": x0,
+                   "mean": summ["mean"].cpu().numpy(), "std": summ["std"].cpu().numpy(),
+                   "rhat": summ["rhat"].cpu().numpy(), "ess": summ["ess"].cpu().numpy()})
     if cfg.out:
         np.savez(cfg.out, **result)
     return result

@@ -3,18 +3,38 @@
 
 Every kernel is a ``(generator, state) -> (state, info)`` step over a
 [B, D] batch of chains; time is a Python loop.  Ported so far: MH, HMC with
-its adaptive warmup, diagnostics and the star posterior.  Slice, NUTS,
-ChEES, whitening and the rest are listed in ROADMAP.md.
+its adaptive warmup, NUTS, ChEES-HMC with its ensemble warmup, the
+dense-metric whitening, diagnostics and the star posterior.  Slice and the
+rest are listed in ROADMAP.md.
 """
 
 from celeste_tpu_torch.inference.mh import mh_init, mh_kernel  # noqa: F401
 from celeste_tpu_torch.inference.hmc import (  # noqa: F401
+    HMCState,
     hmc_init,
     hmc_kernel,
     hmc_warmup,
     hmc_warmup_finish,
     hmc_warmup_init,
     hmc_warmup_window,
+)
+from celeste_tpu_torch.inference.nuts import NUTSInfo, nuts_kernel  # noqa: F401
+from celeste_tpu_torch.inference.chees import (  # noqa: F401
+    ChEESAdaptState,
+    ChEESInfo,
+    ChEESState,
+    chees_init,
+    chees_warmup,
+    chees_warmup_finish,
+    chees_warmup_init,
+    chees_warmup_window,
+    run_chees_ensemble,
+)
+from celeste_tpu_torch.inference.whiten import (  # noqa: F401
+    dense_metric_from_probe,
+    ensemble_covariance,
+    whiten_logdensity,
+    whitened_chees_run,
 )
 from celeste_tpu_torch.inference.runner import run_chains_ensemble  # noqa: F401
 from celeste_tpu_torch.inference.diagnostics import ess, split_rhat, summarize  # noqa: F401

@@ -8,9 +8,12 @@ both packages.
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import torch
 
+from celeste_tpu_torch.inference.chees import ChEESState
 from celeste_tpu_torch.inference.hmc import HMCState
 from celeste_tpu_torch.model.params import GalaxyParams, StarParams
 from celeste_tpu_torch.model.stamp import Stamp
@@ -46,3 +49,42 @@ def hmc_warm_state_from_numpy(x, logp, grad, step_size, inv_mass, device="cpu"):
     grad [B, D]; step_size; inv_mass), as a per-chain warmup leaves them."""
     state = HMCState(x=_t(x, device), logp=_t(logp, device), grad=_t(grad, device))
     return state, _t(step_size, device), _t(inv_mass, device)
+
+
+def chees_state_from_numpy(xs, logps, grads, device="cpu") -> ChEESState:
+    """A ChEES ensemble state: xs [B, D], logps [B], grads [B, D]."""
+    return ChEESState(xs=_t(xs, device), logps=_t(logps, device), grads=_t(grads, device))
+
+
+# leaves of a config-5 preparation artifact, in the pytree order the JAX
+# package's checkpoint writes them (dict keys sorted; HMCState as x, logp, grad)
+_PREP_LEAVES = ("cov_hat", "inv_mass", "m_hat", "states_x.x", "states_x.logp", "states_x.grad",
+                "states_z.x", "states_z.logp", "states_z.grad", "step_size", "step_z")
+
+
+def load_config5_prep(path, device="cpu"):
+    """Load a config-5 warm-start artifact of the JAX package
+    (``celeste_tpu/bench/artifacts/config5_prep.npz``): plain arrays
+    ``leaf_0..leaf_10`` whose pytree order ``__meta__`` records.
+
+    Returns a dict: ``m_hat`` [D] and ``cov_hat`` [D, D] (the whitening
+    moments), ``inv_mass`` [D], ``states_x`` and ``states_z`` (HMCStates of
+    the warmed x-space and z-space ensembles), ``step_size`` and ``step_z``
+    (floats) and ``meta`` (the artifact's own metadata).  The saved ``logp``
+    fields are whatever the code of the day computed; compare them with a
+    live evaluation before trusting them.
+    """
+    with np.load(path, allow_pickle=False) as f:
+        meta = json.loads(str(f["__meta__"]))
+        if meta.get("n_leaves") != len(_PREP_LEAVES) or "states_z" not in meta["treedef"]:
+            raise ValueError(f"{path} is not a config-5 preparation artifact: {meta}")
+        leaves = {name: np.asarray(f[f"leaf_{i}"]) for i, name in enumerate(_PREP_LEAVES)}
+    out = {"meta": meta, "step_size": float(leaves["step_size"]),
+           "step_z": float(leaves["step_z"])}
+    for name in ("m_hat", "cov_hat", "inv_mass"):
+        out[name] = _t(leaves[name], device)
+    for name in ("states_x", "states_z"):
+        out[name] = HMCState(x=_t(leaves[f"{name}.x"], device),
+                             logp=_t(leaves[f"{name}.logp"], device),
+                             grad=_t(leaves[f"{name}.grad"], device))
+    return out

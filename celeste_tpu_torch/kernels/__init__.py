@@ -7,3 +7,7 @@ from celeste_tpu_torch.kernels.mog_field import (  # noqa: F401
     mog_field_loglik,
     stamp_pixel_data,
 )
+from celeste_tpu_torch.kernels.tiled_field import (  # noqa: F401
+    TiledStampData,
+    tiled_field_loglik,
+)

@@ -42,11 +42,12 @@ def _nvcc() -> str:
 
 def build_library(name: str, sources) -> Path:
     """Compile ``sources`` (file names under csrc/) into one shared library
-    unless it is built; the file name carries the hash of sources and flags."""
+    unless it is built; the file name carries the hash of the sources, the
+    shared headers (csrc/*.cuh) and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.encode())
-        h.update((CSRC_DIR / src).read_bytes())
+    for path in [CSRC_DIR / s for s in sources] + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out

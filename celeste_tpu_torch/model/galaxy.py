@@ -40,3 +40,32 @@ def galaxy_profile_mog(theta_dev, shape_cov_px) -> MoG2D:
     cov = vars_[:, None, None] * shape_cov_px[..., None, :, :]
     mu = torch.zeros(*theta_dev.shape, N_GAL, 2, **kw)
     return MoG2D(w, mu, cov)
+
+
+def block_support_radii(kinds, psf_sigma_px, gal_sigma_px, rel_eps: float = 1e-4,
+                        slack_px: float = 2.0):
+    """Per-block support radii [S, N_GAL] for ``parallel.tiles.build_block_tile_map``.
+
+    A component block of table weight a_j and total std sigma_j contributes
+    less than ``rel_eps`` of a unit-flux source outside
+    ``r_j = sigma_j sqrt(2 ln(a_j / rel_eps)) + slack_px``; blocks with
+    a_j <= rel_eps get radius -1 and are dropped from every tile.  Star
+    rows hold the PSF-only radius in column 0 (a star owns one block).
+    ``psf_sigma_px`` is the widest PSF component's std, ``gal_sigma_px`` an
+    upper estimate of the galaxy half-light radius (pixels); ``slack_px``
+    covers the sampled positions' movement.  NumPy, as in the JAX package.
+    """
+    kinds = list(kinds)
+    amps = np.concatenate([np.asarray(EXP_AMPS), np.asarray(DEV_AMPS)])
+    sig_g = np.sqrt(_VARS * float(gal_sigma_px) ** 2 + float(psf_sigma_px) ** 2)
+    with np.errstate(divide="ignore"):
+        arg = 2.0 * np.log(amps / rel_eps)
+    r_gal = np.where(amps > rel_eps, sig_g * np.sqrt(np.maximum(arg, 0.0)) + slack_px, -1.0)
+    r_star = float(psf_sigma_px) * np.sqrt(2.0 * np.log(1.0 / rel_eps)) + slack_px
+    out = np.full((len(kinds), N_GAL), -1.0)
+    for i, kind in enumerate(kinds):
+        if kind == "star":
+            out[i, 0] = r_star
+        else:
+            out[i] = r_gal
+    return out

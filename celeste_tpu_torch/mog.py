@@ -31,6 +31,10 @@ class MoG2D:
     def __repr__(self):  # pragma: no cover
         return f"MoG2D(K={self.w.shape[-1]}, w={self.w}, mu={self.mu}, cov={self.cov})"
 
+    @property
+    def n_components(self) -> int:
+        return self.w.shape[-1]
+
     def shift(self, delta) -> "MoG2D":
         """Translate all components by ``delta`` ([..., 2])."""
         return MoG2D(self.w, self.mu + delta[..., None, :], self.cov)

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where the device time of config 1 (``star_single``) goes, on one NVIDIA GPU.
+"""Where the device time of config 1 (``star_single``) and config 5 (the
+crowded field) goes, on one NVIDIA GPU.
 
     python3 chip_profile.py [--iters N] [--out FILE]
 
-Each call of the config-1 path is run ``N`` times after a warm-up, first
-unprofiled (wall time per call, CUDA synchronized) and then under
-``torch.profiler`` with CUPTI device tracing.  The calls: the star
-log-density and its ``value_and_grad`` at B=64 (the sampling run's chains)
-and at B=65536 (the timing protocol of ``chip_smoke.py``), one HMC step of
-16 leapfrog steps and one MH step at B=64.  For each it prints
+Each call is run ``N`` times after a warm-up, first unprofiled (wall time
+per call, CUDA synchronized) and then under ``torch.profiler`` with CUPTI
+device tracing.  Config 1: the star log-density and its ``value_and_grad``
+at B=64 (the sampling run's chains) and at B=65536 (the timing protocol of
+``chip_smoke.py``), one HMC step of 16 leapfrog steps and one MH step at
+B=64.  Config 5 (12 sources, 48x128, tiled): the log-density and its
+``value_and_grad`` at B=1024, and one whitened ChEES ensemble step of
+``CHEES_LEAPFROGS`` leapfrog steps at B=1024.  For each it prints
 
     wall ms/call (unprofiled), device busy ms/call (sum of the device
     kernels' times in the trace), idle share = 1 - busy / wall, and device
@@ -33,6 +36,10 @@ from torch.profiler import ProfilerActivity, profile
 
 SAMPLING_CHAINS = 64
 BENCH_CHAINS = 65536
+CONFIG5_CHAINS = 1024
+# the config-5 ChEES arm of chip_smoke.py takes about 5 leapfrog steps per
+# step on the H100 (PERF.md section 5)
+CHEES_LEAPFROGS = 5
 
 
 def breakdown(fn, iters, activities):
@@ -52,6 +59,39 @@ def breakdown(fn, iters, activities):
     busy_ms = sum(e.self_device_time_total for e in events) * 1e-3 / iters
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
     return wall_ms, busy_ms, len(events) / iters, table
+
+
+def config5_calls(device):
+    """The config-5 calls to profile, as (name, zero-argument function)."""
+    from celeste_tpu_torch.bench.config5 import build_config5
+    from celeste_tpu_torch.inference import ensemble_covariance, whiten_logdensity
+    from celeste_tpu_torch.inference.chees import _ensemble_step, chees_init
+    from celeste_tpu_torch.inference.hmc import value_and_grad
+
+    logd, _, vec, _ = build_config5(device=device)
+    rng = np.random.default_rng(0)
+    vecs = vec[None] + torch.as_tensor(0.01 * rng.normal(size=(CONFIG5_CHAINS, vec.shape[0])),
+                                       dtype=torch.float32, device=device)
+    # a whitened space pooled from the chains themselves: the ChEES arm's
+    # step structure (whitening maps, n_leap gradients, accept) at B=1024
+    logd_z, _, to_z = whiten_logdensity(logd, *ensemble_covariance(vecs, ridge=1e-4))
+    state = [chees_init(to_z(vecs), logd_z)]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+
+    def chees_step():
+        with torch.no_grad():
+            state[0] = _ensemble_step(gen, state[0], logd_z, 0.3, CHEES_LEAPFROGS)[0]
+
+    def no_grad():
+        with torch.no_grad():
+            logd(vecs)
+
+    return [
+        (f"config-5 logdensity B={CONFIG5_CHAINS}", no_grad),
+        (f"config-5 value_and_grad B={CONFIG5_CHAINS}", lambda: value_and_grad(logd, vecs)),
+        (f"config-5 ChEES step ({CHEES_LEAPFROGS} leapfrog) B={CONFIG5_CHAINS}", chees_step),
+    ]
 
 
 def calls(device):
@@ -113,15 +153,18 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.kernels import tiled_field as tf
 
     mf.build_kernels()
+    tf.build_kernels()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     lines = [f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}"]
     tables = []
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for name, fn in calls(torch.device("cuda:0")):
+    device = torch.device("cuda:0")
+    for name, fn in calls(device) + config5_calls(device):
         wall, busy, ops, table = breakdown(fn, args.iters, activities)
         if ops == 0:
             raise RuntimeError(f"chip_profile: the trace of {name!r} holds no device op")

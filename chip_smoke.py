@@ -6,24 +6,46 @@
 Phases, each of which fails loudly (non-zero exit, no caught exception):
 
 1. require CUDA and print the card's name and power limit;
-2. build the CUDA kernels of ``celeste_tpu_torch/csrc`` with nvcc (sm_90a);
-3. hold the forward kernel against its plain PyTorch version on the card:
-   star (C=3) and galaxy (C=48) planes, B=1000 and 4096, centered both
-   ways, a full mask and one with zeros; rtol 2e-6, atol 0.5 (galaxies 1.0),
-   the tolerances of the JAX package's kernel tests;
-4. hold the backward kernel against torch autograd through the plain
-   version, rtol 5e-4, atol 5e-2, and check that a zero-amplitude component
-   gives finite gradients;
-5. drive the main path through its entry point, ``run_experiment`` of
-   config 1 (``star_single``: 64 chains, one 25x25 r-band stamp) with MH as
-   written and then with HMC, with every kernel launch counter set to 0
-   just before and read just after; fail on max R-hat > 1.1, on a truth
-   outside mean +- 5 std, or on a kernel the run never launched; check the
-   card's log-likelihood at the truth against the fp64 NumPy oracle;
-6. time the stamp log-likelihood at B=65536 chains on the 25x25 r-band
-   stamp (kernel and plain version, best of 3 after a warm-up, CUDA events)
-   and one HMC gradient at B=65536;
-7. print the kernels' JSON line, the card line, and the result line.
+2. build the CUDA libraries of ``celeste_tpu_torch/csrc`` with nvcc (sm_90a),
+   one nvcc per source, all started together;
+3. hold the stamp kernels (K1-fwd, K1-bwd) against their plain PyTorch
+   versions: star (C=3) and galaxy (C=48) planes, B=1000 and 4096, centered
+   both ways, full and holed masks; values rtol 2e-6, atol 0.5 (galaxies
+   1.0), gradients rtol 5e-4, atol 5e-2, and finite gradients for a
+   zero-amplitude component;
+4. hold the tiled kernels (K2, K3, K4) against theirs on config-5 planes at
+   B=1000 and 4096, centered both ways, full and holed masks: K2 and K3's
+   log-likelihood rtol 2e-6, atol 1.0; K3's lambda rtol 1e-5, atol 1e-3; K4
+   against torch autograd through the plain forward, rtol 5e-4, atol 0.1;
+   K4 on the random-plane setup with repeated sentinel slots, rtol 2e-4,
+   atol 5e-3; K4 twice on the same inputs, bitwise equal; a table of
+   sentinels only adds exactly 0 with finite gradients;
+5. the card's log-likelihood at the truth against the fp64 NumPy oracle,
+   for config 1 (25x25 stamp) and config 5 (tiled, 48x128 field), and the
+   config-5 tiled-vs-dense parity gate (gap < 1 nat; a 0.05 radii cut trips
+   it above 100);
+6. drive config 1 through its entry point, ``run_experiment`` of
+   ``star_single`` (64 chains), MH as written and HMC, with the stamp
+   kernels' counters set to 0 just before and read just after; fail on
+   max R-hat > 1.1, on a truth outside mean +- 5 std, or on a kernel the
+   run never launched;
+7. drive config 5 at full width (12 sources, 48x128, 1024 chains) with every
+   counter set to 0 just before and read just after: ``build_config5`` ->
+   parity -> ``config5_warmup_and_whiten`` -> ``measure_chees_z`` ->
+   ``measure_nuts_z``, then ``run_experiment`` of ``crowded_field`` with
+   ``tiled=true n_galaxies=2``; gates: finite samples, ChEES accept >= 0.4,
+   divergence <= 0.05 in both arms, max split-R-hat <= 1.1 on the ChEES
+   arm; check the whitening maps on the card against float64 on the host;
+   fail on a tiled kernel the run never launched;
+8. time with CUDA events (best of 3 after a warm-up): config 1 at B=65536
+   (K1 and the HMC gradient, kernel and plain); K2, K3 and K4 over config
+   5's field at B=1024 and 4096, and one config-5 ``value_and_grad`` at
+   B=1024, kernel and plain;
+9. print the kernels' JSON line, the card line, and the result line.
+
+Config 5's flow runs the bench's step counts (the defaults of
+``celeste_tpu_torch/bench/config5.py``).  The entry-point runs are cut so
+that the script fits its time, by the constants below (PERF.md lists them).
 """
 
 from __future__ import annotations
@@ -33,6 +55,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -40,7 +63,17 @@ import torch
 FWD_TOL = {"star": (2e-6, 0.5), "galaxy": (2e-6, 1.0)}   # (rtol, atol)
 BWD_TOL = (5e-4, 5e-2)
 ORACLE_TOL = (2e-6, 1.0)
+TILED_TOL = (2e-6, 1.0)
+TILED_BWD_TOL = (5e-4, 0.1)
+RANDOM_BWD_TOL = (2e-4, 5e-3)
+LAM_TOL = (1e-5, 1e-3)
 BENCH_CHAINS = 65536
+C5_CHAINS = 1024
+TIMING_CHAINS = (1024, 4096)   # the config-5 kernel timings
+# the entry point's crowded_field run (defaults: 300 warmup, 500 steps, 16 leapfrog)
+ENTRY_CROWDED = dict(n_warmup=64, n_steps=64, n_leapfrog=8)
+# config 1's HMC run at full length (300 warmup, 500 steps)
+STAR_HMC = dict(n_steps=500, n_warmup=300)
 
 
 def check(ok, msg):
@@ -83,6 +116,10 @@ def card_line():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
+# ---------------------------------------------------------------------------
+# config 1: the stamp kernels
+# ---------------------------------------------------------------------------
+
 def scenes(device):
     from celeste_tpu_torch.data.synthetic import galaxy_source, make_synthetic_stamp, star_source
 
@@ -106,8 +143,8 @@ def source_vecs(scene, kind, n, seed):
     return (base[None, :] + 0.05 * rng.normal(size=(n, base.size))).astype(np.float32)
 
 
-def kernel_checks(device):
-    """Phases 3 and 4: each kernel against its plain version on the card."""
+def stamp_kernel_checks(device):
+    """Phase 3: K1-fwd and K1-bwd against their plain versions."""
     from celeste_tpu_torch.kernels import mog_field as mf
 
     errs = {"fwd": 0.0, "bwd": 0.0}
@@ -127,7 +164,7 @@ def kernel_checks(device):
                     got = mf.loglik_fwd_cuda(*planes, *pix, centered=centered)
                     want = mf._loglik_torch(*planes, *pix, centered=centered)
                     torch.cuda.synchronize()
-                    what = f"fwd {kind} B={b} mask={mname} centered={centered}"
+                    what = f"K1-fwd {kind} B={b} mask={mname} centered={centered}"
                     errs["fwd"] = max(errs["fwd"], max_abs_err(got, want, rtol, atol, what))
             g = torch.as_tensor(np.random.default_rng(b + 1).normal(size=b).astype(np.float32),
                                 device=device)
@@ -141,19 +178,173 @@ def kernel_checks(device):
                 want = torch.autograd.grad(mf._loglik_torch(*leaves, *pix), leaves, g)
                 torch.cuda.synchronize()
                 for name, a, w in zip(("amp", "mx", "my", "pa", "pb", "pc"), got, want):
-                    what = f"bwd {kind} B={b} {aname} d_{name}"
+                    what = f"K1-bwd {kind} B={b} {aname} d_{name}"
                     errs["bwd"] = max(errs["bwd"], max_abs_err(a, w, *BWD_TOL, what))
-        print(f"[kernels] {kind}: forward and backward match the plain version", flush=True)
+        print(f"[kernels] K1 {kind}: forward and backward match the plain version", flush=True)
     return errs
 
 
-def main_path(device):
-    """Phase 5: config 1 through run_experiment, MH then HMC."""
+# ---------------------------------------------------------------------------
+# config 5: the tiled kernels
+# ---------------------------------------------------------------------------
+
+def c5_planes(config5, n, seed):
+    """Config-5 block planes of ``n`` chains scattered around the truth."""
+    from celeste_tpu_torch.kernels import tiled_field as tf
+
+    _, _, vec, info = config5
+    rng = np.random.default_rng(seed)
+    vecs = vec[None] + torch.as_tensor(0.01 * rng.normal(size=(n, vec.shape[0])),
+                                       dtype=torch.float32, device=vec.device)
+    return [p.contiguous() for p in tf.scene_planes_blocked(info["scene"], vecs, info["stamp"], 0)]
+
+
+def autograd_plain(planes, tile_src, pixels, g, chunk=128):
+    """Torch autograd through the plain tiled forward, a chain chunk at a time."""
+    from celeste_tpu_torch.kernels import tiled_field as tf
+
+    out = []
+    for c0 in range(0, planes[0].shape[0], chunk):
+        leaves = [p[c0:c0 + chunk].detach().clone().requires_grad_(True) for p in planes]
+        ll = tf._tiled_torch(leaves, tile_src, pixels, 3)
+        out.append(torch.autograd.grad(ll, leaves, g[c0:c0 + chunk]))
+    return [torch.cat(d) for d in zip(*out)]
+
+
+def random_tile_problem(device, seed, b):
+    """The tiled module's random problem on the card: planes (zero sentinel
+    slot last), the table on the card and as NumPy, pixel tiles and g [b]."""
+    from celeste_tpu_torch.kernels import tiled_field as tf
+
+    planes, tile_src, pixels, g = tf.random_tile_problem(seed=seed, b=b)
+    return ([torch.as_tensor(p, device=device) for p in planes],
+            torch.as_tensor(tile_src, device=device), tile_src,
+            [torch.as_tensor(p, device=device) for p in pixels], torch.as_tensor(g, device=device))
+
+
+def tiled_kernel_checks(device, config5):
+    """Phase 4: K2, K3 and K4 against their plain versions."""
+    from celeste_tpu_torch.kernels import tiled_field as tf
+
+    errs = {"K2": 0.0, "K3": 0.0, "K4": 0.0, "K4 random": 0.0}
+    buckets = config5[3]["tiled_data"].bucket_tables
+    for b in (1000, 4096):
+        planes = c5_planes(config5, b, seed=b)
+        g = torch.as_tensor(np.random.default_rng(b + 1).normal(size=b).astype(np.float32),
+                            device=device)
+        for i, bk in enumerate(buckets):
+            holed = bk.pixels[4].clone()
+            holed[:, ::7] = 0.0
+            for mname, mask in (("full", bk.pixels[4]), ("holed", holed)):
+                pix = (*bk.pixels[:4], mask)
+                for centered in (False, True):
+                    what = f"B={b} bucket={i} mask={mname} centered={centered}"
+                    want, want_lam = tf._tiled_lam_torch(planes, bk.tile_src, pix, 3, centered)
+                    got = tf.tiled_fwd_cuda(*planes, bk.tile_src, *pix, n_comp=3,
+                                            centered=centered)
+                    ll, lam = tf.tiled_fwd_lam_cuda(*planes, bk.tile_src, *pix, n_comp=3,
+                                                    centered=centered)
+                    torch.cuda.synchronize()
+                    errs["K2"] = max(errs["K2"], max_abs_err(got, want, *TILED_TOL, "K2 " + what))
+                    errs["K3"] = max(errs["K3"], max_abs_err(ll, want, *TILED_TOL, "K3 " + what))
+                    max_abs_err(lam, want_lam, *LAM_TOL, "K3 lambda " + what)
+            _, lam = tf.tiled_fwd_lam_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=3)
+            cols = bk.columns(3, planes[0].shape[1])
+            got = tf.tiled_bwd_cuda(*planes, bk.tile_src, *bk.pixels, lam, g, *cols, n_comp=3)
+            again = tf.tiled_bwd_cuda(*planes, bk.tile_src, *bk.pixels, lam, g, *cols, n_comp=3)
+            want = autograd_plain(planes, bk.tile_src, bk.pixels, g)
+            torch.cuda.synchronize()
+            for name, a, w, a2 in zip(("amp", "mx", "my", "pa", "pb", "pc"), got, want, again):
+                errs["K4"] = max(errs["K4"], max_abs_err(a, w, *TILED_BWD_TOL,
+                                                         f"K4 B={b} bucket={i} d_{name}"))
+                check(torch.equal(a, a2), f"K4 B={b} bucket={i} d_{name}: two calls differ")
+    for b in (37, 1000):
+        planes, ts, ts_np, pix, g = random_tile_problem(device, seed=b, b=b)
+        want_ll, want_lam = tf._tiled_lam_torch(planes, ts, pix, 3)
+        ll, lam = tf.tiled_fwd_lam_cuda(*planes, ts, *pix, n_comp=3)
+        cols = [torch.as_tensor(c, device=device) for c in tf.tile_columns(ts_np, 3, 15)]
+        got = tf.tiled_bwd_cuda(*planes, ts, *pix, lam, g, *cols, n_comp=3)
+        again = tf.tiled_bwd_cuda(*planes, ts, *pix, lam, g, *cols, n_comp=3)
+        hand = tf._tiled_bwd_torch(planes, ts, pix, want_lam, g, 3)
+        auto = autograd_plain(planes, ts, pix, g)
+        torch.cuda.synchronize()
+        max_abs_err(ll, want_ll, 2e-5, 2e-2, f"K3 random B={b}")
+        for name, a, h, w, a2 in zip(("amp", "mx", "my", "pa", "pb", "pc"), got, hand, auto,
+                                     again):
+            max_abs_err(a, h, *RANDOM_BWD_TOL, f"K4 random B={b} d_{name} vs plain K4")
+            errs["K4 random"] = max(errs["K4 random"], max_abs_err(
+                a, w, *RANDOM_BWD_TOL, f"K4 random B={b} d_{name} vs autograd"))
+            check(torch.equal(a, a2), f"K4 random B={b} d_{name}: two calls differ")
+        only_sentinel = torch.full_like(ts, 4)
+        _, lam = tf.tiled_fwd_lam_cuda(*planes, only_sentinel, *pix, n_comp=3)
+        check(torch.equal(lam, pix[3][:, None, :].expand_as(lam)), "sentinel slots add to lambda")
+        cols = [torch.as_tensor(c, device=device)
+                for c in tf.tile_columns(only_sentinel.cpu().numpy(), 3, 15)]
+        grads = tf.tiled_bwd_cuda(*planes, only_sentinel, *pix, lam, g, *cols, n_comp=3)
+        check(all(bool(torch.isfinite(d).all()) for d in grads), "sentinel gradients not finite")
+    print(f"[kernels] K2, K3, K4 match the plain versions (max abs err {errs}); "
+          f"K4 is bitwise deterministic", flush=True)
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# oracle and parity
+# ---------------------------------------------------------------------------
+
+def oracle_checks(device, config5):
+    """Phase 5: the card's log-likelihoods at the truth against the fp64
+    NumPy oracle (config 1 and config 5), and config 5's parity gate."""
+    from celeste_tpu_torch.bench.config5 import build_config5, config5_parity_gap
+    from celeste_tpu_torch.data.synthetic import make_synthetic_stamp, star_source
+    from celeste_tpu_torch.kernels import tiled_field as tf
+    from celeste_tpu_torch.kernels.mog_field import batched_stamp_loglik
+    from celeste_tpu_torch.oracle.forward import (
+        oracle_poisson_loglik, oracle_scene_lambda, oracle_star_lambda,
+    )
+
+    src = star_source(u=(30.00005, 10.00008), flux_r=30.0)
+    scene = make_synthetic_stamp([src], shape=(25, 25), bands=(2,), seed=0, device=device)
+    ost = scene.oracle_stamps[0]
+    want = oracle_poisson_loglik(oracle_star_lambda(src["u"], src["flux"][2], ost),
+                                 ost["counts"])
+    x = np.concatenate([scene.wcs.equa2duas(src["u"]), [np.log(src["flux"][2])]])
+    got = batched_stamp_loglik(torch.as_tensor(x[None], dtype=torch.float32, device=device),
+                               scene.stamps[0], band=0, kind="star", n_bands=1)
+    err = max_abs_err(got.cpu(), torch.tensor([want]), *ORACLE_TOL, "config-1 loglik vs oracle")
+    print(f"[oracle] config 1 loglik at truth: card {float(got[0]):.3f} oracle {want:.3f} "
+          f"abs err {err:.4g}", flush=True)
+
+    logd, logd_dense, vec, info = config5
+    ost = info["oracle_stamp"]
+    srcs = [dict(s, flux=float(s["flux"][2])) for s in info["sources"]]
+    want = oracle_poisson_loglik(oracle_scene_lambda(srcs, ost), ost["counts"])
+    planes = tf.scene_planes_blocked(info["scene"], vec[None], info["stamp"], 0)
+    with torch.no_grad():
+        got = tf.tiled_field_loglik(planes, info["tiled_data"], n_comp=3)
+    err = max_abs_err(got.cpu(), torch.tensor([want]), *ORACLE_TOL, "config-5 loglik vs oracle")
+    print(f"[oracle] config 5 tiled loglik at truth: card {float(got[0]):.3f} oracle "
+          f"{want:.3f} abs err {err:.4g}", flush=True)
+
+    gap, rel = config5_parity_gap(logd, logd_dense, vec)
+    check(gap < 1.0, f"config-5 tiled-vs-dense gap {gap:.4g} nats >= 1")
+    cut, _, _, _ = build_config5(radii_scale=0.05, device=device)
+    gap_cut, _ = config5_parity_gap(cut, logd_dense, vec)
+    check(gap_cut > 100.0, f"a 0.05 radii cut moved the gap only to {gap_cut:.4g} nats")
+    print(f"[parity] config 5 tiled vs dense: gap {gap:.6g} nats (rel {rel:.3g}); "
+          f"radii x0.05: {gap_cut:.6g} nats", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the main paths
+# ---------------------------------------------------------------------------
+
+def config1_path(device):
+    """Phase 6: config 1 through run_experiment, MH then HMC."""
     from celeste_tpu_torch.experiments import CONFIGS, run_experiment
     from celeste_tpu_torch.kernels import mog_field as mf
 
     runs = []
-    for sampler, overrides in (("mh", {}), ("hmc", {"n_steps": 500, "n_warmup": 300})):
+    for sampler, overrides in (("mh", {}), ("hmc", STAR_HMC)):
         cfg = copy.deepcopy(CONFIGS["star_single"])
         cfg.device, cfg.sampler = str(device), sampler
         for k, v in overrides.items():
@@ -165,7 +356,7 @@ def main_path(device):
     return runs
 
 
-def report_run(sampler, cfg, res, seconds, counts_after):
+def report_config1(sampler, cfg, res, seconds, counts_after):
     samples = res["samples"]
     check(samples.shape == (cfg.n_chains, cfg.n_steps, 3),
           f"{sampler}: samples shape {samples.shape}")
@@ -173,7 +364,7 @@ def report_run(sampler, cfg, res, seconds, counts_after):
     mean, std, x0 = res["mean"], res["std"], res["x0"]
     rhat_max, ess_min = float(np.max(res["rhat"])), float(np.min(res["ess"]))
     z = np.abs(mean - x0) / std
-    print(f"[main path] star_single sampler={sampler} chains={cfg.n_chains} "
+    print(f"[config 1] star_single sampler={sampler} chains={cfg.n_chains} "
           f"steps={cfg.n_steps} warmup={cfg.n_warmup if sampler == 'hmc' else 0} "
           f"wall={seconds:.3f}s accept={res['accept_rate']:.4f} "
           f"step_size={res.get('step_size', 0.01)} max_rhat={rhat_max:.4f} "
@@ -184,28 +375,80 @@ def report_run(sampler, cfg, res, seconds, counts_after):
     check(bool(np.all(z <= 5.0)), f"{sampler}: truth outside mean +- 5 std (|z|={z})")
 
 
-def oracle_check(device):
-    """The card's log-likelihood at the truth against the fp64 NumPy oracle
-    on the same synthetic stamp."""
-    from celeste_tpu_torch.data.synthetic import make_synthetic_stamp, star_source
-    from celeste_tpu_torch.kernels.mog_field import batched_stamp_loglik
-    from celeste_tpu_torch.oracle.forward import oracle_poisson_loglik, oracle_star_lambda
+def config5_path(device):
+    """Phase 7: config 5 at full width, then crowded_field through the entry point."""
+    from celeste_tpu_torch.bench.config5 import (
+        build_config5, config5_parity_gap, config5_warmup_and_whiten, measure_chees_z,
+        measure_nuts_z,
+    )
+    from celeste_tpu_torch.experiments import CONFIGS, run_experiment
 
-    src = star_source(u=(30.00005, 10.00008), flux_r=30.0)
-    scene = make_synthetic_stamp([src], shape=(25, 25), bands=(2,), seed=0, device=device)
-    ost = scene.oracle_stamps[0]
-    want = oracle_poisson_loglik(oracle_star_lambda(src["u"], src["flux"][2], ost),
-                                 ost["counts"])
-    x = np.concatenate([scene.wcs.equa2duas(src["u"]), [np.log(src["flux"][2])]])
-    got = batched_stamp_loglik(torch.as_tensor(x[None], dtype=torch.float32, device=device),
-                               scene.stamps[0], band=0, kind="star", n_bands=1)
-    err = max_abs_err(got.cpu(), torch.tensor([want]), *ORACLE_TOL, "loglik vs oracle")
-    print(f"[oracle] loglik at truth: card {float(got[0]):.3f} oracle {want:.3f} "
-          f"abs err {err:.4g}", flush=True)
+    t0 = time.perf_counter()
+    logd, logd_dense, vec, info = build_config5(device=device)
+    gap, _ = config5_parity_gap(logd, logd_dense, vec)
+    check(gap < 1.0, f"config-5 parity gap {gap:.4g} nats >= 1")
+    prep = config5_warmup_and_whiten(logd, vec, n_chains=C5_CHAINS)
+    t_prep = time.perf_counter() - t0
+    chees = measure_chees_z(prep)
+    nuts = measure_nuts_z(prep)
+    wall = time.perf_counter() - t0
+    print(f"[config 5] 12 sources, 48x128, {C5_CHAINS} chains: prep {t_prep:.3f}s "
+          f"(step {prep['step_size']:.5f}, z-space step {prep['step_z']:.5f}), "
+          f"flow wall {wall:.3f}s", flush=True)
+    for name, arm in (("ChEES", chees), ("NUTS", nuts)):
+        extra = (f"eps={arm['eps']:.4f} traj={arm['traj']:.4f}" if name == "ChEES"
+                 else f"mean_depth={arm['tree_depth']:.3f}")
+        print(f"    {name}(z): min_ess_per_s={arm['min_ess_per_s']:.6g} "
+              f"min_ess={float(arm['ess'].min()):.1f} accept={arm['accept']:.4f} "
+              f"leapfrogs_per_step={arm['n_leapfrog']:.3f} divergence={arm['divergence']:.4f} "
+              f"max_rhat={arm['max_rhat']:.4f} wall={arm['wall_s']:.3f}s {extra}", flush=True)
+        check(arm["finite"], f"config-5 {name}: non-finite samples")
+        check(arm["divergence"] <= 0.05, f"config-5 {name}: divergence {arm['divergence']:.4f}")
+    check(chees["accept"] >= 0.4, f"config-5 ChEES accept {chees['accept']:.4f} < 0.4")
+    check(chees["max_rhat"] <= 1.1, f"config-5 ChEES max R-hat {chees['max_rhat']:.4f} > 1.1")
+    whitening_check(prep)
+
+    cfg = copy.deepcopy(CONFIGS["crowded_field"])
+    cfg.device, cfg.tiled, cfg.n_galaxies = str(device), True, 2
+    for k, v in ENTRY_CROWDED.items():
+        setattr(cfg, k, v)
+    t1 = time.perf_counter()
+    res = run_experiment(cfg)
+    torch.cuda.synchronize()
+    check(res["samples"].shape == (cfg.n_chains, cfg.n_steps, 8 * 3 + 2 * 7),
+          f"crowded_field samples shape {res['samples'].shape}")
+    check(bool(np.isfinite(res["samples"]).all()), "crowded_field: non-finite samples")
+    print(f"[entry] run_experiment crowded_field tiled=true n_galaxies=2 chains={cfg.n_chains} "
+          f"warmup={cfg.n_warmup} steps={cfg.n_steps} n_leapfrog={cfg.n_leapfrog}: "
+          f"wall={time.perf_counter() - t1:.3f}s accept={res['accept_rate']:.4f} "
+          f"divergence={res['divergence_rate']:.4f} eps={res['step_size']:.4f} "
+          f"traj={res['trajectory_length']:.4f} max_rhat={float(np.max(res['rhat'])):.4f} "
+          f"min_ess={float(np.min(res['ess'])):.1f}", flush=True)
+    return chees, nuts
 
 
-def timings(device, card):
-    """Phase 6: B=65536 chains on one 25x25 r-band stamp."""
+def whitening_check(prep):
+    """The card's whitening maps against float64 on the host: TF32 in the
+    44x44 products would show as ~1e-3 relative error."""
+    from celeste_tpu_torch.inference import whiten_logdensity
+
+    m_hat, cov_hat = prep["whiten_moments"]
+    _, to_x_h, to_z_h = whiten_logdensity(lambda x: x, m_hat.cpu(), cov_hat.cpu())
+    z = prep["states_z"].x[:256]
+    x = prep["to_x"](z)
+    max_abs_err(x.cpu(), to_x_h(z.cpu()), 1e-6, 1e-6, "to_x on the card vs the host")
+    max_abs_err(prep["to_z"](x).cpu(), to_z_h(x.cpu()), 0.0, 1e-5, "to_z on the card vs the host")
+    round_trip = float((prep["to_z"](x) - z).abs().max())
+    print(f"[whiten] card maps equal the host's float64 maps; to_z(to_x(z)) - z max "
+          f"{round_trip:.3g} (bounded by float32 x: |x| ~ 9 against stds ~ 6e-3)", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timings
+# ---------------------------------------------------------------------------
+
+def config1_timings(device, card):
+    """B=65536 chains on one 25x25 r-band stamp."""
     from celeste_tpu_torch.data.synthetic import make_synthetic_stamp, star_source
     from celeste_tpu_torch.inference.hmc import value_and_grad
     from celeste_tpu_torch.inference.problems import make_star_logdensity
@@ -243,11 +486,76 @@ def timings(device, card):
 
     t["hmc_grad_ms"] = time_ms(lambda: value_and_grad(logd, vecs), 10)
     t["hmc_grad_plain_ms"] = time_ms(lambda: value_and_grad(logd_plain, vecs), 3)
-    evals = {k: BENCH_CHAINS / (v * 1e-3) for k, v in t.items()}
-    print(f"[timing] B={BENCH_CHAINS} chains, 25x25 r-band stamp, card: {card}", flush=True)
+    print(f"[timing] config 1: B={BENCH_CHAINS} chains, 25x25 r-band stamp, card: {card}",
+          flush=True)
     for k, v in t.items():
-        print(f"    {k} = {v:.6f} ms  ({evals[k]:.6e} chain-evals/s)", flush=True)
+        print(f"    {k} = {v:.6f} ms  ({BENCH_CHAINS / (v * 1e-3):.6e} chain-evals/s)",
+              flush=True)
     return t
+
+
+def config5_timings(device, card, config5):
+    """K2, K3 and K4 over config 5's field (both occupancy buckets, one
+    launch each) at B=1024 and 4096, and one config-5 value_and_grad at
+    B=1024, kernel and plain."""
+    from celeste_tpu_torch.inference.hmc import value_and_grad
+    from celeste_tpu_torch.kernels import tiled_field as tf
+    from celeste_tpu_torch.parallel.crowded import _crowded_logprior
+    from celeste_tpu_torch.model.priors import SourcePriors
+
+    logd, _, vec, info = config5
+    buckets = info["tiled_data"].bucket_tables
+    out = {}
+    for b in TIMING_CHAINS:
+        planes = c5_planes(config5, b, seed=7)
+        g = torch.ones(b, dtype=torch.float32, device=device)
+        lams = [tf.tiled_fwd_lam_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=3)[1]
+                for bk in buckets]
+        cols = [bk.columns(3, planes[0].shape[1]) for bk in buckets]
+        lams_plain = [tf._tiled_lam_torch(planes, bk.tile_src, bk.pixels, 3)[1] for bk in buckets]
+        reps = 20 if b == TIMING_CHAINS[0] else 5
+        t = {
+            "K2": time_ms(lambda: [tf.tiled_fwd_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=3)
+                                   for bk in buckets], reps),
+            "K2_plain": time_ms(lambda: [tf._tiled_torch(planes, bk.tile_src, bk.pixels, 3)
+                                         for bk in buckets], 2),
+            "K3": time_ms(lambda: [tf.tiled_fwd_lam_cuda(*planes, bk.tile_src, *bk.pixels,
+                                                         n_comp=3) for bk in buckets], reps),
+            "K3_plain": time_ms(lambda: [tf._tiled_lam_torch(planes, bk.tile_src, bk.pixels, 3)
+                                         for bk in buckets], 2),
+            "K4": time_ms(lambda: [tf.tiled_bwd_cuda(*planes, bk.tile_src, *bk.pixels, lam, g,
+                                                     *c, n_comp=3)
+                                   for bk, lam, c in zip(buckets, lams, cols)], reps),
+            "K4_plain": time_ms(lambda: [tf._tiled_bwd_torch(planes, bk.tile_src, bk.pixels,
+                                                             lam, g, 3)
+                                         for bk, lam in zip(buckets, lams_plain)], 2),
+        }
+        out[b] = t
+        print(f"[timing] config 5 tiled kernels, B={b}, 12 sources 48x128 "
+              f"(two buckets, one launch each), card: {card}", flush=True)
+        for k, v in t.items():
+            print(f"    {k} = {v:.6f} ms", flush=True)
+
+    rng = np.random.default_rng(8)
+    vecs = vec[None] + torch.as_tensor(0.01 * rng.normal(size=(TIMING_CHAINS[0], vec.shape[0])),
+                                       dtype=torch.float32, device=device)
+    priors = SourcePriors()
+
+    def logd_plain(v):
+        planes = tf.scene_planes_blocked(info["scene"], v, info["stamp"], 0)
+        ll = tf.tiled_field_loglik_plain(planes, info["tiled_data"], n_comp=3, centered=True)
+        return ll + _crowded_logprior(info["scene"], priors, v)
+
+    lv, gv = value_and_grad(logd, vecs)
+    lp, gp = value_and_grad(logd_plain, vecs)
+    max_abs_err(lv, lp, *TILED_TOL, "config-5 value_and_grad value: kernel vs plain")
+    max_abs_err(gv, gp, *TILED_BWD_TOL, "config-5 value_and_grad gradient: kernel vs plain")
+    out["vg_ms"] = time_ms(lambda: value_and_grad(logd, vecs), 10)
+    out["vg_plain_ms"] = time_ms(lambda: value_and_grad(logd_plain, vecs), 2)
+    print(f"[timing] config-5 value_and_grad, B={TIMING_CHAINS[0]}: kernel "
+          f"{out['vg_ms']:.6f} ms, plain "
+          f"{out['vg_plain_ms']:.6f} ms, card: {card}", flush=True)
+    return out
 
 
 def main() -> int:
@@ -255,44 +563,76 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    from celeste_tpu_torch.bench.config5 import build_config5
     from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.kernels import tiled_field as tf
+    from celeste_tpu_torch.kernels._build import build_library
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda:0")
     card = card_line()
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    t_start = time.perf_counter()
 
-    t0 = time.perf_counter()
-    lib = mf.build_kernels()
-    print(f"[build] {lib.name} built and loaded in {time.perf_counter() - t0:.3f} s",
-          flush=True)
+    # one nvcc per library, started together; the loads then find them built
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        list(pool.map(build_library, ("mog_field", "tiled_field"), (mf._SOURCES, tf._SOURCES)))
+    libs = [mf.build_kernels(), tf.build_kernels()]
+    print(f"[build] {', '.join(lib.name for lib in libs)} built and loaded in "
+          f"{time.perf_counter() - t_start:.3f} s", flush=True)
 
-    errs = kernel_checks(device)
-    oracle_check(device)
+    k1_errs = stamp_kernel_checks(device)
+    config5 = build_config5(device=device)
+    tiled_errs = tiled_kernel_checks(device, config5)
+    oracle_checks(device, config5)
 
     mf.reset_launch_counts()
-    runs = main_path(device)
-    counts = mf.launch_counts()
+    runs = config1_path(device)
+    k1_counts = mf.launch_counts()
     for sampler, cfg, res, seconds, after in runs:
-        report_run(sampler, cfg, res, seconds, after)
+        report_config1(sampler, cfg, res, seconds, after)
     check(runs[0][4]["mog_field_loglik_fwd"] > 0, "MH run never launched the forward kernel")
-    for name, n in counts.items():
-        check(n > 0, f"the main path never launched {name}")
+    for name, n in k1_counts.items():
+        check(n > 0, f"the config-1 path never launched {name}")
 
-    t = timings(device, card)
+    mf.reset_launch_counts()
+    tf.reset_launch_counts()
+    config5_path(device)
+    c5_counts = tf.launch_counts()
+    print(f"[config 5] launches: {c5_counts} (stamp kernels: {mf.launch_counts()})", flush=True)
+    for name, n in c5_counts.items():
+        check(n > 0, f"the config-5 path never launched {name}")
+
+    t1 = config1_timings(device, card)
+    t5 = config5_timings(device, card, config5)
+    tiled = "celeste_tpu/kernels/tiled_field.py"
+    t5b = t5[TIMING_CHAINS[0]]
     kernels = [
         {"name": "mog_field_loglik_fwd", "route": "cuda",
          "source": "celeste_tpu_torch/csrc/mog_field.cu",
          "replaces": "celeste_tpu/kernels/mog_field.py:80",
-         "launches": counts["mog_field_loglik_fwd"], "max_abs_err": errs["fwd"],
-         "ms": t["fwd_ms"], "plain_ms": t["fwd_plain_ms"]},
+         "launches": k1_counts["mog_field_loglik_fwd"], "max_abs_err": k1_errs["fwd"],
+         "ms": t1["fwd_ms"], "plain_ms": t1["fwd_plain_ms"]},
         {"name": "mog_field_loglik_bwd", "route": "cuda",
          "source": "celeste_tpu_torch/csrc/mog_field.cu",
          "replaces": "celeste_tpu/kernels/mog_field.py:182",
-         "launches": counts["mog_field_loglik_bwd"], "max_abs_err": errs["bwd"],
-         "ms": t["bwd_ms"], "plain_ms": t["bwd_plain_ms"]},
+         "launches": k1_counts["mog_field_loglik_bwd"], "max_abs_err": k1_errs["bwd"],
+         "ms": t1["bwd_ms"], "plain_ms": t1["bwd_plain_ms"]},
+        {"name": "tiled_field_fwd", "route": "cuda",
+         "source": "celeste_tpu_torch/csrc/tiled_field.cu", "replaces": f"{tiled}:57",
+         "launches": c5_counts["tiled_field_fwd"], "max_abs_err": tiled_errs["K2"],
+         "ms": t5b["K2"], "plain_ms": t5b["K2_plain"]},
+        {"name": "tiled_field_fwd_lam", "route": "cuda",
+         "source": "celeste_tpu_torch/csrc/tiled_field.cu", "replaces": f"{tiled}:84",
+         "launches": c5_counts["tiled_field_fwd_lam"], "max_abs_err": tiled_errs["K3"],
+         "ms": t5b["K3"], "plain_ms": t5b["K3_plain"]},
+        {"name": "tiled_field_bwd", "route": "cuda",
+         "source": "celeste_tpu_torch/csrc/tiled_field.cu", "replaces": f"{tiled}:108",
+         "launches": c5_counts["tiled_field_bwd"], "max_abs_err": tiled_errs["K4"],
+         "ms": t5b["K4"], "plain_ms": t5b["K4_plain"]},
     ]
+    print(f"[done] whole script {time.perf_counter() - t_start:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

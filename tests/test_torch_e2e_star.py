@@ -150,8 +150,8 @@ def test_cli_and_not_yet_ported_paths(tmp_path):
     with pytest.raises(SystemExit, match="not yet ported"):
         main(["config=galaxy", "device=cpu"])
     with pytest.raises(SystemExit, match="unknown config key"):
-        main(["config=star_single", "max_depth=6"])
-    for bad in (dict(sampler="nuts"), dict(metric="dense"), dict(bands=(0, 2)),
+        main(["config=star_single", "color_prior=gmm"])
+    for bad in (dict(sampler="slice"), dict(sampler="tempered_slice"), dict(bands=(0, 2)),
                 dict(checkpoint_every=10), dict(resume="ckpt")):
         with pytest.raises(NotImplementedError):
             run_experiment(_cfg(**bad))

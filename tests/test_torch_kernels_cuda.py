@@ -1,5 +1,6 @@
-"""The stamp kernels of ``celeste_tpu_torch/csrc/mog_field.cu`` against
-their plain PyTorch versions, on an NVIDIA GPU.
+"""The stamp kernels of ``celeste_tpu_torch/csrc/mog_field.cu`` and the tiled
+field kernels of ``csrc/tiled_field.cu`` against their plain PyTorch
+versions, on an NVIDIA GPU.
 
 Every test here needs the card: it carries the ``cuda`` marker and skips
 where CUDA is absent (decided in the ``cuda`` fixture, not at import).  The
@@ -10,7 +11,11 @@ file imports torch and the port only, so it runs on a machine without JAX:
 Tolerances are those of the JAX package's kernel tests
 (tests/test_pallas_kernel.py): values rtol 2e-6 with atol 0.5 for stars and
 1.0 for galaxies (sums of ~640 fp32 terms of magnitude ~1e3 in another
-order); gradients rtol 5e-4, atol 5e-2.
+order); gradients rtol 5e-4, atol 5e-2.  The tiled kernels (K2, K3, K4)
+take those of tests/test_tiled_field.py: values rtol 2e-6, atol 1.0;
+gradients rtol 5e-4, atol 0.1 on config 5, and rtol 2e-4, atol 5e-3 on
+the random-plane setup with repeated sentinel slots; lambda rtol 1e-5,
+atol 1e-3 (sums of ~100 terms on a sky of ~150).
 """
 
 import numpy as np
@@ -19,6 +24,8 @@ import torch
 
 from celeste_tpu_torch.data.synthetic import galaxy_source, make_synthetic_stamp, star_source
 from celeste_tpu_torch.kernels import mog_field as mf
+from celeste_tpu_torch.kernels import tiled_field as tf
+from celeste_tpu_torch.kernels.tiled_field import random_tile_problem
 
 pytestmark = pytest.mark.cuda
 
@@ -138,3 +145,168 @@ def test_launch_error_raises_and_does_not_leak(cuda):
     assert mf.launch_counts() == before
     out = mf.loglik_fwd_cuda(*planes, *pd)
     torch.testing.assert_close(out, mf._loglik_torch(*planes, *pd), **TOL["star"])
+
+
+# ---------------------------------------------------------------------------
+# the tiled field kernels K2, K3, K4 (config 5)
+# ---------------------------------------------------------------------------
+
+TILED_TOL = dict(rtol=2e-6, atol=1.0)
+TILED_GRAD_TOL = dict(rtol=5e-4, atol=0.1)
+LAM_TOL = dict(rtol=1e-5, atol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def config5(cuda):
+    from celeste_tpu_torch.bench.config5 import build_config5
+
+    logd, logd_dense, vec, info = build_config5(device=cuda)
+    return logd, logd_dense, vec, info
+
+
+def _c5_planes(config5, n, seed=0):
+    _, _, vec, info = config5
+    rng = np.random.default_rng(seed)
+    vecs = vec[None] + torch.as_tensor(0.01 * rng.normal(size=(n, vec.shape[0])),
+                                       dtype=torch.float32, device=vec.device)
+    return [p.contiguous() for p in tf.scene_planes_blocked(info["scene"], vecs, info["stamp"], 0)]
+
+
+def _autograd_plain(planes, tile_src, pixels, g, chunk=128):
+    """Torch autograd through the plain forward, a chain chunk at a time."""
+    out = []
+    for c0 in range(0, planes[0].shape[0], chunk):
+        leaves = [p[c0:c0 + chunk].clone().requires_grad_(True) for p in planes]
+        ll = tf._tiled_torch(leaves, tile_src, pixels, 3)
+        out.append(torch.autograd.grad(ll, leaves, g[c0:c0 + chunk]))
+    return [torch.cat(d) for d in zip(*out)]
+
+
+@pytest.mark.parametrize("centered", [False, True])
+def test_tiled_forward_kernels_match_plain(cuda, config5, centered):
+    planes = _c5_planes(config5, 1000)
+    for bk in config5[3]["tiled_data"].bucket_tables:
+        want, want_lam = tf._tiled_lam_torch(planes, bk.tile_src, bk.pixels, 3, centered)
+        got = tf.tiled_fwd_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=3, centered=centered)
+        ll, lam = tf.tiled_fwd_lam_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=3,
+                                        centered=centered)
+        torch.testing.assert_close(got, want, **TILED_TOL)
+        torch.testing.assert_close(ll, want, **TILED_TOL)
+        torch.testing.assert_close(lam, want_lam, **LAM_TOL)
+        holed = bk.pixels[4].clone()
+        holed[:, ::7] = 0.0
+        pix = (*bk.pixels[:4], holed)
+        torch.testing.assert_close(tf.tiled_fwd_cuda(*planes, bk.tile_src, *pix, n_comp=3,
+                                                     centered=centered),
+                                   tf._tiled_torch(planes, bk.tile_src, pix, 3, centered),
+                                   **TILED_TOL)
+
+
+def test_tiled_backward_kernel_matches_autograd(cuda, config5):
+    planes = _c5_planes(config5, 333, seed=1)
+    g = torch.as_tensor(np.random.default_rng(2).normal(size=333).astype(np.float32), device=cuda)
+    for bk in config5[3]["tiled_data"].bucket_tables:
+        _, lam = tf.tiled_fwd_lam_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=3)
+        cols = bk.columns(3, planes[0].shape[1])
+        got = tf.tiled_bwd_cuda(*planes, bk.tile_src, *bk.pixels, lam, g, *cols, n_comp=3)
+        want = _autograd_plain(planes, bk.tile_src, bk.pixels, g)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, **TILED_GRAD_TOL)
+
+
+def test_tiled_backward_random_planes_and_determinism(cuda):
+    planes, tile_src, pixels, g = random_tile_problem(seed=5, b=37, s=4, t=3)
+    planes = [torch.as_tensor(p, device=cuda) for p in planes]
+    ts = torch.as_tensor(tile_src, device=cuda)
+    pixels = [torch.as_tensor(p, device=cuda) for p in pixels]
+    g = torch.as_tensor(g, device=cuda)
+    ll, lam = tf.tiled_fwd_lam_cuda(*planes, ts, *pixels, n_comp=3)
+    cols = [torch.as_tensor(c, device=cuda) for c in tf.tile_columns(tile_src, 3, 15)]
+    got = tf.tiled_bwd_cuda(*planes, ts, *pixels, lam, g, *cols, n_comp=3)
+    want_ll, want_lam = tf._tiled_lam_torch(planes, ts, pixels, 3)
+    torch.testing.assert_close(ll, want_ll, rtol=2e-5, atol=2e-2)
+    for a, w in zip(got, tf._tiled_bwd_torch(planes, ts, pixels, want_lam, g, 3)):
+        torch.testing.assert_close(a, w, rtol=2e-4, atol=5e-3)
+    for a, w in zip(got, _autograd_plain(planes, ts, pixels, g)):
+        torch.testing.assert_close(a, w, rtol=2e-4, atol=5e-3)
+    again = tf.tiled_bwd_cuda(*planes, ts, *pixels, lam, g, *cols, n_comp=3)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_tiled_sentinel_adds_nothing_and_has_finite_gradients(cuda):
+    planes, _, pixels, g = random_tile_problem(seed=11, b=9)
+    planes = [torch.as_tensor(p, device=cuda) for p in planes]
+    pixels = [torch.as_tensor(p, device=cuda) for p in pixels]
+    only_sentinel = torch.full((3, 4), 4, dtype=torch.int32, device=cuda)
+    _, lam = tf.tiled_fwd_lam_cuda(*planes, only_sentinel, *pixels, n_comp=3)
+    assert torch.equal(lam, pixels[3][:, None, :].expand_as(lam))
+    cols = [torch.as_tensor(c, device=cuda)
+            for c in tf.tile_columns(only_sentinel.cpu().numpy(), 3, 15)]
+    grads = tf.tiled_bwd_cuda(*planes, only_sentinel, *pixels, lam,
+                              torch.as_tensor(g, device=cuda), *cols, n_comp=3)
+    assert all(bool(torch.isfinite(d).all()) for d in grads)
+    assert all(bool((d[:, :12] == 0).all()) for d in grads)
+
+
+@pytest.mark.parametrize("b", [1, 9, 65536])
+def test_tiled_forward_any_batch(cuda, config5, b):
+    planes = _c5_planes(config5, b, seed=b)
+    bk = config5[3]["tiled_data"].bucket_tables[1]
+    got = tf.tiled_fwd_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=3)
+    rows = torch.cat([torch.arange(min(b, 64)), torch.arange(max(0, b - 64), b)]).to(cuda)
+    want = tf._tiled_torch([p[rows] for p in planes], bk.tile_src, bk.pixels, 3)
+    torch.testing.assert_close(got[rows], want, **TILED_TOL)
+
+
+def test_tiled_entry_point_launches_k2_or_k3_k4(cuda, config5):
+    logd, _, vec, info = config5
+    n_buckets = len(info["tiled_data"].bucket_tables)
+    vecs = vec[None] + 0.01 * torch.randn((64, vec.shape[0]), device=cuda,
+                                          generator=torch.Generator(cuda).manual_seed(0))
+    before = tf.launch_counts()
+    with torch.no_grad():
+        val = logd(vecs)
+    mid = tf.launch_counts()
+    assert mid["tiled_field_fwd"] == before["tiled_field_fwd"] + n_buckets
+    x = vecs.clone().requires_grad_(True)
+    out = logd(x)
+    (gx,) = torch.autograd.grad(out.sum(), x)
+    after = tf.launch_counts()
+    assert after["tiled_field_fwd_lam"] == mid["tiled_field_fwd_lam"] + n_buckets
+    assert after["tiled_field_bwd"] == mid["tiled_field_bwd"] + n_buckets
+    torch.testing.assert_close(out.detach(), val, rtol=1e-6, atol=1e-3)
+    from celeste_tpu_torch.bench.config5 import build_config5
+
+    logd_cpu, _, _, _ = build_config5()
+    xc = vecs.cpu().requires_grad_(True)
+    want = logd_cpu(xc)
+    (gw,) = torch.autograd.grad(want.sum(), xc)
+    torch.testing.assert_close(out.detach().cpu(), want.detach(), **TILED_TOL)
+    torch.testing.assert_close(gx.cpu(), gw, **TILED_GRAD_TOL)
+
+
+def test_tiled_wrappers_reject_bad_inputs(cuda, config5):
+    planes = _c5_planes(config5, 8)
+    bk = config5[3]["tiled_data"].bucket_tables[0]
+    pix = bk.pixels
+    with pytest.raises(ValueError, match="dtype"):
+        tf.tiled_fwd_cuda(planes[0].double(), *planes[1:], bk.tile_src, *pix, n_comp=3)
+    with pytest.raises(ValueError, match="dtype"):
+        tf.tiled_fwd_cuda(*planes, bk.tile_src.long(), *pix, n_comp=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tf.tiled_fwd_cuda(planes[0].t().contiguous().t(), *planes[1:], bk.tile_src, *pix,
+                          n_comp=3)
+    with pytest.raises(ValueError, match="shape"):
+        tf.tiled_fwd_cuda(*planes, bk.tile_src, pix[0][:, :-1], *pix[1:], n_comp=3)
+    with pytest.raises(ValueError):
+        tf.tiled_fwd_cuda(*planes, bk.tile_src.cpu(), *pix, n_comp=3)
+    with pytest.raises(ValueError, match="planes must be"):
+        tf.tiled_fwd_cuda(*[p[:, :-1].contiguous() for p in planes], bk.tile_src, *pix,
+                          n_comp=3)
+    _, lam = tf.tiled_fwd_lam_cuda(*planes, bk.tile_src, *pix, n_comp=3)
+    col_ptr, col_ent = bk.columns(3, planes[0].shape[1])
+    g = torch.ones(8, device=cuda)
+    with pytest.raises(ValueError, match="col_ent"):
+        tf.tiled_bwd_cuda(*planes, bk.tile_src, *pix, lam, g, col_ptr, col_ent[:-1], n_comp=3)
+    with pytest.raises(ValueError, match="lam"):
+        tf.tiled_bwd_cuda(*planes, bk.tile_src, *pix, lam[:, :4], g, col_ptr, col_ent, n_comp=3)
