@@ -9,9 +9,11 @@ Plain tensor code is PyTorch.  The hot-path kernels are CUDA C++ for
 Hopper, built with ``nvcc`` at first use and bound with ``ctypes``
 (``kernels/_build.py``): the fused stamp render + Poisson log-likelihood
 and its backward (``csrc/mog_field.cu``), and the block-sparse tiled field
-log-likelihood of crowded fields, forward, forward keeping lambda, and
-backward (``csrc/tiled_field.cu``).  A CUDA tensor always goes through the
-kernels; a CPU tensor takes their plain PyTorch versions.
+of crowded fields: its log-likelihood forward, forward keeping lambda and
+backward, and the sky-free lambda render of the source-sharded field with
+its backward (``csrc/tiled_field.cu``).  A CUDA tensor always goes through
+the kernels; a CPU tensor takes their plain PyTorch versions.  The sharded
+paths run on ``torch.distributed`` (``parallel/``).
 """
 
 __version__ = "0.1.0"

@@ -7,8 +7,10 @@ from ``default_rng(11)``, counts from seed 55 through the NumPy oracle, so
 the counts are bitwise the JAX package's), the tiled-vs-dense parity gap,
 the shared preparation flow (diagonal HMC warmup, a NUTS probe, the pooled
 dense metric, z-space warmup) and the two whitened-space arms (ChEES and
-NUTS).  Everything is batch-major on one device; time is a Python loop.
-The warm-start artifact variants (``*_cached``) are not ported.
+NUTS).  Everything is batch-major; time is a Python loop.
+:func:`build_config5_sharded` gives the same scene's rectangular posterior
+sharded over a mesh of ranks.  The warm-start artifact variants
+(``*_cached``) are not ported.
 """
 
 from __future__ import annotations
@@ -45,19 +47,23 @@ def _gen(seed, device):
     return gen
 
 
-def build_config5(radii_scale: float = 1.0, device="cpu"):
+def build_config5(radii_scale: float = 1.0, device="cuda"):
     """Returns ``(logd_tiled, logd_dense, vec, info)``: both joint
     log-densities ``[B, D] -> [B]`` (centered), the ground-truth
     unconstrained state ``vec`` [D] (float32, on ``device``) and ``info``
     with the pieces probes need (scene, stamp, positions, tile data, WCS,
-    sources, oracle stamp).  ``radii_scale`` scales the live support radii
-    (the parity gate's regression hook)."""
+    sources, oracle stamp, per-block radii).  ``radii_scale`` scales the
+    live support radii (the parity gate's regression hook).  Runs on the
+    card unless ``device="cpu"``; a CUDA device where CUDA is absent
+    raises."""
     from celeste_tpu_torch.data.synthetic import galaxy_source, make_synthetic_stamp, star_source
+    from celeste_tpu_torch.experiments import resolve_device
     from celeste_tpu_torch.model.galaxy import block_support_radii
     from celeste_tpu_torch.parallel.crowded import (
         CrowdedScene, make_crowded_logdensity, make_tiled_crowded_logdensity,
     )
 
+    device = resolve_device(str(device))
     rng = np.random.default_rng(11)
     cosd = np.cos(np.deg2rad(10.0))
     h, w = SHAPE
@@ -105,8 +111,36 @@ def build_config5(radii_scale: float = 1.0, device="cpu"):
     vec = torch.as_tensor(np.concatenate(parts), dtype=torch.float32, device=device)
     info = {"scene": cs, "stamp": stamp, "positions_px": pos_px, "tiled_data": data,
             "wcs": sd.wcs, "sources": srcs, "oracle_stamp": sd.oracle_stamps[0],
-            "radii": radii}
+            "radii": radii, "vec": vec}
     return logd, logd_dense, vec, info
+
+
+def build_config5_sharded(info, mesh):
+    """Config 5's rectangular posterior sharded over ``mesh`` (the sources
+    over ``sources``, the chains over ``chains``; ``None`` for one rank).
+
+    ``info`` is :func:`build_config5`'s.  The sharded tiling takes one
+    support radius per source, the widest of its blocks, so galaxies keep
+    all 16 component blocks in every tile they touch.  Returns a dict:
+    ``logpost`` (rect [B, 12, 7] -> [B], the sharded tiled log-likelihood
+    plus ``crowded_rect_logprior``, centered), ``loglik`` (the likelihood
+    alone, with ``.buckets`` and ``.planes``), ``rect`` (the truth's
+    rectangular state [12, 7]), ``logd_ref``, the single-device tiled
+    posterior ``[B, 44] -> [B]`` built with the same radii, and ``scene``."""
+    from celeste_tpu_torch.parallel.crowded import (
+        crowded_rect_logprior, make_tiled_crowded_logdensity, sharded_tiled_crowded_loglik,
+    )
+
+    cs, stamp, pos = info["scene"], info["stamp"], info["positions_px"]
+    radii = info["radii"].max(axis=1)
+    loglik = sharded_tiled_crowded_loglik(cs, stamp, 0, mesh, pos, radii, n_buckets=N_BUCKETS,
+                                          centered=True)
+    logd_ref, _ = make_tiled_crowded_logdensity(cs, stamp, band=0, positions_px=pos,
+                                                radii_px=radii, n_buckets=N_BUCKETS,
+                                                centered=True)
+    return {"logpost": lambda rect: loglik(rect) + crowded_rect_logprior(cs, rect),
+            "loglik": loglik, "rect": cs.to_rect(info["vec"]), "logd_ref": logd_ref,
+            "scene": cs}
 
 
 def config5_parity_gap(logd_tiled, logd_dense, vec, n_probe=8, spread=0.01, seed=9):

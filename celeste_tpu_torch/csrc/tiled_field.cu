@@ -1,12 +1,16 @@
-// Block-sparse tiled field log-likelihood for Hopper (sm_90a): the forward
-// (K2), the forward that also keeps lambda (K3), and the hand backward with
-// its deterministic scatter (K4).
+// Block-sparse tiled field kernels for Hopper (sm_90a): the log-likelihood
+// forward (K2), the forward that also keeps lambda (K3), the hand backward
+// with its deterministic scatter (K4), and the sky-free lambda render of the
+// source-sharded field (K5) with its backward (K6).
 //
 // Replaces the TPU kernels of celeste_tpu/kernels/tiled_field.py:
-//   K2  _tiled_kernel           (launcher _tiled_pallas_raw)
-//   K3  _tiled_kernel_with_lam  (launcher _tiled_pallas_fwd_lam)
-//   K4  _tiled_bwd_kernel       (launcher _tiled_bwd_pallas) and the
+//   K2  _tiled_kernel             (launcher _tiled_pallas_raw)
+//   K3  _tiled_kernel_with_lam    (launcher _tiled_pallas_fwd_lam)
+//   K4  _tiled_bwd_kernel         (launcher _tiled_bwd_pallas) and the
 //       segment_sum that scatters its output back to the plane columns.
+//   K5  _tiled_render_kernel      (launcher _tiled_render_raw)
+//   K6  _tiled_render_bwd_kernel  (launcher _tiled_render_bwd_pallas) and its
+//       segment_sum.
 //
 // Layout.  Every chain b carries six [B, W_plane] planes in precision form
 // (amp, mx, my, pa, pb, pc), source-major: slot s owns the n_comp columns
@@ -26,13 +30,20 @@
 //   d mx = sum_p -2 dq (pa dx + pb dy);  d my = sum_p -2 dq (pb dx + pc dy).
 // The plane cotangent of a column is the sum of the cotangents of every
 // (tile, slot) entry that lists it; the sentinel is listed by many.
+// K5 stores the sky-free sum_k a_k e_k and nothing else: the sharded path
+// sums it over the source shards before sky and the logarithm.  K6 is K4
+// with the per-pixel cotangent g[t, b, p] of that sum given in place of
+// g_lam.
 //
 // What bounds it on the card.  Per (chain, tile) the forward does K
 // exponentials and ~12 K FP32 operations for each of 1024 pixels, plus one
 // logarithm per pixel, against 6 K * 4 bytes of gathered parameters: it is
 // bound by the special-function unit and FP32 issue, not by memory.  K3
 // also writes lambda, 4 KB per (chain, tile); K4 reads it back, which saves
-// the backward one pass of exponentials.
+// the backward one pass of exponentials.  K5 does K2's exponentials and
+// writes 4 KB of lambda per (chain, tile), ~1% of its time at config 5's
+// K ~ 110; K6 does K4's work and reads 4 KB of cotangent per (chain, tile):
+// both stay bound by FP32 throughput.
 //
 // What the design does about that.  A block is one tile and 8 chains; one
 // warp owns one chain and its lanes stride over the tile's 1024 pixels.  The
@@ -49,7 +60,11 @@
 // order.  K4 writes per-(tile, entry) cotangents [6, T * K, B] and a second
 // kernel sums them into the plane columns through a host-built column ->
 // entry list (CSR), in list order: no atomics, so two calls on the same
-// inputs give bitwise-equal gradients.
+// inputs give bitwise-equal gradients.  K5 is a third instantiation of the
+// forward kernel (lambda from 0, stored, no reduction) and K6 a second one
+// of the backward kernel (the cotangent row read, not derived), so the
+// render pair shares the gather, the staging, the scatter and the
+// determinism of K2-K4.
 //
 // Interface: plain C, bound with ctypes.  Each entry launches on the given
 // stream, allocates nothing and returns cudaGetLastError() after its last
@@ -71,6 +86,10 @@ constexpr int kWarps = 8;               // chains per block
 constexpr int kThreads = kWarps * 32;
 constexpr int kScatterThreads = 128;
 
+// What the forward kernel produces: K2 the per-tile log-likelihood, K3 that
+// and the pre-clamp lambda (sky included), K5 the sky-free lambda alone.
+enum FwdMode { kLoglik, kLoglikLam, kRender };
+
 // Stage chain b's gathered components of tile t, pre-transformed for the
 // forward: a, mx, my, -pa/2, -pb, -pc/2 ([6][K] floats at w).
 __device__ __forceinline__ void stage_components(
@@ -91,10 +110,11 @@ __device__ __forceinline__ void stage_components(
   }
 }
 
-// K2 (kKeepLam = false) and K3 (kKeepLam = true).  Grid (tiles, chain
-// blocks); writes partial[t, b] and, for K3, the pre-clamp lambda
-// lam[t, b, p] (sky included).
-template <bool kCentered, bool kKeepLam>
+// K2 (kLoglik), K3 (kLoglikLam) and K5 (kRender).  Grid (tiles, chain
+// blocks); K2 and K3 write partial[t, b]; K3 writes the pre-clamp lambda
+// lam[t, b, p] with sky, K5 the sum of the components without it.  K5 reads
+// only px and py of the pixel arrays (the others may be null).
+template <bool kCentered, int kMode>
 __global__ void __launch_bounds__(kThreads)
 tiled_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
                  const float* __restrict__ my, const float* __restrict__ pa,
@@ -104,24 +124,28 @@ tiled_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
                  const float* __restrict__ sky, const float* __restrict__ mask,
                  float* __restrict__ partial, float* __restrict__ lam_out,
                  int n_chains, int plane_w, int s_cap, int n_comp) {
+  constexpr bool kReduce = kMode != kRender;
+  constexpr bool kStoreLam = kMode != kLoglik;
   extern __shared__ float smem[];
   float* s_px = smem;
   float* s_py = s_px + kPix;
-  float* s_cnt = s_py + kPix;
-  float* s_sky = s_cnt + kPix;
-  float* s_mask = s_sky + kPix;
-  float* s_lxt = s_mask + kPix;          // log max(counts, eps), centered only
-  float* s_par = s_lxt + kPix;           // kWarps x 6 x K
+  float* s_cnt = s_py + kPix;            // counts .. log max(counts, eps):
+  float* s_sky = s_cnt + kPix;           // the log-likelihood's arrays,
+  float* s_mask = s_sky + kPix;          // absent from K5's shared memory
+  float* s_lxt = s_mask + kPix;          // (centered only)
+  float* s_par = kReduce ? s_lxt + kPix : s_cnt;   // kWarps x 6 x K
 
   const int t = blockIdx.x;
   const size_t tile_off = static_cast<size_t>(t) * kPix;
   for (int i = threadIdx.x; i < kPix; i += kThreads) {
     s_px[i] = px[tile_off + i];
     s_py[i] = py[tile_off + i];
-    s_cnt[i] = counts[tile_off + i];
-    s_sky[i] = sky[tile_off + i];
-    s_mask[i] = mask[tile_off + i];
-    if (kCentered) s_lxt[i] = logf(clamp_min(counts[tile_off + i], kLambdaMin));
+    if (kReduce) {
+      s_cnt[i] = counts[tile_off + i];
+      s_sky[i] = sky[tile_off + i];
+      s_mask[i] = mask[tile_off + i];
+      if (kCentered) s_lxt[i] = logf(clamp_min(counts[tile_off + i], kLambdaMin));
+    }
   }
 
   const int warp = threadIdx.x >> 5;
@@ -142,31 +166,38 @@ tiled_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
   const float* w_ha = w + 3 * n_k;
   const float* w_hb = w + 4 * n_k;
   const float* w_hc = w + 5 * n_k;
-  float* lam_row = kKeepLam ? lam_out + (static_cast<size_t>(t) * n_chains + b) * kPix
-                            : nullptr;
+  float* lam_row = kStoreLam ? lam_out + (static_cast<size_t>(t) * n_chains + b) * kPix
+                             : nullptr;
   float acc = 0.0f;
   for (int p = lane; p < kPix; p += 32) {
     const float x = s_px[p];
     const float y = s_py[p];
-    float lam = s_sky[p];
+    float lam = kReduce ? s_sky[p] : 0.0f;
     for (int k = 0; k < n_k; ++k) {
       const float dx = x - w_mx[k];
       const float dy = y - w_my[k];
       lam += w_a[k] * expf(w_ha[k] * dx * dx + w_hb[k] * dx * dy + w_hc[k] * dy * dy);
     }
-    if (kKeepLam) lam_row[p] = lam;
-    lam = clamp_min(lam, kLambdaMin);
-    acc += celeste::pixel_loglik<kCentered>(lam, s_cnt[p], kCentered ? s_lxt[p] : 0.0f)
-           * s_mask[p];
+    if (kStoreLam) lam_row[p] = lam;
+    if (kReduce) {
+      lam = clamp_min(lam, kLambdaMin);
+      acc += celeste::pixel_loglik<kCentered>(lam, s_cnt[p], kCentered ? s_lxt[p] : 0.0f)
+             * s_mask[p];
+    }
   }
-  acc = warp_sum(acc);
-  if (lane == 0) partial[static_cast<size_t>(t) * n_chains + b] = acc;
+  if (kReduce) {
+    acc = warp_sum(acc);
+    if (lane == 0) partial[static_cast<size_t>(t) * n_chains + b] = acc;
+  }
 }
 
-// K4, part 1.  Grid (tiles, chain blocks).  Pass 1 turns lambda into the
-// pixel cotangent g_lam (shared memory, one row per warp); pass 2 sums the
-// six cotangents of each of the tile's K entries over the pixels and writes
-// them to d_part[q, t * K + k, b].
+// K4 (kRender = false) and K6 (kRender = true), part 1.  Grid (tiles, chain
+// blocks).  Pass 1 stages the pixel cotangent (shared memory, one row per
+// warp): K4 derives g_lam from lambda, counts, mask and g [B]; K6 reads the
+// given cotangent g [T, B, 1024] (counts, mask and lam_in may be null).
+// Pass 2 sums the six cotangents of each of the tile's K entries over the
+// pixels and writes them to d_part[q, t * K + k, b].
+template <bool kRender>
 __global__ void __launch_bounds__(kThreads)
 tiled_bwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
                  const float* __restrict__ my, const float* __restrict__ pa,
@@ -195,13 +226,17 @@ tiled_bwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
   if (b >= n_chains) return;
 
   float* w_glam = s_glam + warp * kPix;
-  const float gb = g[b];
-  const float* lam_row = lam_in + (static_cast<size_t>(t) * n_chains + b) * kPix;
-  for (int p = lane; p < kPix; p += 32) {
-    const float lam = lam_row[p];
-    const float active = lam > kLambdaMin ? 1.0f : 0.0f;
-    w_glam[p] = (gb * mask[tile_off + p]) * (counts[tile_off + p] / clamp_min(lam, kLambdaMin)
-                                             - 1.0f) * active;
+  const size_t row = (static_cast<size_t>(t) * n_chains + b) * kPix;
+  if (kRender) {
+    for (int p = lane; p < kPix; p += 32) w_glam[p] = g[row + p];
+  } else {
+    const float gb = g[b];
+    for (int p = lane; p < kPix; p += 32) {
+      const float lam = lam_in[row + p];
+      const float active = lam > kLambdaMin ? 1.0f : 0.0f;
+      w_glam[p] = (gb * mask[tile_off + p])
+                  * (counts[tile_off + p] / clamp_min(lam, kLambdaMin) - 1.0f) * active;
+    }
   }
   __syncwarp();
 
@@ -268,8 +303,10 @@ tiled_scatter_kernel(const float* __restrict__ d_part, const int* __restrict__ c
   }
 }
 
-size_t fwd_smem_bytes(int n_k) {
-  return (6 * static_cast<size_t>(kPix) + kWarps * 6 * static_cast<size_t>(n_k))
+// The pixel arrays the forward stages (six for K2/K3, px and py for K5) and
+// every warp's 6 x K components.
+size_t fwd_smem_bytes(int n_k, int n_pixel_arrays) {
+  return (n_pixel_arrays * static_cast<size_t>(kPix) + kWarps * 6 * static_cast<size_t>(n_k))
          * sizeof(float);
 }
 
@@ -277,20 +314,44 @@ size_t bwd_smem_bytes() {
   return (2 + kWarps) * static_cast<size_t>(kPix) * sizeof(float);
 }
 
-template <bool kCentered, bool kKeepLam>
+template <bool kCentered, int kMode>
 cudaError_t launch_fwd(const float* amp, const float* mx, const float* my, const float* pa,
                        const float* pb, const float* pc, const int* tile_src,
                        const float* px, const float* py, const float* counts,
                        const float* sky, const float* mask, float* partial, float* lam,
                        int n_tiles, int n_chains, int plane_w, int s_cap, int n_comp,
                        cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(s_cap * n_comp);
-  const cudaError_t err = launch_prep(tiled_fwd_kernel<kCentered, kKeepLam>, smem);
+  const size_t smem = fwd_smem_bytes(s_cap * n_comp, kMode == kRender ? 2 : 6);
+  const cudaError_t err = launch_prep(tiled_fwd_kernel<kCentered, kMode>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_tiles, (n_chains + kWarps - 1) / kWarps);
-  tiled_fwd_kernel<kCentered, kKeepLam><<<grid, kThreads, smem, stream>>>(
+  tiled_fwd_kernel<kCentered, kMode><<<grid, kThreads, smem, stream>>>(
       amp, mx, my, pa, pb, pc, tile_src, px, py, counts, sky, mask, partial, lam, n_chains,
       plane_w, s_cap, n_comp);
+  return cudaGetLastError();
+}
+
+// Part 1 of K4 or K6, then the scatter of part 2 into d_planes.
+template <bool kRender>
+cudaError_t launch_bwd(const float* amp, const float* mx, const float* my, const float* pa,
+                       const float* pb, const float* pc, const int* tile_src,
+                       const float* px, const float* py, const float* counts,
+                       const float* mask, const float* lam, const float* g,
+                       const int* col_ptr, const int* col_ent, float* d_part, float* d_planes,
+                       int n_tiles, int n_chains, int plane_w, int s_cap, int n_comp,
+                       cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes();
+  cudaError_t err = launch_prep(tiled_bwd_kernel<kRender>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_tiles, (n_chains + kWarps - 1) / kWarps);
+  tiled_bwd_kernel<kRender><<<grid, kThreads, smem, stream>>>(
+      amp, mx, my, pa, pb, pc, tile_src, px, py, counts, mask, lam, g, d_part, n_tiles,
+      n_chains, plane_w, s_cap, n_comp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 sgrid(plane_w, (n_chains + kScatterThreads - 1) / kScatterThreads);
+  tiled_scatter_kernel<<<sgrid, kScatterThreads, 0, stream>>>(
+      d_part, col_ptr, col_ent, d_planes, n_tiles * s_cap * n_comp, n_chains, plane_w);
   return cudaGetLastError();
 }
 
@@ -309,19 +370,19 @@ int tiled_field_fwd(const float* amp, const float* mx, const float* my, const fl
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (centered) {
-    err = lam ? launch_fwd<true, true>(amp, mx, my, pa, pb, pc, tile_src, px, py, counts, sky,
-                                       mask, partial, lam, n_tiles, n_chains, plane_w, s_cap,
-                                       n_comp, s)
-              : launch_fwd<true, false>(amp, mx, my, pa, pb, pc, tile_src, px, py, counts,
-                                        sky, mask, partial, lam, n_tiles, n_chains, plane_w,
-                                        s_cap, n_comp, s);
+    err = lam ? launch_fwd<true, kLoglikLam>(amp, mx, my, pa, pb, pc, tile_src, px, py, counts,
+                                             sky, mask, partial, lam, n_tiles, n_chains,
+                                             plane_w, s_cap, n_comp, s)
+              : launch_fwd<true, kLoglik>(amp, mx, my, pa, pb, pc, tile_src, px, py, counts,
+                                          sky, mask, partial, lam, n_tiles, n_chains, plane_w,
+                                          s_cap, n_comp, s);
   } else {
-    err = lam ? launch_fwd<false, true>(amp, mx, my, pa, pb, pc, tile_src, px, py, counts,
-                                        sky, mask, partial, lam, n_tiles, n_chains, plane_w,
-                                        s_cap, n_comp, s)
-              : launch_fwd<false, false>(amp, mx, my, pa, pb, pc, tile_src, px, py, counts,
-                                         sky, mask, partial, lam, n_tiles, n_chains, plane_w,
-                                         s_cap, n_comp, s);
+    err = lam ? launch_fwd<false, kLoglikLam>(amp, mx, my, pa, pb, pc, tile_src, px, py,
+                                              counts, sky, mask, partial, lam, n_tiles,
+                                              n_chains, plane_w, s_cap, n_comp, s)
+              : launch_fwd<false, kLoglik>(amp, mx, my, pa, pb, pc, tile_src, px, py, counts,
+                                           sky, mask, partial, lam, n_tiles, n_chains, plane_w,
+                                           s_cap, n_comp, s);
   }
   return static_cast<int>(err);
 }
@@ -337,20 +398,33 @@ int tiled_field_bwd(const float* amp, const float* mx, const float* my, const fl
                     const float* lam, const float* g, const int* col_ptr,
                     const int* col_ent, float* d_part, float* d_planes, int n_tiles,
                     int n_chains, int plane_w, int s_cap, int n_comp, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = bwd_smem_bytes();
-  cudaError_t err = launch_prep(tiled_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n_tiles, (n_chains + kWarps - 1) / kWarps);
-  tiled_bwd_kernel<<<grid, kThreads, smem, s>>>(amp, mx, my, pa, pb, pc, tile_src, px, py,
-                                                counts, mask, lam, g, d_part, n_tiles,
-                                                n_chains, plane_w, s_cap, n_comp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 sgrid(plane_w, (n_chains + kScatterThreads - 1) / kScatterThreads);
-  tiled_scatter_kernel<<<sgrid, kScatterThreads, 0, s>>>(
-      d_part, col_ptr, col_ent, d_planes, n_tiles * s_cap * n_comp, n_chains, plane_w);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_bwd<false>(
+      amp, mx, my, pa, pb, pc, tile_src, px, py, counts, mask, lam, g, col_ptr, col_ent, d_part,
+      d_planes, n_tiles, n_chains, plane_w, s_cap, n_comp, static_cast<cudaStream_t>(stream)));
+}
+
+// K5: the sky-free lambda lam [T, B, 1024] of one table's tiles.
+int tiled_field_render(const float* amp, const float* mx, const float* my, const float* pa,
+                       const float* pb, const float* pc, const int* tile_src, const float* px,
+                       const float* py, float* lam, int n_tiles, int n_chains, int plane_w,
+                       int s_cap, int n_comp, void* stream) {
+  return static_cast<int>(launch_fwd<false, kRender>(
+      amp, mx, my, pa, pb, pc, tile_src, px, py, nullptr, nullptr, nullptr, nullptr, lam,
+      n_tiles, n_chains, plane_w, s_cap, n_comp, static_cast<cudaStream_t>(stream)));
+}
+
+// K6: the six plane cotangents d_planes [6, B, plane_w] from the cotangent
+// g [T, B, 1024] of K5's output; d_part, col_ptr and col_ent as for K4.
+int tiled_field_render_bwd(const float* amp, const float* mx, const float* my,
+                           const float* pa, const float* pb, const float* pc,
+                           const int* tile_src, const float* px, const float* py,
+                           const float* g, const int* col_ptr, const int* col_ent,
+                           float* d_part, float* d_planes, int n_tiles, int n_chains,
+                           int plane_w, int s_cap, int n_comp, void* stream) {
+  return static_cast<int>(launch_bwd<true>(
+      amp, mx, my, pa, pb, pc, tile_src, px, py, nullptr, nullptr, nullptr, g, col_ptr, col_ent,
+      d_part, d_planes, n_tiles, n_chains, plane_w, s_cap, n_comp,
+      static_cast<cudaStream_t>(stream)));
 }
 
 const char* tiled_field_error_string(int err) {

@@ -28,17 +28,23 @@ def mh_init(x0, logdensity_fn) -> MHState:
     return MHState(x=x0, logp=logdensity_fn(x0))
 
 
-def mh_kernel(logdensity_fn, step_scales):
+def mh_kernel(logdensity_fn, step_scales, chains=None):
     """Build a step ``(generator, state) -> (state, info)``.  ``step_scales``
-    is a [D] vector of per-axis proposal standard deviations."""
+    is a [D] vector of per-axis proposal standard deviations.  ``chains``
+    (a ``parallel.ensemble.ChainShard``): the state is this rank's rows of a
+    sharded ensemble, and each step draws the ensemble's noise and keeps
+    those rows, so the sharded chains are the unsharded ones."""
 
     def step(gen, state: MHState):
         x = state.x
         scales = torch.as_tensor(step_scales, dtype=x.dtype, device=x.device)
-        prop = x + scales * torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
+        noise = (torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
+                 if chains is None else chains.normal(gen, x))
+        prop = x + scales * noise
         logp_prop = logdensity_fn(prop)
-        log_u = torch.log(torch.rand(x.shape[0], generator=gen, dtype=x.dtype,
-                                     device=x.device))
+        u = (torch.rand(x.shape[0], generator=gen, dtype=x.dtype, device=x.device)
+             if chains is None else chains.uniform(gen, state.logp))
+        log_u = torch.log(u)
         accept = log_u < (logp_prop - state.logp)
         new = MHState(
             x=torch.where(accept[:, None], prop, x),

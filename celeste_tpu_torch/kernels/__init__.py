@@ -4,10 +4,13 @@ at first launch; importing this package builds nothing."""
 
 from celeste_tpu_torch.kernels.mog_field import (  # noqa: F401
     batched_stamp_loglik,
+    mixed_field_planes,
     mog_field_loglik,
     stamp_pixel_data,
 )
 from celeste_tpu_torch.kernels.tiled_field import (  # noqa: F401
     TiledStampData,
     tiled_field_loglik,
+    tiled_field_render,
+    tiled_field_render_explicit,
 )

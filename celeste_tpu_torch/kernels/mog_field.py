@@ -263,6 +263,35 @@ def _field_planes(vecs, stamp, band, kind: str, n_bands: int):
     return tuple(t.expand(shape) for t in planes)
 
 
+def mixed_field_planes(vecs, stamp, band, n_bands: int, is_star):
+    """Kind-agnostic planes of mixed star/galaxy sources, for the sharded
+    crowded field (counterpart of ``celeste_tpu/kernels/mog_field.py:266``).
+
+    ``vecs`` [N, 6 + n_bands]: rectangular unconstrained vectors (a star
+    uses the first 2 + n_bands slots; the rest are padding); ``is_star`` [N]
+    bool: each row's kind, as data, since a shard's kind pattern is data.
+    The batch of sources goes through one call of each branch.
+
+    Returns six [N, N_GAL * K] planes in the block layout of the tiled
+    kernels: block j (K = PSF components wide) holds components j*K ..
+    (j+1)*K - 1; a star fills block 0 and leaves zero amplitude elsewhere,
+    a galaxy fills all N_GAL blocks.
+
+    Both branches are computed for every row, so a star's free-floating
+    shape slots are clamped to [-12, 12] first: otherwise exp of a slot can
+    overflow, and the 0 * inf in the backward of the branch ``torch.where``
+    did not select would poison the star's gradient with NaN.
+    """
+    head = vecs[..., :2 + n_bands]
+    shape_raw = torch.clamp(vecs[..., 2 + n_bands:], -12.0, 12.0)
+    g_planes = _field_planes(torch.cat([head, shape_raw], dim=-1), stamp, band, "galaxy",
+                             n_bands)
+    s_planes = _field_planes(head, stamp, band, "star", n_bands)
+    pad = g_planes[0].shape[-1] - s_planes[0].shape[-1]
+    star = is_star[..., None]
+    return tuple(torch.where(star, F.pad(sp, (0, pad)), gp) for gp, sp in zip(g_planes, s_planes))
+
+
 def batched_stamp_loglik(vecs, stamp, band=0, kind: str = "star", n_bands: int = 5,
                          pixel_data=None, centered: bool = False):
     """Fused likelihood of a [B, D] batch of unconstrained source vectors

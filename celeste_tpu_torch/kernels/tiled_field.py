@@ -1,4 +1,5 @@
-"""Block-sparse tiled field log-likelihood: the crowded-field kernels.
+"""Block-sparse tiled field log-likelihood and lambda render: the
+crowded-field kernels.
 
 Counterpart of ``celeste_tpu/kernels/tiled_field.py``.  The field is cut
 into 8x128 = 1024-pixel tiles (``parallel/tiles.py``); a host-built table
@@ -19,11 +20,19 @@ Dispatch follows the tensors' device, with no switch and no fallback:
   :func:`_tiled_torch`; a call that needs a gradient keeps lambda in
   :func:`_tiled_lam_torch` and differentiates with :func:`_tiled_bwd_torch`.
 
-:func:`_tiled_torch`, :func:`_tiled_lam_torch` and :func:`_tiled_bwd_torch`
-are the plain versions of K2, K3 and K4: the tests hold them against the JAX
-package, and ``chip_smoke.py`` holds the kernels against them on the card.
-Every plain version works through the chains in chunks, so that its memory
-stays bounded (``_chain_chunk``).
+The source-sharded field renders, instead of a log-likelihood, the
+sky-free lambda tiles [T, B, PIX] of its own sources (``tiled_field_render``):
+K5 (``tiled_render_cuda``) forward and K6 (``tiled_render_bwd_cuda``), which
+takes the per-pixel cotangent of lambda, as its gradient on CUDA tensors;
+:func:`_tiled_render_torch` and :func:`_tiled_render_bwd_torch` on CPU
+tensors.
+
+:func:`_tiled_torch`, :func:`_tiled_lam_torch`, :func:`_tiled_bwd_torch`,
+:func:`_tiled_render_torch` and :func:`_tiled_render_bwd_torch` are the plain
+versions of K2 to K6: the tests hold them against the JAX package, and
+``chip_smoke.py`` holds the kernels against them on the card.  Every plain
+version works through the chains in chunks, so that its memory stays bounded
+(``_chain_chunk``).
 """
 
 from __future__ import annotations
@@ -95,8 +104,9 @@ def random_tile_problem(seed: int = 5, b: int = 6, s: int = 4, c: int = 3, t: in
 
 class TileBucket:
     """One occupancy bucket's launch: its slot cap, the [T_b, s_cap] table
-    and the five [T_b, PIX] pixel arrays on the field's device, plus K4's
-    column lists (built once per component count)."""
+    and the [T_b, PIX] pixel arrays on the field's device (px, py, counts,
+    sky, mask for the log-likelihood; px, py for the render), plus the column
+    lists of K4 and K6 (built once per component count, on the host)."""
 
     def __init__(self, s_cap: int, tile_src, pixels):
         self.s_cap = int(s_cap)
@@ -234,26 +244,21 @@ def _tiled_lam_torch(planes, tile_src, pixel_tiles, n_comp: int, centered: bool 
     return ll, lam
 
 
-def _tiled_bwd_torch(planes, tile_src, pixel_tiles, lam, g, n_comp: int):
-    """K4's plain version: the cotangents of the six planes [B, (S+1)*C]
-    given lambda [T, B, PIX] (from K3) and the output cotangent ``g`` [B].
-    The algebra of ``celeste_tpu/kernels/tiled_field.py:116-148``, then a
-    scatter-add of every (tile, slot) entry into its plane columns (repeated
-    slots, the sentinel above all, accumulate).  Independent of ``centered``:
-    centering adds parameter-free terms only."""
-    px, py, counts, _, mask = pixel_tiles
+def _plane_cotangents(planes, tile_src, px, py, n_comp: int, pixel_cotangent):
+    """The cotangents of the six planes [B, (S+1)*C] given each tile's
+    per-pixel cotangent of lambda, ``pixel_cotangent(t, c0, c1)`` [c1 - c0,
+    PIX] for chains c0:c1: the algebra of
+    ``celeste_tpu/kernels/tiled_field.py:116-148``, then a scatter-add of
+    every (tile, slot) entry into its plane columns (repeated slots, the
+    sentinel above all, accumulate)."""
     cols = _tile_cols(tile_src, n_comp)
     b = planes[0].shape[0]
     chunk = _chain_chunk(b, tile_src.shape[1], n_comp)
     grads = [torch.zeros_like(p) for p in planes]
     for c0 in range(0, b, chunk):
         part = [p[c0:c0 + chunk] for p in planes]
-        g_c = g[c0:c0 + chunk, None]
         for t in range(tile_src.shape[0]):
-            lam_t = lam[t, c0:c0 + chunk]
-            active = (lam_t > LAMBDA_MIN).to(lam_t.dtype)
-            g_lam = ((g_c * mask[t]) * (counts[t] / torch.clamp(lam_t, min=LAMBDA_MIN) - 1.0)
-                     * active)
+            g_lam = pixel_cotangent(t, c0, c0 + part[0].shape[0])
             amp, (pa, pb, pc), dx, dy, e = _tile_terms(part, cols[t], px[t], py[t])
             ge = g_lam[:, None, :] * e
             dq = -0.5 * ge * amp[..., None]
@@ -266,6 +271,42 @@ def _tiled_bwd_torch(planes, tile_src, pixel_tiles, lam, g, n_comp: int):
             for grad, term in zip(grads, terms):
                 grad[c0:c0 + chunk].index_add_(1, cols[t], term)
     return tuple(grads)
+
+
+def _tiled_bwd_torch(planes, tile_src, pixel_tiles, lam, g, n_comp: int):
+    """K4's plain version: the cotangents of the six planes [B, (S+1)*C]
+    given lambda [T, B, PIX] (from K3) and the output cotangent ``g`` [B].
+    Independent of ``centered``: centering adds parameter-free terms only."""
+    px, py, counts, _, mask = pixel_tiles
+
+    def g_lam(t, c0, c1):
+        lam_t = lam[t, c0:c1]
+        active = (lam_t > LAMBDA_MIN).to(lam_t.dtype)
+        return ((g[c0:c1, None] * mask[t])
+                * (counts[t] / torch.clamp(lam_t, min=LAMBDA_MIN) - 1.0) * active)
+
+    return _plane_cotangents(planes, tile_src, px, py, n_comp, g_lam)
+
+
+def _tiled_render_torch(planes, tile_src, px, py, n_comp: int):
+    """K5's plain version (counterpart of ``_tiled_render_jnp``): six
+    [B, (S+1)*C] planes, a [T, s_cap] table and [T, PIX] pixel coordinates
+    -> the sky-free lambda tiles [T, B, PIX].  Differentiable by torch
+    autograd."""
+    cols = _tile_cols(tile_src, n_comp)
+    b = planes[0].shape[0]
+    chunk = _chain_chunk(b, tile_src.shape[1], n_comp)
+    return torch.stack([
+        torch.cat([_tile_lambda([p[c0:c0 + chunk] for p in planes], cols[t], px[t], py[t], 0.0)
+                   for c0 in range(0, b, chunk)])
+        for t in range(tile_src.shape[0])])
+
+
+def _tiled_render_bwd_torch(planes, tile_src, px, py, g, n_comp: int):
+    """K6's plain version: the cotangents of the six planes given the
+    cotangent ``g`` [T, B, PIX] of :func:`_tiled_render_torch`'s output."""
+    return _plane_cotangents(planes, tile_src, px, py, n_comp,
+                             lambda t, c0, c1: g[t, c0:c1])
 
 
 class _PlainTiled(torch.autograd.Function):
@@ -296,6 +337,10 @@ def _declare(lib):
     lib.tiled_field_fwd.restype = i
     lib.tiled_field_bwd.argtypes = [p] * 17 + [i] * 5 + [p]
     lib.tiled_field_bwd.restype = i
+    lib.tiled_field_render.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.tiled_field_render.restype = i
+    lib.tiled_field_render_bwd.argtypes = [p] * 14 + [i] * 5 + [p]
+    lib.tiled_field_render_bwd.restype = i
     lib.tiled_field_error_string.argtypes = [i]
     lib.tiled_field_error_string.restype = ctypes.c_char_p
 
@@ -326,7 +371,8 @@ def _check(t, shape, dtype, device, name):
 def _check_inputs(planes, tile_src, pixel_tiles, n_comp):
     """Raise unless the planes are six contiguous float32 [B, (S+1)*C] CUDA
     tensors, ``tile_src`` a contiguous int32 [T, s_cap] table and the pixels
-    five float32 [T, PIX] tiles, all on one device.  The table's entries are
+    float32 [T, PIX] tiles (five, or px and py for the render), all on one
+    device.  The table's entries are
     not read here (that would synchronise): ``TiledStampData`` builds them in
     range, and ``tile_columns`` checks a table it is given."""
     amp = planes[0]
@@ -433,16 +479,67 @@ def tiled_bwd_cuda(amp, mx, my, pa, pb, pc, tile_src, px, py, counts, sky, mask,
 tiled_bwd_cuda.launches = 0
 
 
+def tiled_render_cuda(amp, mx, my, pa, pb, pc, tile_src, px, py, *, n_comp: int):
+    """Launch K5: the sky-free lambda tiles [T, B, PIX] of one table."""
+    planes = (amp, mx, my, pa, pb, pc)
+    b, plane_w, n_tiles, s_cap, device = _check_inputs(planes, tile_src, (px, py), n_comp)
+    lam = torch.empty(n_tiles, b, PIX_PER_TILE, dtype=torch.float32, device=device)
+    if b and n_tiles:
+        lib = _lib()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.tiled_field_render(*_ptrs(planes), tile_src.data_ptr(), px.data_ptr(),
+                                         py.data_ptr(), lam.data_ptr(), n_tiles, b, plane_w,
+                                         s_cap, n_comp, stream)
+        _raise_on_error(lib, err, "tiled_field_render")
+    tiled_render_cuda.launches += 1
+    return lam
+
+
+tiled_render_cuda.launches = 0
+
+
+def tiled_render_bwd_cuda(amp, mx, my, pa, pb, pc, tile_src, px, py, g, col_ptr, col_ent, *,
+                          n_comp: int):
+    """Launch K6: the six plane cotangents [B, (S+1)*C] from the cotangent
+    ``g`` [T, B, PIX] of K5's output; ``(col_ptr, col_ent)`` from
+    :func:`tile_columns` of the same table, as int32 tensors on the card."""
+    planes = (amp, mx, my, pa, pb, pc)
+    b, plane_w, n_tiles, s_cap, device = _check_inputs(planes, tile_src, (px, py), n_comp)
+    _check(g, (n_tiles, b, PIX_PER_TILE), torch.float32, device, "g")
+    _check(col_ptr, (plane_w + 1,), torch.int32, device, "col_ptr")
+    _check(col_ent, (n_tiles * s_cap * n_comp,), torch.int32, device, "col_ent")
+    d_planes = torch.empty(6, b, plane_w, dtype=torch.float32, device=device)
+    if b:
+        d_part = torch.empty(6, n_tiles * s_cap * n_comp, b, dtype=torch.float32,
+                             device=device)
+        lib = _lib()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.tiled_field_render_bwd(*_ptrs(planes), tile_src.data_ptr(), px.data_ptr(),
+                                             py.data_ptr(), g.data_ptr(), col_ptr.data_ptr(),
+                                             col_ent.data_ptr(), d_part.data_ptr(),
+                                             d_planes.data_ptr(), n_tiles, b, plane_w, s_cap,
+                                             n_comp, stream)
+        _raise_on_error(lib, err, "tiled_field_render_bwd")
+    tiled_render_bwd_cuda.launches += 1
+    return tuple(d_planes.unbind(0))
+
+
+tiled_render_bwd_cuda.launches = 0
+
+_WRAPPERS = {"tiled_field_fwd": tiled_fwd_cuda, "tiled_field_fwd_lam": tiled_fwd_lam_cuda,
+             "tiled_field_bwd": tiled_bwd_cuda, "tiled_field_render": tiled_render_cuda,
+             "tiled_field_render_bwd": tiled_render_bwd_cuda}
+
+
 def reset_launch_counts():
-    tiled_fwd_cuda.launches = 0
-    tiled_fwd_lam_cuda.launches = 0
-    tiled_bwd_cuda.launches = 0
+    for wrapper in _WRAPPERS.values():
+        wrapper.launches = 0
 
 
 def launch_counts():
-    return {"tiled_field_fwd": tiled_fwd_cuda.launches,
-            "tiled_field_fwd_lam": tiled_fwd_lam_cuda.launches,
-            "tiled_field_bwd": tiled_bwd_cuda.launches}
+    return {name: wrapper.launches for name, wrapper in _WRAPPERS.items()}
 
 
 class _TiledKernel(torch.autograd.Function):
@@ -466,9 +563,45 @@ class _TiledKernel(torch.autograd.Function):
         return (None, None, None) + grads
 
 
+class _TiledRender(torch.autograd.Function):
+    """The sky-free lambda render of one bucket, by device: K5 forward and K6
+    backward on CUDA tensors, the plain pair on CPU tensors.  K6 needs no
+    residual but the planes."""
+
+    @staticmethod
+    def forward(ctx, bucket, n_comp, *planes):
+        px, py = bucket.pixels[:2]
+        if planes[0].device.type == "cuda":
+            lam = tiled_render_cuda(*planes, bucket.tile_src, px, py, n_comp=n_comp)
+        else:
+            lam = _tiled_render_torch(planes, bucket.tile_src, px, py, n_comp)
+        ctx.save_for_backward(*planes)
+        ctx.bucket, ctx.n_comp = bucket, n_comp
+        return lam
+
+    @staticmethod
+    def backward(ctx, g):
+        planes = ctx.saved_tensors
+        bucket, n_comp = ctx.bucket, ctx.n_comp
+        px, py = bucket.pixels[:2]
+        if planes[0].device.type == "cuda":
+            cols = bucket.columns(n_comp, planes[0].shape[1])
+            grads = tiled_render_bwd_cuda(*planes, bucket.tile_src, px, py, g.contiguous(),
+                                          *cols, n_comp=n_comp)
+        else:
+            grads = _tiled_render_bwd_torch(planes, bucket.tile_src, px, py, g, n_comp)
+        return (None, None) + tuple(grads)
+
+
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
+
+def _device_of(planes, name):
+    device = planes[0].device
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} has no implementation on {device}")
+    return device
 
 def tiled_field_loglik(planes, data: TiledStampData, *, n_comp: int, centered: bool = False):
     """Poisson log-likelihood [B] of a batched multi-source field, block-sparse.
@@ -480,9 +613,7 @@ def tiled_field_loglik(planes, data: TiledStampData, *, n_comp: int, centered: b
     lambda for K4; any other call runs K2.  Differentiable on both devices.
     """
     planes = tuple(planes)
-    device = planes[0].device
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"tiled_field_loglik has no implementation on {device}")
+    device = _device_of(planes, "tiled_field_loglik")
     out = 0.0
     need_grad = torch.is_grad_enabled() and any(p.requires_grad for p in planes)
     for bucket in data.bucket_tables:
@@ -513,6 +644,36 @@ def tiled_field_loglik_plain(planes, data: TiledStampData, *, n_comp: int,
         out = out + _PlainTiled.apply(bucket.tile_src, bucket.pixels, n_comp, bool(centered),
                                       *planes)
     return out
+
+
+def render_bucket(planes, bucket: TileBucket, *, n_comp: int):
+    """Sky-free lambda tiles [T_b, B, PIX] of one bucket's table (K5 on CUDA
+    tensors, the plain version on CPU tensors); differentiable, with K6 or
+    the plain backward as the gradient.  ``bucket.pixels`` starts with the
+    tiles' px and py."""
+    planes = tuple(p.contiguous() for p in planes)
+    _device_of(planes, "tiled_field_render")
+    return _TiledRender.apply(bucket, n_comp, *planes)
+
+
+def tiled_field_render(planes, data: TiledStampData, *, n_comp: int):
+    """Sky-free lambda tiles [T, B, PIX] of a batched multi-source field
+    over its whole table: the building block of the source-sharded field,
+    whose shards render their own sources' partials, sum them over the
+    shards, then add sky and take the log-likelihood
+    (``parallel.crowded.sharded_tiled_crowded_loglik``)."""
+    return tiled_field_render_explicit(planes, data.tile_src, *data.pixels[:2], n_comp=n_comp,
+                                       s_max=data.tile_map.s_max)
+
+
+def tiled_field_render_explicit(planes, tile_src, px, py, *, n_comp: int, s_max: int):
+    """:func:`tiled_field_render` with the table [T, s_max] and the pixel
+    coordinates [T, PIX] passed explicitly (a shard's own table, or one
+    bucket of it).  K6's column lists are built from the table on the host
+    at the first backward."""
+    if tuple(tile_src.shape[1:]) != (s_max,):
+        raise ValueError(f"tile_src {tuple(tile_src.shape)} is not [T, s_max={s_max}]")
+    return render_bucket(planes, TileBucket(s_max, tile_src, (px, py)), n_comp=n_comp)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,40 @@
-"""Crowded fields: the block-sparse tile maps and the single-device joint
-posteriors (counterpart of ``celeste_tpu/parallel``; the mesh, collectives
-and source-sharded paths are not yet ported, see ROADMAP.md)."""
+"""Crowded fields and the multi-device layer (counterpart of
+``celeste_tpu/parallel``): the block-sparse tile maps, the single-device
+joint posteriors, and their scaling over a mesh of ranks
+(``torch.distributed``) two ways:
 
+- ``chains``: the chain ensemble split over ranks, each advancing its own
+  chains; only pooled statistics and diagnostics communicate;
+- ``sources``: the source catalog split over ranks, the partial lambdas
+  summed before the Poisson log.
+
+Every collective goes through ``collectives.py``; the CPU tests run the
+same code on gloo ranks.  The sharded tempering ladder (``pt_sharded``)
+waits for the tempering slice (ROADMAP.md).
+"""
+
+from celeste_tpu_torch.parallel.mesh import (  # noqa: F401
+    chain_mesh,
+    chain_sharding,
+    launch,
+    make_mesh,
+    process_group,
+)
+from celeste_tpu_torch.parallel.ensemble import (  # noqa: F401
+    ChainShard,
+    ensemble_diagnostics,
+    run_sharded_chees,
+    run_sharded_ensemble,
+    shard_chains,
+)
 from celeste_tpu_torch.parallel.crowded import (  # noqa: F401
     CrowdedScene,
+    crowded_rect_logprior,
     make_crowded_logdensity,
     make_tiled_crowded_logdensity,
     scene_field_planes,
+    sharded_crowded_loglik,
+    sharded_tiled_crowded_loglik,
 )
+from celeste_tpu_torch.parallel import collectives  # noqa: F401
+from celeste_tpu_torch.parallel.tiles import build_block_tile_map, build_tile_map  # noqa: F401

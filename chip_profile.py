@@ -10,8 +10,10 @@ device tracing.  Config 1: the star log-density and its ``value_and_grad``
 at B=64 (the sampling run's chains) and at B=65536 (the timing protocol of
 ``chip_smoke.py``), one HMC step of 16 leapfrog steps and one MH step at
 B=64.  Config 5 (12 sources, 48x128, tiled): the log-density and its
-``value_and_grad`` at B=1024, and one whitened ChEES ensemble step of
-``CHEES_LEAPFROGS`` leapfrog steps at B=1024.  For each it prints
+``value_and_grad`` at B=1024, one whitened ChEES ensemble step of
+``CHEES_LEAPFROGS`` leapfrog steps at B=1024, and the ``value_and_grad`` of
+the source-sharded rectangular posterior on one rank (K5 and K6) at
+B=1024.  For each it prints
 
     wall ms/call (unprofiled), device busy ms/call (sum of the device
     kernels' times in the trace), idle share = 1 - busy / wall, and device
@@ -63,15 +65,17 @@ def breakdown(fn, iters, activities):
 
 def config5_calls(device):
     """The config-5 calls to profile, as (name, zero-argument function)."""
-    from celeste_tpu_torch.bench.config5 import build_config5
+    from celeste_tpu_torch.bench.config5 import build_config5, build_config5_sharded
     from celeste_tpu_torch.inference import ensemble_covariance, whiten_logdensity
     from celeste_tpu_torch.inference.chees import _ensemble_step, chees_init
     from celeste_tpu_torch.inference.hmc import value_and_grad
 
-    logd, _, vec, _ = build_config5(device=device)
+    logd, _, vec, info = build_config5(device=device)
     rng = np.random.default_rng(0)
     vecs = vec[None] + torch.as_tensor(0.01 * rng.normal(size=(CONFIG5_CHAINS, vec.shape[0])),
                                        dtype=torch.float32, device=device)
+    sharded = build_config5_sharded(info, None)
+    rect = info["scene"].to_rect(vecs)
     # a whitened space pooled from the chains themselves: the ChEES arm's
     # step structure (whitening maps, n_leap gradients, accept) at B=1024
     logd_z, _, to_z = whiten_logdensity(logd, *ensemble_covariance(vecs, ridge=1e-4))
@@ -91,6 +95,8 @@ def config5_calls(device):
         (f"config-5 logdensity B={CONFIG5_CHAINS}", no_grad),
         (f"config-5 value_and_grad B={CONFIG5_CHAINS}", lambda: value_and_grad(logd, vecs)),
         (f"config-5 ChEES step ({CHEES_LEAPFROGS} leapfrog) B={CONFIG5_CHAINS}", chees_step),
+        (f"sharded config-5 value_and_grad, one rank, B={CONFIG5_CHAINS}",
+         lambda: value_and_grad(sharded["logpost"], rect)),
     ]
 
 

@@ -19,7 +19,13 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    against torch autograd through the plain forward, rtol 5e-4, atol 0.1;
    K4 on the random-plane setup with repeated sentinel slots, rtol 2e-4,
    atol 5e-3; K4 twice on the same inputs, bitwise equal; a table of
-   sentinels only adds exactly 0 with finite gradients;
+   sentinels only adds exactly 0 with finite gradients; then the render
+   kernels (K5, K6) on config-5 planes in the rectangular layout with the
+   one-rank tables, B=1000 and 4096, per bucket: K5's lambda rtol 1e-5,
+   atol 1e-3; K6 against its plain version and against torch autograd
+   through the plain K5, rtol 5e-4, atol 0.1; K6 on the random-plane setup,
+   rtol 2e-4, atol 5e-3; K6 twice, bitwise equal; sentinels render exactly
+   0 with finite cotangents;
 5. the card's log-likelihood at the truth against the fp64 NumPy oracle,
    for config 1 (25x25 stamp) and config 5 (tiled, 48x128 field), and the
    config-5 tiled-vs-dense parity gate (gap < 1 nat; a 0.05 radii cut trips
@@ -37,15 +43,32 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    divergence <= 0.05 in both arms, max split-R-hat <= 1.1 on the ChEES
    arm; check the whitening maps on the card against float64 on the host;
    fail on a tiled kernel the run never launched;
-8. time with CUDA events (best of 3 after a warm-up): config 1 at B=65536
+8. drive the source-sharded config 5 at full width (12 sources, 48x128,
+   1024 chains, per-source radii), every tiled counter set to 0 just
+   before and read just after: on a one-rank NCCL mesh (1, 1), in this
+   process, the sharded tiled log-likelihood plus the rectangular prior
+   against the single-device tiled posterior of the same radii (values
+   rtol 2e-6, atol 1.0; gradients through ``from_rect`` rtol 5e-4, atol
+   0.1; the padding's likelihood gradient exactly 0) and against the dense
+   reference (gap < 1 nat); then ``run_sharded_chees`` on the rectangular
+   posterior (D = 84), gates finite samples, accept >= 0.4, divergence <=
+   0.05; fail if K5 or K6 was never launched.  Then two spawned gloo ranks
+   on this one card, mesh (1, 2), must give the one-rank value and gradient
+   at the same tolerances, and ``dryrun_multichip(1)`` runs;
+9. time with CUDA events (best of 3 after a warm-up): config 1 at B=65536
    (K1 and the HMC gradient, kernel and plain); K2, K3 and K4 over config
    5's field at B=1024 and 4096, and one config-5 ``value_and_grad`` at
-   B=1024, kernel and plain;
-9. print the kernels' JSON line, the card line, and the result line.
+   B=1024, kernel and plain; K5 and K6 over the sharded tables at B=1024
+   and 4096, kernel and plain, and one sharded ``value_and_grad`` at B=1024
+   beside the single-device one;
+10. print the kernels' JSON line, each kernel with its bound (the larger
+    of its bytes over the card's memory rate and its float32 operations
+    over the card's float32 rate), the card line, and the result line.
 
 Config 5's flow runs the bench's step counts (the defaults of
-``celeste_tpu_torch/bench/config5.py``).  The entry-point runs are cut so
-that the script fits its time, by the constants below (PERF.md lists them).
+``celeste_tpu_torch/bench/config5.py``).  The entry-point runs and the
+sharded ChEES run are cut so that the script fits its time, by the
+constants below (PERF.md lists them).
 """
 
 from __future__ import annotations
@@ -74,6 +97,20 @@ TIMING_CHAINS = (1024, 4096)   # the config-5 kernel timings
 ENTRY_CROWDED = dict(n_warmup=64, n_steps=64, n_leapfrog=8)
 # config 1's HMC run at full length (300 warmup, 500 steps)
 STAR_HMC = dict(n_steps=500, n_warmup=300)
+# the sharded ChEES run on config 5's rectangular posterior (the JAX
+# helper's defaults: 100 warmup, 400 steps, trajectory cap 256)
+SHARDED_CHEES = dict(n_warmup=100, n_steps=100, max_leapfrog=32)
+# the card's peaks (H100 SXM at 700 W, NVIDIA's data sheet: HBM3 rate, float32
+# outside the tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# float32 operations the kernels' algebra needs, an exponential counted as
+# one: per (pixel, component) term, e = exp(quadratic form) takes dx, dy,
+# the form (8) and the exp (11), lambda's a * e summed 2, the six cotangent
+# sums of csrc/tiled_field.cu 26; per pixel, the Poisson term (clamp, log,
+# multiply, subtract, mask) 5 and its cotangent g_lam 6
+FLOPS_TERM_E, FLOPS_TERM_SUM, FLOPS_TERM_COT = 11, 2, 26
+FLOPS_PIXEL_LOGLIK, FLOPS_PIXEL_GLAM = 5, 6
 
 
 def check(ok, msg):
@@ -287,6 +324,91 @@ def tiled_kernel_checks(device, config5):
     return errs
 
 
+def rect_states(sharded5, n, seed):
+    """``n`` rectangular config-5 states [n, 12, 7] scattered around the
+    truth (the star padding stays 0)."""
+    from celeste_tpu_torch.parallel.crowded import STAR_D
+
+    rect = sharded5["rect"]
+    rng = np.random.default_rng(seed)
+    noise = torch.as_tensor(0.01 * rng.normal(size=(n,) + tuple(rect.shape)),
+                            dtype=torch.float32, device=rect.device)
+    scene = sharded5["scene"]
+    for i, kind in enumerate(scene.kinds):
+        if kind == "star":
+            noise[:, i, STAR_D(scene.n_bands):] = 0.0
+    return rect[None] + noise
+
+
+def render_kernel_checks(device, sharded5):
+    """Phase 4, second part: K5 and K6 against their plain versions."""
+    from celeste_tpu_torch.kernels import tiled_field as tf
+
+    errs = {"K5": 0.0, "K6": 0.0, "K6 random": 0.0}
+    loglik = sharded5["loglik"]
+    for b in (1000, 4096):
+        planes = [p.contiguous() for p in loglik.planes(rect_states(sharded5, b, seed=b))]
+        for i, bk in enumerate(loglik.buckets):
+            what = f"B={b} bucket={i}"
+            lam = tf.tiled_render_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=3)
+            want = tf._tiled_render_torch(planes, bk.tile_src, *bk.pixels, 3)
+            g = torch.as_tensor(np.random.default_rng(b + i).normal(size=tuple(lam.shape))
+                                .astype(np.float32), device=device)
+            cols = bk.columns(3, planes[0].shape[1])
+            got = tf.tiled_render_bwd_cuda(*planes, bk.tile_src, *bk.pixels, g, *cols, n_comp=3)
+            again = tf.tiled_render_bwd_cuda(*planes, bk.tile_src, *bk.pixels, g, *cols,
+                                             n_comp=3)
+            hand = tf._tiled_render_bwd_torch(planes, bk.tile_src, *bk.pixels, g, 3)
+            auto = autograd_render(planes, bk, g)
+            torch.cuda.synchronize()
+            errs["K5"] = max(errs["K5"], max_abs_err(lam, want, *LAM_TOL, "K5 " + what))
+            for name, a, h, w, a2 in zip(("amp", "mx", "my", "pa", "pb", "pc"), got, hand, auto,
+                                         again):
+                max_abs_err(a, h, *TILED_BWD_TOL, f"K6 {what} d_{name} vs plain K6")
+                errs["K6"] = max(errs["K6"], max_abs_err(a, w, *TILED_BWD_TOL,
+                                                         f"K6 {what} d_{name} vs autograd"))
+                check(torch.equal(a, a2), f"K6 {what} d_{name}: two calls differ")
+    for b in (37, 1000):
+        planes, ts, ts_np, pix, _ = random_tile_problem(device, seed=b, b=b)
+        px, py = pix[:2]
+        g = torch.as_tensor(np.random.default_rng(b).normal(size=(3, b, 1024))
+                            .astype(np.float32), device=device)
+        lam = tf.tiled_render_cuda(*planes, ts, px, py, n_comp=3)
+        cols = [torch.as_tensor(c, device=device) for c in tf.tile_columns(ts_np, 3, 15)]
+        got = tf.tiled_render_bwd_cuda(*planes, ts, px, py, g, *cols, n_comp=3)
+        again = tf.tiled_render_bwd_cuda(*planes, ts, px, py, g, *cols, n_comp=3)
+        want = tf._tiled_render_bwd_torch(planes, ts, px, py, g, 3)
+        torch.cuda.synchronize()
+        max_abs_err(lam, tf._tiled_render_torch(planes, ts, px, py, 3), *LAM_TOL,
+                    f"K5 random B={b}")
+        for name, a, w, a2 in zip(("amp", "mx", "my", "pa", "pb", "pc"), got, want, again):
+            errs["K6 random"] = max(errs["K6 random"], max_abs_err(
+                a, w, *RANDOM_BWD_TOL, f"K6 random B={b} d_{name}"))
+            check(torch.equal(a, a2), f"K6 random B={b} d_{name}: two calls differ")
+        only_sentinel = torch.full_like(ts, 4)
+        lam = tf.tiled_render_cuda(*planes, only_sentinel, px, py, n_comp=3)
+        check(bool((lam == 0).all()), "sentinel slots render a non-zero lambda")
+        cols = [torch.as_tensor(c, device=device)
+                for c in tf.tile_columns(only_sentinel.cpu().numpy(), 3, 15)]
+        grads = tf.tiled_render_bwd_cuda(*planes, only_sentinel, px, py, g, *cols, n_comp=3)
+        check(all(bool(torch.isfinite(d).all()) for d in grads), "sentinel cotangents not finite")
+    print(f"[kernels] K5, K6 match the plain versions (max abs err {errs}); K6 is bitwise "
+          f"deterministic", flush=True)
+    return errs
+
+
+def autograd_render(planes, bucket, g, chunk=128):
+    """Torch autograd through the plain K5, a chain chunk at a time."""
+    from celeste_tpu_torch.kernels import tiled_field as tf
+
+    out = []
+    for c0 in range(0, planes[0].shape[0], chunk):
+        leaves = [p[c0:c0 + chunk].detach().clone().requires_grad_(True) for p in planes]
+        lam = tf._tiled_render_torch(leaves, bucket.tile_src, *bucket.pixels, 3)
+        out.append(torch.autograd.grad(lam, leaves, g[:, c0:c0 + chunk]))
+    return [torch.cat(d) for d in zip(*out)]
+
+
 # ---------------------------------------------------------------------------
 # oracle and parity
 # ---------------------------------------------------------------------------
@@ -443,6 +565,122 @@ def whitening_check(prep):
           f"{round_trip:.3g} (bounded by float32 x: |x| ~ 9 against stds ~ 6e-3)", flush=True)
 
 
+def sharded_value_and_grad(sharded5, rect):
+    """(log posterior [B], its gradient [B, 12, 7], the likelihood's
+    gradient [B, 12, 7]) of the sharded config-5 posterior."""
+    from celeste_tpu_torch.inference.hmc import value_and_grad
+
+    val, grad = value_and_grad(sharded5["logpost"], rect)
+    _, grad_ll = value_and_grad(sharded5["loglik"], rect)
+    return val, grad, grad_ll
+
+
+def sharded_world2_rank(n_chains):
+    """One of two gloo ranks on the one card, mesh (1, 2): the sharded
+    config-5 posterior's value and gradient at the parity states, on the
+    host."""
+    from celeste_tpu_torch.bench.config5 import build_config5, build_config5_sharded
+    from celeste_tpu_torch.parallel import make_mesh
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    info = build_config5(device=device)[3]
+    s5 = build_config5_sharded(info, make_mesh({"chains": 1, "sources": 2}, "cuda"))
+    val, grad, _ = sharded_value_and_grad(s5, rect_states(s5, n_chains, seed=17))
+    return val.cpu(), grad.cpu()
+
+
+def sharded_path(device, config5):
+    """Phase 8 on a one-rank NCCL mesh: parity of the sharded config-5
+    posterior, its gap to the dense reference, and sharded ChEES at 1024
+    chains.  Returns (the sharded pieces, the parity states' value and
+    gradient)."""
+    from celeste_tpu_torch.bench.config5 import build_config5_sharded
+    from celeste_tpu_torch.inference.hmc import value_and_grad
+    from celeste_tpu_torch.parallel import ensemble_diagnostics, make_mesh, run_sharded_chees
+    from celeste_tpu_torch.parallel.crowded import STAR_D
+
+    _, logd_dense, vec, info = config5
+    mesh = make_mesh({"chains": 1, "sources": 1}, "cuda")
+    s5 = build_config5_sharded(info, mesh)
+    scene = info["scene"]
+    t0 = time.perf_counter()
+    rect = rect_states(s5, C5_CHAINS, seed=17)
+    val, grad, grad_ll = sharded_value_and_grad(s5, rect)
+    want, want_g = value_and_grad(s5["logd_ref"], scene.from_rect(rect))
+    err_v = max_abs_err(val, want, *TILED_TOL, "sharded config-5 value vs single-device tiled")
+    err_g = max_abs_err(scene.from_rect(grad), want_g, *TILED_BWD_TOL,
+                        "sharded config-5 gradient vs single-device tiled")
+    for i, kind in enumerate(scene.kinds):
+        if kind == "star":
+            check(bool((grad_ll[:, i, STAR_D(scene.n_bands):] == 0).all()),
+                  f"source {i}: the padding's likelihood gradient is not 0")
+    with torch.no_grad():
+        probes = rect_states(s5, 8, seed=9)
+        gap = float((s5["logpost"](probes).double()
+                     - logd_dense(scene.from_rect(probes)).double()).abs().max())
+    check(gap < 1.0, f"sharded config-5 gap to the dense reference {gap:.4g} nats >= 1")
+    print(f"[sharded] config 5 on mesh (1, 1), nccl, {C5_CHAINS} states: value max abs err "
+          f"{err_v:.4g}, gradient {err_g:.4g} vs the single-device tiled posterior (same "
+          f"radii); gap to the dense reference {gap:.6g} nats", flush=True)
+
+    d = int(np.prod(s5["rect"].shape))
+    rng = np.random.default_rng(23)
+    # start near the truth; the star padding (0 at the truth) gets its own spread
+    x0 = (rect_states(s5, C5_CHAINS, seed=29).reshape(C5_CHAINS, d)
+          + torch.as_tensor(0.01 * rng.normal(size=(C5_CHAINS, d)), dtype=torch.float32,
+                            device=device) * (s5["rect"].reshape(-1) == 0))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(31)
+
+    def logd_flat(x):
+        return s5["logpost"](x.reshape(x.shape[0], *s5["rect"].shape))
+
+    t1 = time.perf_counter()
+    samples, _, eps, traj, info_c = run_sharded_chees(gen, logd_flat, x0, mesh, **SHARDED_CHEES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    diag = ensemble_diagnostics(samples[:, samples.shape[1] // 4:], mesh)
+    chees = {"wall_s": wall, "eps": float(eps), "traj": float(traj),
+             "accept": float(info_c.accept_rate.mean()),
+             "divergence": float(info_c.divergence_rate.mean()),
+             "n_leapfrog": float(info_c.n_leapfrog.double().mean()),
+             "min_ess": float(diag["ess"].min()), "max_rhat": float(diag["rhat"].max()),
+             "finite": bool(torch.isfinite(samples).all())}
+    chees["min_ess_per_s"] = chees["min_ess"] / wall
+    print(f"[sharded] run_sharded_chees, {C5_CHAINS} chains, D={d}, {SHARDED_CHEES}: "
+          f"wall={wall:.3f}s eps={chees['eps']:.5f} traj={chees['traj']:.5f} "
+          f"leapfrogs_per_step={chees['n_leapfrog']:.3f} accept={chees['accept']:.4f} "
+          f"divergence={chees['divergence']:.4f} min_ess={chees['min_ess']:.1f} "
+          f"min_ess_per_s={chees['min_ess_per_s']:.6g} max_rhat={chees['max_rhat']:.4f} "
+          f"(parity and sampling {time.perf_counter() - t0:.3f}s)", flush=True)
+    check(chees["finite"], "sharded ChEES: non-finite samples")
+    check(chees["accept"] >= 0.4, f"sharded ChEES accept {chees['accept']:.4f} < 0.4")
+    check(chees["divergence"] <= 0.05, f"sharded ChEES divergence {chees['divergence']:.4f}")
+    return s5, (val, grad)
+
+
+def sharded_world2(world1):
+    """Phase 8, second part: two gloo ranks on the one card, mesh (1, 2),
+    against the one-rank value and gradient; then ``dryrun_multichip(1)``."""
+    from celeste_tpu_torch.multichip import dryrun_multichip
+    from celeste_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    ranks = launch(sharded_world2_rank, 2, C5_CHAINS, backend="gloo")
+    val1, grad1 = (t.cpu() for t in world1)
+    for r, (val, grad) in enumerate(ranks):
+        ev = max_abs_err(val, val1, *TILED_TOL, f"world-2 rank {r} value vs world 1")
+        eg = max_abs_err(grad, grad1, *TILED_BWD_TOL, f"world-2 rank {r} gradient vs world 1")
+    check(torch.equal(ranks[0][1], ranks[1][1]), "the two source shards' gradients differ")
+    print(f"[sharded] mesh (1, 2), gloo, two ranks on one card: value and gradient equal "
+          f"world 1's (max abs err {ev:.4g}, {eg:.4g}; {time.perf_counter() - t0:.3f}s)",
+          flush=True)
+    t0 = time.perf_counter()
+    out = dryrun_multichip(1, device="cuda")
+    print(f"[entry] dryrun_multichip(1, device='cuda'): {out} ({time.perf_counter() - t0:.3f}s)",
+          flush=True)
+
+
 # ---------------------------------------------------------------------------
 # timings
 # ---------------------------------------------------------------------------
@@ -558,15 +796,110 @@ def config5_timings(device, card, config5):
     return out
 
 
+def render_timings(card, sharded5, vg_single_ms):
+    """K5 and K6 over the sharded config-5 tables (one launch per bucket) at
+    B=1024 and 4096, kernel and plain, and one sharded value_and_grad at
+    B=1024 beside the single-device one of this run."""
+    from celeste_tpu_torch.inference.hmc import value_and_grad
+    from celeste_tpu_torch.kernels import tiled_field as tf
+
+    loglik = sharded5["loglik"]
+    out = {}
+    for b in TIMING_CHAINS:
+        planes = [p.contiguous() for p in loglik.planes(rect_states(sharded5, b, seed=7))]
+        gs = [torch.ones(bk.tile_src.shape[0], b, 1024, device=planes[0].device)
+              for bk in loglik.buckets]
+        cols = [bk.columns(3, planes[0].shape[1]) for bk in loglik.buckets]
+        reps = 20 if b == TIMING_CHAINS[0] else 5
+        out[b] = {
+            "K5": time_ms(lambda: [tf.tiled_render_cuda(*planes, bk.tile_src, *bk.pixels,
+                                                        n_comp=3) for bk in loglik.buckets], reps),
+            "K5_plain": time_ms(lambda: [tf._tiled_render_torch(planes, bk.tile_src, *bk.pixels,
+                                                                3) for bk in loglik.buckets], 2),
+            "K6": time_ms(lambda: [tf.tiled_render_bwd_cuda(*planes, bk.tile_src, *bk.pixels, g,
+                                                            *c, n_comp=3)
+                                   for bk, g, c in zip(loglik.buckets, gs, cols)], reps),
+            "K6_plain": time_ms(lambda: [tf._tiled_render_bwd_torch(planes, bk.tile_src,
+                                                                    *bk.pixels, g, 3)
+                                         for bk, g in zip(loglik.buckets, gs)], 2),
+        }
+        print(f"[timing] sharded config-5 render kernels, B={b}, one rank "
+              f"({len(loglik.buckets)} bucket(s), one launch each), card: {card}", flush=True)
+        for k, v in out[b].items():
+            print(f"    {k} = {v:.6f} ms", flush=True)
+    rect = rect_states(sharded5, TIMING_CHAINS[0], seed=8)
+    out["vg_ms"] = time_ms(lambda: value_and_grad(sharded5["logpost"], rect), 10)
+    print(f"[timing] sharded config-5 value_and_grad, B={TIMING_CHAINS[0]}, mesh (1, 1): "
+          f"{out['vg_ms']:.6f} ms (single-device K3/K4 value_and_grad of this run "
+          f"{vg_single_ms:.6f} ms), card: {card}", flush=True)
+    return out
+
+
+def bound(flops, nbytes):
+    """(least time in ms, what bounds it) for ``flops`` float32 operations
+    and ``nbytes`` moved, at the card's peaks."""
+    t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_bounds(config5, sharded5):
+    """Each kernel's bound at the shapes it is timed at: config 1's 25x25
+    stamp at B=65536 (625 pixels, padded to 640), config 5's buckets at
+    B=1024 (the single-device tables for K2-K4, the one-rank sharded tables
+    for K5 and K6).  Terms count the table entries that are not the
+    sentinel: the work this run's data needs."""
+    from celeste_tpu_torch.model.galaxy import N_GAL
+
+    f4 = 4
+    b, c = BENCH_CHAINS, 3
+    planes = 6 * b * c * f4
+    pix, pixel_arrays = 625, 5 * 640 * f4
+    out = {
+        "K1-fwd": bound(b * pix * (c * (FLOPS_TERM_E + FLOPS_TERM_SUM) + FLOPS_PIXEL_LOGLIK),
+                        planes + pixel_arrays + b * f4),
+        "K1-bwd": bound(b * pix * (c * (FLOPS_TERM_E + FLOPS_TERM_SUM + FLOPS_TERM_COT)
+                                   + FLOPS_PIXEL_GLAM),
+                        2 * planes + pixel_arrays + b * f4),
+    }
+    b = TIMING_CHAINS[0]
+    sentinel = config5[3]["scene"].n_sources * N_GAL
+    width = (sentinel + 1) * 3
+    planes = 6 * b * width * f4
+
+    def sizes(buckets):
+        """(terms, tiles, table bytes, column-list bytes) of a table's buckets."""
+        entries = sum(int((bk.tile_src != sentinel).sum()) for bk in buckets)
+        tiles = sum(bk.tile_src.shape[0] for bk in buckets)
+        slots = sum(bk.tile_src.numel() for bk in buckets)
+        return (entries * 3 * 1024 * b, tiles, slots * f4,
+                (len(buckets) * (width + 1) + slots * 3) * f4)
+
+    terms, tiles, table, cols = sizes(config5[3]["tiled_data"].bucket_tables)
+    lam = tiles * b * 1024 * f4
+    fwd = terms * (FLOPS_TERM_E + FLOPS_TERM_SUM) + tiles * b * 1024 * FLOPS_PIXEL_LOGLIK
+    out["K2"] = bound(fwd, planes + table + 5 * tiles * 1024 * f4 + tiles * b * f4)
+    out["K3"] = bound(fwd, planes + table + 5 * tiles * 1024 * f4 + tiles * b * f4 + lam)
+    out["K4"] = bound(terms * (FLOPS_TERM_E + FLOPS_TERM_COT) + tiles * b * 1024 * FLOPS_PIXEL_GLAM,
+                      2 * planes + table + 4 * tiles * 1024 * f4 + lam + b * f4 + cols)
+    terms, tiles, table, cols = sizes(sharded5["loglik"].buckets)
+    lam = tiles * b * 1024 * f4
+    out["K5"] = bound(terms * (FLOPS_TERM_E + FLOPS_TERM_SUM),
+                      planes + table + 2 * tiles * 1024 * f4 + lam)
+    out["K6"] = bound(terms * (FLOPS_TERM_E + FLOPS_TERM_COT),
+                      2 * planes + table + 2 * tiles * 1024 * f4 + lam + cols)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    from celeste_tpu_torch.bench.config5 import build_config5
+    from celeste_tpu_torch.bench.config5 import build_config5, build_config5_sharded
     from celeste_tpu_torch.kernels import mog_field as mf
     from celeste_tpu_torch.kernels import tiled_field as tf
     from celeste_tpu_torch.kernels._build import build_library
+    from celeste_tpu_torch.parallel import process_group
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -585,6 +918,7 @@ def main() -> int:
     k1_errs = stamp_kernel_checks(device)
     config5 = build_config5(device=device)
     tiled_errs = tiled_kernel_checks(device, config5)
+    render_errs = render_kernel_checks(device, build_config5_sharded(config5[3], None))
     oracle_checks(device, config5)
 
     mf.reset_launch_counts()
@@ -601,37 +935,50 @@ def main() -> int:
     config5_path(device)
     c5_counts = tf.launch_counts()
     print(f"[config 5] launches: {c5_counts} (stamp kernels: {mf.launch_counts()})", flush=True)
-    for name, n in c5_counts.items():
-        check(n > 0, f"the config-5 path never launched {name}")
+    for name in ("tiled_field_fwd", "tiled_field_fwd_lam", "tiled_field_bwd"):
+        check(c5_counts[name] > 0, f"the config-5 path never launched {name}")
 
-    t1 = config1_timings(device, card)
-    t5 = config5_timings(device, card, config5)
+    with process_group("nccl"):
+        mf.reset_launch_counts()
+        tf.reset_launch_counts()
+        sharded5, world1 = sharded_path(device, config5)
+        sh_counts = tf.launch_counts()
+        print(f"[sharded] launches: {sh_counts} (stamp kernels: {mf.launch_counts()})",
+              flush=True)
+        for name in ("tiled_field_render", "tiled_field_render_bwd"):
+            check(sh_counts[name] > 0, f"the sharded config-5 path never launched {name}")
+        sharded_world2(world1)
+
+        t1 = config1_timings(device, card)
+        t5 = config5_timings(device, card, config5)
+        tr = render_timings(card, sharded5, t5["vg_ms"])
+        bounds = kernel_bounds(config5, sharded5)
     tiled = "celeste_tpu/kernels/tiled_field.py"
-    t5b = t5[TIMING_CHAINS[0]]
-    kernels = [
-        {"name": "mog_field_loglik_fwd", "route": "cuda",
-         "source": "celeste_tpu_torch/csrc/mog_field.cu",
-         "replaces": "celeste_tpu/kernels/mog_field.py:80",
-         "launches": k1_counts["mog_field_loglik_fwd"], "max_abs_err": k1_errs["fwd"],
-         "ms": t1["fwd_ms"], "plain_ms": t1["fwd_plain_ms"]},
-        {"name": "mog_field_loglik_bwd", "route": "cuda",
-         "source": "celeste_tpu_torch/csrc/mog_field.cu",
-         "replaces": "celeste_tpu/kernels/mog_field.py:182",
-         "launches": k1_counts["mog_field_loglik_bwd"], "max_abs_err": k1_errs["bwd"],
-         "ms": t1["bwd_ms"], "plain_ms": t1["bwd_plain_ms"]},
-        {"name": "tiled_field_fwd", "route": "cuda",
-         "source": "celeste_tpu_torch/csrc/tiled_field.cu", "replaces": f"{tiled}:57",
-         "launches": c5_counts["tiled_field_fwd"], "max_abs_err": tiled_errs["K2"],
-         "ms": t5b["K2"], "plain_ms": t5b["K2_plain"]},
-        {"name": "tiled_field_fwd_lam", "route": "cuda",
-         "source": "celeste_tpu_torch/csrc/tiled_field.cu", "replaces": f"{tiled}:84",
-         "launches": c5_counts["tiled_field_fwd_lam"], "max_abs_err": tiled_errs["K3"],
-         "ms": t5b["K3"], "plain_ms": t5b["K3_plain"]},
-        {"name": "tiled_field_bwd", "route": "cuda",
-         "source": "celeste_tpu_torch/csrc/tiled_field.cu", "replaces": f"{tiled}:108",
-         "launches": c5_counts["tiled_field_bwd"], "max_abs_err": tiled_errs["K4"],
-         "ms": t5b["K4"], "plain_ms": t5b["K4_plain"]},
+    t5b, trb = t5[TIMING_CHAINS[0]], tr[TIMING_CHAINS[0]]
+    rows = [
+        ("mog_field_loglik_fwd", "mog_field.cu", "celeste_tpu/kernels/mog_field.py:80", "K1-fwd",
+         k1_counts["mog_field_loglik_fwd"], k1_errs["fwd"], t1["fwd_ms"], t1["fwd_plain_ms"]),
+        ("mog_field_loglik_bwd", "mog_field.cu", "celeste_tpu/kernels/mog_field.py:182",
+         "K1-bwd", k1_counts["mog_field_loglik_bwd"], k1_errs["bwd"], t1["bwd_ms"],
+         t1["bwd_plain_ms"]),
+        ("tiled_field_fwd", "tiled_field.cu", f"{tiled}:57", "K2",
+         c5_counts["tiled_field_fwd"], tiled_errs["K2"], t5b["K2"], t5b["K2_plain"]),
+        ("tiled_field_fwd_lam", "tiled_field.cu", f"{tiled}:84", "K3",
+         c5_counts["tiled_field_fwd_lam"], tiled_errs["K3"], t5b["K3"], t5b["K3_plain"]),
+        ("tiled_field_bwd", "tiled_field.cu", f"{tiled}:108", "K4",
+         c5_counts["tiled_field_bwd"], tiled_errs["K4"], t5b["K4"], t5b["K4_plain"]),
+        ("tiled_field_render", "tiled_field.cu", f"{tiled}:632", "K5",
+         sh_counts["tiled_field_render"], render_errs["K5"], trb["K5"], trb["K5_plain"]),
+        ("tiled_field_render_bwd", "tiled_field.cu", f"{tiled}:652", "K6",
+         sh_counts["tiled_field_render_bwd"], render_errs["K6"], trb["K6"], trb["K6_plain"]),
     ]
+    kernels = []
+    for name, src, replaces, key, launches, err, ms, plain_ms in rows:
+        bound_ms, bound_by = bounds[key]
+        kernels.append({"name": name, "route": "cuda", "source": f"celeste_tpu_torch/csrc/{src}",
+                        "replaces": replaces, "launches": launches, "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
     print(f"[done] whole script {time.perf_counter() - t_start:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -47,7 +47,7 @@ GRAD_TOL = dict(rtol=5e-4, atol=0.1)
 @pytest.fixture(scope="module")
 def config5():
     j_tiled, j_dense, jvec, _ = j_build_config5()
-    t_tiled, t_dense, tvec, tinfo = build_config5()
+    t_tiled, t_dense, tvec, tinfo = build_config5(device="cpu")
     prep = load_config5_prep(PREP)
     probes = (np.asarray(jvec)[None] + 0.01 * np.random.default_rng(21).normal(size=(8, 44)))
     states = np.concatenate([prep["states_x"].x[:8].numpy(), probes.astype(np.float32)])
@@ -117,10 +117,10 @@ def test_whitened_logdensity_matches_jax_on_artifact(config5):
 def test_parity_gap_and_radii_cut(config5):
     gap, rel = config5_parity_gap(config5["t_tiled"], config5["t_dense"], config5["tvec"])
     assert gap < 1.0, (gap, rel)
-    cut, _, _, _ = build_config5(radii_scale=0.05)
+    cut, _, _, _ = build_config5(radii_scale=0.05, device="cpu")
     gap_cut, _ = config5_parity_gap(cut, config5["t_dense"], config5["tvec"])
     assert gap_cut > 100.0 and gap_cut > 100 * gap, (gap_cut, gap)
-    big, _, _, _ = build_config5(radii_scale=1.5)
+    big, _, _, _ = build_config5(radii_scale=1.5, device="cpu")
     assert config5_parity_gap(big, config5["t_dense"], config5["tvec"])[0] < 1.0
 
 
@@ -180,3 +180,11 @@ def test_package_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
                          env=env, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_build_config5_runs_on_the_card_unless_asked(monkeypatch):
+    """The config-5 entry point defaults to the card and raises, with no
+    CPU fallback, where CUDA is absent."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs CUDA"):
+        build_config5()

@@ -277,7 +277,7 @@ def test_tiled_entry_point_launches_k2_or_k3_k4(cuda, config5):
     torch.testing.assert_close(out.detach(), val, rtol=1e-6, atol=1e-3)
     from celeste_tpu_torch.bench.config5 import build_config5
 
-    logd_cpu, _, _, _ = build_config5()
+    logd_cpu, _, _, _ = build_config5(device="cpu")
     xc = vecs.cpu().requires_grad_(True)
     want = logd_cpu(xc)
     (gw,) = torch.autograd.grad(want.sum(), xc)
@@ -310,3 +310,172 @@ def test_tiled_wrappers_reject_bad_inputs(cuda, config5):
         tf.tiled_bwd_cuda(*planes, bk.tile_src, *pix, lam, g, col_ptr, col_ent[:-1], n_comp=3)
     with pytest.raises(ValueError, match="lam"):
         tf.tiled_bwd_cuda(*planes, bk.tile_src, *pix, lam[:, :4], g, col_ptr, col_ent, n_comp=3)
+
+
+# ---------------------------------------------------------------------------
+# the render kernels K5, K6 (the source-sharded field)
+# ---------------------------------------------------------------------------
+
+RENDER_BWD_RANDOM_TOL = dict(rtol=2e-4, atol=5e-3)
+
+
+@pytest.fixture(scope="module")
+def sharded5(config5):
+    """Config 5 on one rank: the rectangular posterior's sharded pieces."""
+    from celeste_tpu_torch.bench.config5 import build_config5_sharded
+
+    return build_config5_sharded(config5[3], None)
+
+
+def _rect_states(sharded5, n, seed=0):
+    rect = sharded5["rect"]
+    rng = np.random.default_rng(seed)
+    return rect[None] + torch.as_tensor(0.01 * rng.normal(size=(n,) + tuple(rect.shape)),
+                                        dtype=torch.float32, device=rect.device)
+
+
+def test_render_kernel_matches_plain(cuda, sharded5):
+    planes = [p.contiguous() for p in sharded5["loglik"].planes(_rect_states(sharded5, 1000))]
+    for bk in sharded5["loglik"].buckets:
+        got = tf.tiled_render_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=3)
+        want = tf._tiled_render_torch(planes, bk.tile_src, *bk.pixels, 3)
+        torch.testing.assert_close(got, want, **LAM_TOL)
+
+
+def test_render_backward_kernel_matches_plain_and_autograd(cuda, sharded5):
+    planes = [p.contiguous() for p in sharded5["loglik"].planes(_rect_states(sharded5, 257, 1))]
+    for bk in sharded5["loglik"].buckets:
+        g = torch.as_tensor(np.random.default_rng(2).normal(
+            size=(bk.tile_src.shape[0], 257, 1024)).astype(np.float32), device=cuda)
+        got = tf.tiled_render_bwd_cuda(*planes, bk.tile_src, *bk.pixels, g,
+                                       *bk.columns(3, planes[0].shape[1]), n_comp=3)
+        hand = tf._tiled_render_bwd_torch(planes, bk.tile_src, *bk.pixels, g, 3)
+        leaves = [p.clone().requires_grad_(True) for p in planes]
+        auto = torch.autograd.grad(tf._tiled_render_torch(leaves, bk.tile_src, *bk.pixels, 3),
+                                   leaves, g)
+        for a, h, w in zip(got, hand, auto):
+            torch.testing.assert_close(a, h, **TILED_GRAD_TOL)
+            torch.testing.assert_close(a, w, **TILED_GRAD_TOL)
+
+
+def test_render_backward_random_planes_and_determinism(cuda):
+    planes, tile_src, pixels, _ = random_tile_problem(seed=5, b=37, s=4, t=3)
+    planes = [torch.as_tensor(p, device=cuda) for p in planes]
+    ts = torch.as_tensor(tile_src, device=cuda)
+    px, py = (torch.as_tensor(p, device=cuda) for p in pixels[:2])
+    g = torch.as_tensor(np.random.default_rng(6).normal(size=(3, 37, 1024)).astype(np.float32),
+                        device=cuda)
+    cols = [torch.as_tensor(c, device=cuda) for c in tf.tile_columns(tile_src, 3, 15)]
+    lam = tf.tiled_render_cuda(*planes, ts, px, py, n_comp=3)
+    torch.testing.assert_close(lam, tf._tiled_render_torch(planes, ts, px, py, 3), **LAM_TOL)
+    got = tf.tiled_render_bwd_cuda(*planes, ts, px, py, g, *cols, n_comp=3)
+    for a, w in zip(got, tf._tiled_render_bwd_torch(planes, ts, px, py, g, 3)):
+        torch.testing.assert_close(a, w, **RENDER_BWD_RANDOM_TOL)
+    again = tf.tiled_render_bwd_cuda(*planes, ts, px, py, g, *cols, n_comp=3)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_render_sentinel_is_exactly_zero(cuda):
+    planes, _, pixels, _ = random_tile_problem(seed=11, b=9)
+    planes = [torch.as_tensor(p, device=cuda) for p in planes]
+    px, py = (torch.as_tensor(p, device=cuda) for p in pixels[:2])
+    only_sentinel = torch.full((3, 4), 4, dtype=torch.int32, device=cuda)
+    lam = tf.tiled_render_cuda(*planes, only_sentinel, px, py, n_comp=3)
+    assert bool((lam == 0).all())
+    cols = [torch.as_tensor(c, device=cuda)
+            for c in tf.tile_columns(only_sentinel.cpu().numpy(), 3, 15)]
+    grads = tf.tiled_render_bwd_cuda(*planes, only_sentinel, px, py, torch.ones_like(lam), *cols,
+                                     n_comp=3)
+    assert all(bool(torch.isfinite(d).all()) and bool((d[:, :12] == 0).all()) for d in grads)
+
+
+def test_render_wrappers_reject_bad_inputs(cuda, sharded5):
+    planes = [p.contiguous() for p in sharded5["loglik"].planes(_rect_states(sharded5, 8))]
+    bk = sharded5["loglik"].buckets[0]
+    px, py = bk.pixels
+    with pytest.raises(ValueError, match="dtype"):
+        tf.tiled_render_cuda(planes[0].double(), *planes[1:], bk.tile_src, px, py, n_comp=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tf.tiled_render_cuda(planes[0].t().contiguous().t(), *planes[1:], bk.tile_src, px, py,
+                             n_comp=3)
+    with pytest.raises(ValueError, match="shape"):
+        tf.tiled_render_cuda(*planes, bk.tile_src, px[:, :-1], py, n_comp=3)
+    with pytest.raises(ValueError):
+        tf.tiled_render_cuda(*planes, bk.tile_src.cpu(), px, py, n_comp=3)
+    lam = tf.tiled_render_cuda(*planes, bk.tile_src, px, py, n_comp=3)
+    col_ptr, col_ent = bk.columns(3, planes[0].shape[1])
+    with pytest.raises(ValueError, match="g has shape"):
+        tf.tiled_render_bwd_cuda(*planes, bk.tile_src, px, py, lam[:, :4], col_ptr, col_ent,
+                                 n_comp=3)
+    with pytest.raises(ValueError, match="col_ent"):
+        tf.tiled_render_bwd_cuda(*planes, bk.tile_src, px, py, lam, col_ptr, col_ent[:-1],
+                                 n_comp=3)
+
+
+def test_sharded_world1_matches_single_device_tiled(cuda, config5):
+    """The sharded posterior on a one-rank NCCL mesh, through K5 and K6,
+    against the single-device tiled posterior (K3 and K4) with the same
+    radii: values and gradients at the card's gates, the star padding's
+    likelihood gradient exactly 0."""
+    from celeste_tpu_torch.bench.config5 import build_config5_sharded
+    from celeste_tpu_torch.parallel import make_mesh, process_group
+
+    info = config5[3]
+    with process_group("nccl"):
+        s5 = build_config5_sharded(info, make_mesh({"chains": 1, "sources": 1}, "cuda"))
+        rect = _rect_states(s5, 64, seed=3)
+        before = tf.launch_counts()
+        x = rect.clone().requires_grad_(True)
+        val = s5["logpost"](x)
+        (g,) = torch.autograd.grad(val.sum(), x)
+        x2 = rect.clone().requires_grad_(True)
+        (g_ll,) = torch.autograd.grad(s5["loglik"](x2).sum(), x2)
+        after = tf.launch_counts()
+    n_buckets = len(s5["loglik"].buckets)
+    assert after["tiled_field_render"] >= before["tiled_field_render"] + 2 * n_buckets
+    assert after["tiled_field_render_bwd"] >= before["tiled_field_render_bwd"] + 2 * n_buckets
+    cs = info["scene"]
+    xp = cs.from_rect(rect).requires_grad_(True)
+    want = s5["logd_ref"](xp)
+    (gw,) = torch.autograd.grad(want.sum(), xp)
+    torch.testing.assert_close(val.detach(), want.detach(), **TILED_TOL)
+    torch.testing.assert_close(cs.from_rect(g), gw, **TILED_GRAD_TOL)
+    for i, kind in enumerate(cs.kinds):
+        if kind == "star":
+            assert bool((g_ll[:, i, 3:] == 0).all())
+
+
+def _nccl_rank(mesh_shape, n_chains):
+    """One NCCL rank on its own card: the sharded config-5 posterior's value
+    and gradient at ``n_chains`` states, on this rank's chains."""
+    from celeste_tpu_torch.bench.config5 import build_config5, build_config5_sharded
+    from celeste_tpu_torch.parallel import chain_sharding, make_mesh
+
+    info = build_config5(device=torch.device("cuda", torch.cuda.current_device()))[3]
+    mesh = make_mesh(mesh_shape, "cuda")
+    s5 = build_config5_sharded(info, mesh)
+    x = _rect_states(s5, n_chains, seed=5)[chain_sharding(mesh, n_chains)].requires_grad_(True)
+    val = s5["logpost"](x)
+    (g,) = torch.autograd.grad(val.sum(), x)
+    return val.detach().cpu(), g.cpu()
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_sharded_nccl_across_four_cards(cuda, sharded5, shape):
+    """Four NCCL ranks, a card each, against one rank: the same value and
+    gradient of the sharded config-5 posterior, chain block by chain
+    block."""
+    from celeste_tpu_torch.parallel import launch
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 GPUs, this host has {torch.cuda.device_count()}")
+    ranks = launch(_nccl_rank, 4, {"chains": shape[0], "sources": shape[1]}, 64,
+                   backend="nccl")
+    x = _rect_states(sharded5, 64, seed=5).requires_grad_(True)
+    want = sharded5["logpost"](x)
+    (want_g,) = torch.autograd.grad(want.sum(), x)
+    per = 64 // shape[0]
+    for rank, (val, g) in enumerate(ranks):
+        rows = slice((rank // shape[1]) * per, (rank // shape[1] + 1) * per)
+        torch.testing.assert_close(val, want.detach()[rows].cpu(), **TILED_TOL)
+        torch.testing.assert_close(g, want_g[rows].cpu(), **TILED_GRAD_TOL)

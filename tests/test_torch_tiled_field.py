@@ -72,7 +72,7 @@ def star_field():
 def config5():
     """BASELINE config 5 built by both packages (positions, radii, counts)."""
     _, _, jvec, jinfo = j_build_config5()
-    _, _, tvec, tinfo = build_config5()
+    _, _, tvec, tinfo = build_config5(device="cpu")
     vecs = (np.asarray(jvec)[None] + 0.01 * np.random.default_rng(3).normal(size=(5, 44)))
     return {"jinfo": jinfo, "tinfo": tinfo, "jvec": np.asarray(jvec), "tvec": tvec.numpy(),
             "vecs": vecs.astype(np.float32), "n_comp": 3}
