@@ -1,8 +1,12 @@
 // Fused MoG-field render + Poisson log-likelihood for Hopper (sm_90a):
-// the forward kernel and its hand-written backward.
+// the forward kernel and its hand-written backward (K1), and the lambda
+// render (K7).
 //
-// Replaces the TPU kernel celeste_tpu/kernels/mog_field.py::_loglik_kernel
-// (forward) and the autodiff of its dense mirror, _loglik_bwd (backward).
+// Replaces the TPU kernels of celeste_tpu/kernels/mog_field.py:
+//   K1  _loglik_kernel (forward) and the autodiff of its dense mirror,
+//       _loglik_bwd (backward);
+//   K7  _render_kernel (launcher mog_field_render): the images
+//       lam = sky + sum_c a_c exp(-q_c / 2) themselves, [B, P].
 //
 // Math.  Chain b carries C Gaussian components in precision form: amplitude
 // a (flux, calibration, weight and normaliser folded in), centre (mx, my)
@@ -37,6 +41,16 @@
 // (pixel, component); the backward multiplies a * e instead, so that a
 // zero-amplitude component gives 0 and not 0 * inf = NaN.  Padded pixels
 // (mask 0, sky 1) are read as they are and contribute exactly 0.
+//
+// K7 is bound by the same units: ~13 FP32 operations and one exponential per
+// (pixel, component) against 4 bytes of lambda stored per pixel.  A block is
+// 8 chains (a warp each) by one tile of kRenderTile pixels, so any stamp or
+// field renders with no pixel cap; the tile's px, py and sky and the chains'
+// components are staged in shared memory, and each warp's lanes store
+// consecutive pixels of its chain's row (coalesced).  As the TPU body does,
+// it multiplies a * exp(-q / 2) with the 2 pb cross term, so a
+// zero-amplitude component adds exactly 0 and a zero-amplitude row renders
+// exactly the sky.  It returns every one of the P (lane-padded) pixels.
 //
 // Interface: plain C, bound with ctypes.  Each entry launches on the given
 // stream, allocates nothing and returns cudaGetLastError() after the launch.
@@ -232,6 +246,68 @@ loglik_bwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
   }
 }
 
+constexpr int kRenderTile = 1024;      // pixels per K7 block
+
+__global__ void __launch_bounds__(kThreads)
+render_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
+              const float* __restrict__ my, const float* __restrict__ pa,
+              const float* __restrict__ pb, const float* __restrict__ pc,
+              const float* __restrict__ px, const float* __restrict__ py,
+              const float* __restrict__ sky, float* __restrict__ out,
+              int n_chains, int n_comp, int n_pix) {
+  extern __shared__ float smem[];
+  float* s_px = smem;
+  float* s_py = s_px + kRenderTile;
+  float* s_sky = s_py + kRenderTile;
+  float* s_par = s_sky + kRenderTile;    // kWarps x 6 x C
+
+  const int p0 = blockIdx.y * kRenderTile;
+  const int n_tile = min(kRenderTile, n_pix - p0);
+  for (int i = threadIdx.x; i < n_tile; i += kThreads) {
+    s_px[i] = px[p0 + i];
+    s_py[i] = py[p0 + i];
+    s_sky[i] = sky[p0 + i];
+  }
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + warp;
+  const int C = n_comp;
+  float* w_a = s_par + warp * 6 * C;
+  float* w_mx = w_a + C;
+  float* w_my = w_mx + C;
+  float* w_pa = w_my + C;
+  float* w_pb = w_pa + C;
+  float* w_pc = w_pb + C;
+  if (b < n_chains) {
+    for (int c = lane; c < C; c += 32) {
+      const size_t i = static_cast<size_t>(b) * C + c;
+      w_a[c] = amp[i];
+      w_mx[c] = mx[i];
+      w_my[c] = my[i];
+      w_pa[c] = pa[i];
+      w_pb[c] = pb[i];
+      w_pc[c] = pc[i];
+    }
+  }
+  __syncthreads();
+  if (b >= n_chains) return;
+
+  float* row = out + static_cast<size_t>(b) * n_pix + p0;
+  for (int p = lane; p < n_tile; p += 32) {
+    const float x = s_px[p];
+    const float y = s_py[p];
+    float lam = s_sky[p];
+    for (int c = 0; c < C; ++c) {
+      const float dx = x - w_mx[c];
+      const float dy = y - w_my[c];
+      const float q = w_pa[c] * dx * dx + 2.0f * w_pb[c] * dx * dy + w_pc[c] * dy * dy;
+      lam += w_a[c] * expf(-0.5f * q);
+    }
+    row[p] = lam;
+  }
+}
+
 // Shared-memory bytes each kernel needs for C components and P pixels; a
 // size above the block's limit makes launch_prep fail, and the entry points
 // return that error.
@@ -243,6 +319,11 @@ size_t fwd_smem_bytes(int n_comp, int n_pix) {
 size_t bwd_smem_bytes(int n_comp, int n_pix) {
   return ((5 + kWarps) * static_cast<size_t>(n_pix)
           + kWarps * 6 * static_cast<size_t>(n_comp)) * sizeof(float);
+}
+
+size_t render_smem_bytes(int n_comp) {
+  return (3 * static_cast<size_t>(kRenderTile) + kWarps * 6 * static_cast<size_t>(n_comp))
+         * sizeof(float);
 }
 
 }  // namespace
@@ -288,6 +369,19 @@ int mog_field_loglik_bwd(const float* amp, const float* mx, const float* my,
   loglik_bwd_kernel<<<grid, kThreads, smem, s>>>(
       amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g,
       d_amp, d_mx, d_my, d_pa, d_pb, d_pc, n_chains, n_comp, n_pix);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mog_field_render(const float* amp, const float* mx, const float* my,
+                     const float* pa, const float* pb, const float* pc,
+                     const float* px, const float* py, const float* sky, float* out,
+                     int n_chains, int n_comp, int n_pix, void* stream) {
+  const size_t smem = render_smem_bytes(n_comp);
+  const dim3 grid((n_chains + kWarps - 1) / kWarps, (n_pix + kRenderTile - 1) / kRenderTile);
+  cudaError_t err = launch_prep(render_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  render_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      amp, mx, my, pa, pb, pc, px, py, sky, out, n_chains, n_comp, n_pix);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,18 +4,25 @@ Ported so far:
 
   star_single    — BASELINE config 1: r-band point source on a 25x25
                    stamp, MH over (position, flux) as written.
+  star_ugriz     — BASELINE config 2: the same star in five bands (ugriz),
+                   HMC by default and the slice sampler it is held to;
+                   ``color_prior=gmm`` takes the empirical colour mixture.
+  galaxy         — BASELINE config 3: an exp/deV galaxy with its shape on a
+                   31x31 r-band stamp, NUTS.
   crowded_field  — BASELINE config 5's setting: a joint multi-source field
                    sampled by a chain ensemble, ChEES in the whitened space
                    of a pooled dense metric by default; ``tiled=true`` takes
                    the block-sparse tiled likelihood, ``n_galaxies`` mixes
                    galaxies into the scene.
 
-Samplers: mh, hmc, nuts and chees, each after an adaptive HMC warmup
-(except mh); ``metric=dense`` samples in the whitened space.  The other
-configs of the JAX package, the slice and tempered samplers, multi-band
-scenes and checkpoint/resume raise "not yet ported" (ROADMAP.md lists them).
+Samplers: mh, slice, hmc, nuts and chees; the gradient samplers after an
+adaptive HMC warmup; ``metric=dense`` samples in the whitened space.  The
+other configs of the JAX package, the tempered samplers and
+checkpoint/resume raise "not yet ported" (ROADMAP.md lists them).
 
 Run:  python -m celeste_tpu_torch.run config=star_single n_chains=64 n_steps=2000
+      python -m celeste_tpu_torch.run config=star_ugriz sampler=slice color_prior=gmm
+      python -m celeste_tpu_torch.run config=galaxy
       python -m celeste_tpu_torch.run config=crowded_field tiled=true n_galaxies=2
 Flat ``key=value`` overrides are parsed onto the dataclass.  ``device``
 defaults to ``cuda`` and raises where CUDA is absent; ``device=cpu`` runs
@@ -34,7 +41,7 @@ import torch
 @dataclass
 class ExperimentConfig:
     name: str = "star_single"
-    sampler: str = "mh"            # mh | hmc | nuts | chees
+    sampler: str = "mh"            # mh | slice | hmc | nuts | chees
     n_chains: int = 64
     n_steps: int = 1000
     n_warmup: int = 300
@@ -50,6 +57,7 @@ class ExperimentConfig:
     max_depth: int = 6
     n_leapfrog: int = 16
     metric: str = "diag"           # diag | dense (pooled ensemble whitening)
+    color_prior: str = "gaussian"  # gaussian | gmm (empirical colour GMM)
     tiled: bool = False            # crowded_field: block-sparse tiled loglik
     n_galaxies: int = 0            # crowded_field: mixed star/galaxy scenes
     # io
@@ -89,6 +97,10 @@ def parse_overrides(cfg: ExperimentConfig, argv):
 CONFIGS = {
     "star_single": ExperimentConfig(name="star_single", sampler="mh", n_chains=64,
                                     n_steps=3000, bands=(2,)),
+    "star_ugriz": ExperimentConfig(name="star_ugriz", sampler="hmc", n_chains=32,
+                                   n_steps=1000, bands=(0, 1, 2, 3, 4)),
+    "galaxy": ExperimentConfig(name="galaxy", sampler="nuts", n_chains=32, n_steps=800,
+                               shape=(31, 31), flux_r=60.0, bands=(2,)),
     # chees + dense metric: the JAX package's measured-best crowded sampler;
     # sampler=nuts metric=diag restores the reference-style configuration
     "crowded_field": ExperimentConfig(name="crowded_field", sampler="chees", metric="dense",
@@ -107,20 +119,50 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def _flux_priors(cfg: ExperimentConfig, default_gmm):
+    """Log-normal reference flux around ``flux_r``; Gaussian colours, or the
+    empirical colour mixture ``default_gmm()`` when ``color_prior=gmm``."""
+    from celeste_tpu_torch.model.priors import FluxPrior, SourcePriors
+
+    color_gmm = default_gmm() if cfg.color_prior == "gmm" else None
+    return SourcePriors(flux=FluxPrior(log_ref_mean=float(np.log(cfg.flux_r)), log_ref_std=2.0,
+                                       color_gmm=color_gmm))
+
+
 def _star_problem(cfg: ExperimentConfig, device):
     from celeste_tpu_torch.data.synthetic import make_synthetic_stamp, star_source
     from celeste_tpu_torch.inference.problems import make_star_logdensity
-    from celeste_tpu_torch.model.priors import FluxPrior, SourcePriors
+    from celeste_tpu_torch.model.color_prior import default_star_gmm
 
     src = star_source(u=(30.00005, 10.00008), flux_r=cfg.flux_r)
     scene = make_synthetic_stamp([src], shape=cfg.shape, bands=cfg.bands, seed=cfg.seed,
                                  device=device)
-    priors = SourcePriors(flux=FluxPrior(log_ref_mean=float(np.log(cfg.flux_r)),
-                                         log_ref_std=2.0))
-    # one band: the vector is [du_e, du_n, log_flux] and the stamp's flux slot is 0
-    logd = make_star_logdensity(scene.stamps, bands=[0], priors=priors, n_bands=1)
+    nb = len(cfg.bands)
+    # the vector is [du_e, du_n, log_flux per band]; stamp i's flux slot is i
+    logd = make_star_logdensity(scene.stamps, bands=list(range(nb)),
+                                priors=_flux_priors(cfg, default_star_gmm), n_bands=nb)
     du = scene.wcs.equa2duas(src["u"])
-    x0 = np.concatenate([du, [np.log(src["flux"][cfg.bands[0]])]]).astype(np.float32)
+    x0 = np.concatenate([du, np.log([src["flux"][b] for b in cfg.bands])]).astype(np.float32)
+    return scene, logd, x0
+
+
+def _galaxy_problem(cfg: ExperimentConfig, device):
+    from celeste_tpu_torch.data.synthetic import galaxy_source, make_synthetic_stamp
+    from celeste_tpu_torch.inference.problems import make_galaxy_logdensity
+    from celeste_tpu_torch.model.color_prior import default_galaxy_gmm
+
+    src = galaxy_source(u=(30.0, 10.0), flux_r=cfg.flux_r)
+    scene = make_synthetic_stamp([src], shape=cfg.shape, bands=cfg.bands, seed=cfg.seed,
+                                 device=device)
+    nb = len(cfg.bands)
+    logd = make_galaxy_logdensity(scene.stamps, bands=list(range(nb)),
+                                  priors=_flux_priors(cfg, default_galaxy_gmm), n_bands=nb)
+    du = scene.wcs.equa2duas(src["u"])
+    t, ab = src["theta_dev"], src["ab"]
+    x0 = np.concatenate([
+        du, np.log([src["flux"][b] for b in cfg.bands]),
+        [np.log(t / (1 - t)), np.log(src["sigma"]), np.log(ab / (1 - ab)), src["phi"]],
+    ]).astype(np.float32)
     return scene, logd, x0
 
 
@@ -174,19 +216,23 @@ def _crowded_problem(cfg: ExperimentConfig, device):
     return scene, logd, x0
 
 
-_PROBLEMS = {"star_single": _star_problem, "crowded_field": _crowded_problem}
+_PROBLEMS = {"star_single": _star_problem, "star_ugriz": _star_problem,
+             "galaxy": _galaxy_problem, "crowded_field": _crowded_problem}
 
 
 def _check_ported(cfg: ExperimentConfig):
     if cfg.name not in _PROBLEMS:
         raise NotImplementedError(f"config {cfg.name!r} is not yet ported to "
                                   f"celeste_tpu_torch (see ROADMAP.md)")
-    if cfg.sampler not in ("mh", "hmc", "nuts", "chees"):
+    if cfg.sampler not in ("mh", "slice", "hmc", "nuts", "chees"):
         raise NotImplementedError(f"sampler {cfg.sampler!r} is not yet ported")
     if cfg.metric not in ("diag", "dense"):
         raise ValueError(f"metric must be diag or dense, got {cfg.metric!r}")
-    if len(cfg.bands) != 1:
-        raise NotImplementedError("multi-band posteriors (config 2) are not yet ported")
+    if cfg.color_prior not in ("gaussian", "gmm"):
+        raise ValueError(f"color_prior must be gaussian or gmm, got {cfg.color_prior!r}")
+    if cfg.name == "crowded_field" and (len(cfg.bands) != 1 or cfg.color_prior != "gaussian"):
+        raise NotImplementedError("crowded_field takes one band and color_prior=gaussian "
+                                  "(the multi-band crowded field is not yet ported)")
     if cfg.checkpoint_every or cfg.resume:
         raise NotImplementedError("checkpoint/resume is not yet ported")
     if cfg.sampler == "chees" and cfg.thin != 1:
@@ -212,7 +258,7 @@ def run_experiment(cfg: ExperimentConfig):
     ``cfg.out`` if set)."""
     from celeste_tpu_torch.inference import (
         chees_warmup, hmc_kernel, hmc_warmup, mh_init, mh_kernel, nuts_kernel,
-        run_chains_ensemble, run_chees_ensemble, summarize,
+        run_chains_ensemble, run_chees_ensemble, slice_init, slice_kernel, summarize,
     )
     from celeste_tpu_torch.utils.metrics import MetricsLogger
 
@@ -236,6 +282,9 @@ def run_experiment(cfg: ExperimentConfig):
         if cfg.sampler == "mh":
             kern = mh_kernel(logd, step_scales=torch.full((d,), 0.01, **kw))
             init = mh_init(x0b, logd)
+        elif cfg.sampler == "slice":
+            kern = slice_kernel(logd, widths=torch.full((d,), 0.05, **kw))
+            init = slice_init(x0b, logd)
         else:
             init, ss, im = hmc_warmup(gen, logd, x0b, n_warmup=cfg.n_warmup,
                                       n_leapfrog=cfg.n_leapfrog)
@@ -269,17 +318,22 @@ def run_experiment(cfg: ExperimentConfig):
         else:
             samples, _, info = run_chains_ensemble(gen, kern, init, n_steps=cfg.n_steps,
                                                    thin=cfg.thin)
-            accept = info.accept_prob if cfg.sampler == "nuts" else info.accepted
+            accept = (None if cfg.sampler == "slice"
+                      else info.accept_prob if cfg.sampler == "nuts" else info.accepted)
             diverged = info.diverged if cfg.sampler == "nuts" else None
+            if cfg.sampler == "slice":
+                result["evals_per_sweep"] = float(torch.mean(info.n_evals.double()))
+                result["calls_per_sweep"] = float(torch.mean(info.n_calls[0].double()))
         if to_x is not None:
             samples = to_x(samples)
         kept = samples[:, samples.shape[1] // 4:]
         summ = summarize(kept)
-        result["accept_rate"] = float(torch.mean(accept.to(torch.float32)))
+        if accept is not None:
+            result["accept_rate"] = float(torch.mean(accept.to(torch.float32)))
         if diverged is not None:
             result["divergence_rate"] = float(torch.mean(diverged.to(torch.float32)))
     logger.log("done", rhat_max=float(torch.max(summ["rhat"])),
-               ess_min=float(torch.min(summ["ess"])), accept_rate=result["accept_rate"],
+               ess_min=float(torch.min(summ["ess"])), accept_rate=result.get("accept_rate"),
                mean=summ["mean"], std=summ["std"])
     logger.close()
     result.update({"samples": samples.cpu().numpy(), "x0": x0,

@@ -2,13 +2,14 @@
 (counterpart of ``celeste_tpu/inference``).
 
 Every kernel is a ``(generator, state) -> (state, info)`` step over a
-[B, D] batch of chains; time is a Python loop.  Ported so far: MH, HMC with
-its adaptive warmup, NUTS, ChEES-HMC with its ensemble warmup, the
-dense-metric whitening, diagnostics and the star posterior.  Slice and the
-rest are listed in ROADMAP.md.
+[B, D] batch of chains; time is a Python loop.  Ported so far: MH, slice,
+HMC with its adaptive warmup, NUTS, ChEES-HMC with its ensemble warmup, the
+dense-metric whitening, diagnostics and the star and galaxy posteriors.
+The rest are listed in ROADMAP.md.
 """
 
 from celeste_tpu_torch.inference.mh import mh_init, mh_kernel  # noqa: F401
+from celeste_tpu_torch.inference.slice_ import SliceInfo, SliceState, slice_init, slice_kernel  # noqa: F401
 from celeste_tpu_torch.inference.hmc import (  # noqa: F401
     HMCState,
     hmc_init,

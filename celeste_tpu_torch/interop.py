@@ -15,6 +15,7 @@ import torch
 
 from celeste_tpu_torch.inference.chees import ChEESState
 from celeste_tpu_torch.inference.hmc import HMCState
+from celeste_tpu_torch.model.color_prior import ColorGMM
 from celeste_tpu_torch.model.params import GalaxyParams, StarParams
 from celeste_tpu_torch.model.stamp import Stamp
 from celeste_tpu_torch.mog import MoG2D
@@ -42,6 +43,15 @@ def galaxy_params_from_numpy(u, flux, theta_dev, sigma, ab, phi, device="cpu") -
     return GalaxyParams(u=_t(u, device), flux=_t(flux, device),
                         theta_dev=_t(theta_dev, device), sigma=_t(sigma, device),
                         ab=_t(ab, device), phi=_t(phi, device))
+
+
+def color_gmm_from_fields(weights, means, inv_chols) -> ColorGMM:
+    """A ``ColorGMM`` from the JAX one's fields (weights [K], means [K][C],
+    inv_chols [K][C][C]), as nested float tuples."""
+    return ColorGMM(weights=tuple(float(v) for v in np.asarray(weights, np.float64)),
+                    means=tuple(map(tuple, np.asarray(means, np.float64).tolist())),
+                    inv_chols=tuple(tuple(map(tuple, m))
+                                    for m in np.asarray(inv_chols, np.float64).tolist()))
 
 
 def hmc_warm_state_from_numpy(x, logp, grad, step_size, inv_mass, device="cpu"):

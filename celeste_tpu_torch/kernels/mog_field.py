@@ -5,20 +5,21 @@ axis B; each chain carries C Gaussian components in precision form as six
 [B, C] float32 planes (amplitude with every normaliser folded in, centre,
 inverse-covariance entries).  Pixels come as five lane-padded [1, PIX_PAD]
 arrays from :func:`stamp_pixel_data`; padded pixels have mask 0 and sky 1.
-The function returns one log-likelihood per chain, [B].
+:func:`mog_field_loglik` returns one log-likelihood per chain, [B];
+:func:`mog_field_render` returns the expected-count images, [B, PIX_PAD].
 
 Dispatch follows the tensors' device, with no switch and no fallback:
 
 - CUDA tensors launch the hand-written Hopper kernels of
-  ``csrc/mog_field.cu`` (``mog_field_loglik_fwd`` forward and, under
-  autograd, ``mog_field_loglik_bwd`` backward).  A build or launch failure
-  raises.
-- CPU tensors take the plain PyTorch version, :func:`_loglik_torch`, whose
-  gradient is torch autograd.
+  ``csrc/mog_field.cu`` (K1: ``mog_field_loglik_fwd`` forward and, under
+  autograd, ``mog_field_loglik_bwd`` backward; K7: ``mog_field_render``).
+  A build or launch failure raises.
+- CPU tensors take the plain PyTorch versions, :func:`_loglik_torch` (whose
+  gradient is torch autograd) and :func:`_render_torch`.
 
-:func:`_loglik_torch` and :func:`_loglik_bwd_torch` are the kernels' plain
-versions: the tests hold them against the JAX package, and ``chip_smoke.py``
-holds the kernels against them on the card.
+:func:`_loglik_torch`, :func:`_loglik_bwd_torch` and :func:`_render_torch`
+are the kernels' plain versions: the tests hold them against the JAX
+package, and ``chip_smoke.py`` holds the kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -68,6 +69,22 @@ def _loglik_torch(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask,
     return torch.sum(ll, dim=-1)
 
 
+def _render_torch(amp, mx, my, pa, pb, pc, px, py, sky):
+    """The render kernel's math, dense: [B, C] planes, [1, P] pixels ->
+    lambda [B, P], padded pixels included.  Chains go in chunks that keep
+    each [chunk, C, P] intermediate near 128 MB (a 48x128 field of 126
+    components at B=1024 is 3 GB per intermediate unchunked)."""
+    chunk = max(1, 2**25 // (amp.shape[1] * px.shape[1]))
+    out = []
+    for c0 in range(0, amp.shape[0], chunk):
+        a, x0, y0, qa, qb, qc = (t[c0:c0 + chunk, :, None] for t in (amp, mx, my, pa, pb, pc))
+        dx = px[:, None, :] - x0                 # [chunk, C, P]
+        dy = py[:, None, :] - y0
+        quad = qa * dx * dx + 2.0 * qb * dx * dy + qc * dy * dy
+        out.append(sky + torch.sum(a * torch.exp(-0.5 * quad), dim=1))
+    return torch.cat(out) if out else sky.new_empty(0, sky.shape[1])
+
+
 def _loglik_bwd_torch(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
     """The backward kernel's algebra, dense: the cotangents of the six
     planes, given the cotangent ``g`` [B] of the output.  Independent of
@@ -99,6 +116,8 @@ def _declare(lib):
     lib.mog_field_loglik_fwd.restype = i
     lib.mog_field_loglik_bwd.argtypes = [p] * 18 + [i] * 3 + [p]
     lib.mog_field_loglik_bwd.restype = i
+    lib.mog_field_render.argtypes = [p] * 10 + [i] * 3 + [p]
+    lib.mog_field_render.restype = i
     lib.mog_field_error_string.argtypes = [i]
     lib.mog_field_error_string.restype = ctypes.c_char_p
 
@@ -193,14 +212,37 @@ def loglik_bwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
 loglik_bwd_cuda.launches = 0
 
 
+def render_cuda(amp, mx, my, pa, pb, pc, px, py, sky):
+    """Launch the render kernel: lambda [B, P] on the planes' card."""
+    planes = (amp, mx, my, pa, pb, pc)
+    pixels = (px, py, sky)
+    b, _, p, device = _check_inputs(planes, pixels)
+    out = torch.empty(b, p, dtype=torch.float32, device=device)
+    if b == 0 or p == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.mog_field_render(*_ptrs(planes), *_ptrs(pixels), out.data_ptr(),
+                                   b, planes[0].shape[1], p, stream)
+    _raise_on_error(lib, err, "mog_field_render")
+    render_cuda.launches += 1
+    return out
+
+
+render_cuda.launches = 0
+
+
 def reset_launch_counts():
     loglik_fwd_cuda.launches = 0
     loglik_bwd_cuda.launches = 0
+    render_cuda.launches = 0
 
 
 def launch_counts():
     return {"mog_field_loglik_fwd": loglik_fwd_cuda.launches,
-            "mog_field_loglik_bwd": loglik_bwd_cuda.launches}
+            "mog_field_loglik_bwd": loglik_bwd_cuda.launches,
+            "mog_field_render": render_cuda.launches}
 
 
 class _LoglikKernel(torch.autograd.Function):
@@ -235,6 +277,20 @@ def mog_field_loglik(amp, mx, my, pa, pb, pc, pixel_data, *, centered: bool = Fa
     if amp.device.type == "cpu":
         return _loglik_torch(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, centered)
     raise ValueError(f"mog_field_loglik has no implementation on {amp.device}")
+
+
+def mog_field_render(amp, mx, my, pa, pb, pc, pixel_data):
+    """Expected-count images lambda [B, PIX_PAD] of a batched MoG field,
+    padded pixels included (they hold px = py = 0 and sky = 1).  The
+    likelihood never forms lambda; this is the posterior-predictive and
+    visualisation path.  Not differentiable."""
+    px, py, _, sky, _ = pixel_data
+    if amp.device.type == "cuda":
+        planes = [t.contiguous() for t in (amp, mx, my, pa, pb, pc)]
+        return render_cuda(*planes, px, py, sky)
+    if amp.device.type == "cpu":
+        return _render_torch(amp, mx, my, pa, pb, pc, px, py, sky)
+    raise ValueError(f"mog_field_render has no implementation on {amp.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -292,12 +348,38 @@ def mixed_field_planes(vecs, stamp, band, n_bands: int, is_star):
     return tuple(torch.where(star, F.pad(sp, (0, pad)), gp) for gp, sp in zip(g_planes, s_planes))
 
 
+IMPLS = ("general", "sep")
+
+
 def batched_stamp_loglik(vecs, stamp, band=0, kind: str = "star", n_bands: int = 5,
-                         pixel_data=None, centered: bool = False):
+                         pixel_data=None, centered: bool = False, impl: str = "general"):
     """Fused likelihood of a [B, D] batch of unconstrained source vectors
     against one stamp -> [B].  The [B, C] parameter preparation is plain
     PyTorch; the [B, PIX] work runs in the kernel.  Differentiable.  This is
-    the function the samplers and the evals/s measurement drive."""
+    the function the samplers and the evals/s measurement drive.
+
+    ``impl`` picks the kernel (JAX's names in brackets):
+
+    - ``"general"`` (``"pallas"``, ``"pallas_general"``): the general stamp
+      kernel K1, the default;
+    - ``"sep"`` (``"pallas_sep"``): the separable kernel K8 of
+      ``kernels/mog_field_sep.py``, taken for ``kind="star"`` when the
+      stamp's PSF is isotropic (checked on the host, per call); any other
+      source or PSF goes to K1, as in JAX.  ``pixel_data`` is K1's and is
+      not read on the separable path.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "sep" and kind == "star":
+        from celeste_tpu_torch.kernels.mog_field_sep import (
+            mog_field_loglik_isotropic, psf_is_isotropic, stamp_pixel_data_2d,
+            star_planes_isotropic,
+        )
+
+        if psf_is_isotropic(stamp.psf):
+            planes = star_planes_isotropic(vecs, stamp, band, n_bands)
+            return mog_field_loglik_isotropic(*planes, stamp_pixel_data_2d(stamp),
+                                              centered=centered)
     planes = _field_planes(vecs, stamp, band, kind, n_bands)
     if pixel_data is None:
         pixel_data = stamp_pixel_data(stamp)

@@ -1,0 +1,269 @@
+"""Separable Poisson log-likelihood of isotropic mixtures: kernel K8.
+
+Counterpart of ``celeste_tpu/kernels/mog_field_sep.py``.  An isotropic
+Gaussian factors over the pixel axes,
+
+    exp(-((x - cx)^2 + (y - cy)^2) iv / 2) = exp(-(x - cx)^2 iv / 2) exp(-(y - cy)^2 iv / 2),
+
+so a chain's C components need C (H + W) exponentials instead of C H W, and
+lambda[h, w] = sky + sum_c col_c[h] row_c[w] is C multiply-adds per pixel.
+Every PSF the repo builds is isotropic (``model/psf.py``), so this applies to
+every star stamp; ``batched_stamp_loglik(impl="sep")`` selects it.
+
+Chains carry four [B, C] float32 planes: ``amp`` (with the normaliser
+``weight * iv / (2 pi)`` folded in), the centre ``cx``/``cy`` and the
+inverse variance ``iv``.  Pixels come from :func:`stamp_pixel_data_2d` as
+``xs`` [1, W], ``ys`` [1, H] and the [H, W] counts, sky and mask.  The TPU
+version pads W to 128 lanes; the port does not (padding was masked and
+contributed exactly 0, so values do not change).
+
+Dispatch follows the tensors' device, with no switch and no fallback: CUDA
+tensors launch ``csrc/mog_field_sep.cu`` (``mog_field_sep_fwd`` forward and,
+under autograd, ``mog_field_sep_bwd`` backward); CPU tensors take the plain
+:func:`_sep_loglik_torch`, whose gradient is torch autograd.
+:func:`_sep_loglik_torch` and :func:`_sep_loglik_bwd_torch` are the
+kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from celeste_tpu_torch.likelihood._pixel import LAMBDA_MIN, pixel_loglik
+
+_SOURCES = ("mog_field_sep.cu",)
+
+
+def stamp_pixel_data_2d(stamp):
+    """Axis-separable pixel data of a Stamp: (xs [1, W], ys [1, H],
+    counts [H, W], sky [H, W], mask [H, W])."""
+    h, w = stamp.counts.shape
+    kw = dict(dtype=torch.float32, device=stamp.device)
+    return (torch.arange(w, **kw)[None, :], torch.arange(h, **kw)[None, :],
+            stamp.counts.contiguous(), stamp.sky.contiguous(), stamp.mask.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions of the two kernels
+# ---------------------------------------------------------------------------
+
+def _sep_factors(amp, cx, cy, iv, xs, ys):
+    """(dx [B, C, W], dy [B, C, H], ex [B, C, W], rows = amp ex, cols [B, C, H])."""
+    dx = xs[:, None, :] - cx[..., None]
+    dy = ys[:, None, :] - cy[..., None]
+    ex = torch.exp(-0.5 * iv[..., None] * dx * dx)
+    cols = torch.exp(-0.5 * iv[..., None] * dy * dy)
+    return dx, dy, ex, amp[..., None] * ex, cols
+
+
+def _sep_lam(rows, cols, sky):
+    """lambda [B, H, W] = sky + sum_c cols[b, c, h] rows[b, c, w], as a
+    broadcast multiply-sum (no matmul, so no TF32 path)."""
+    return sky + torch.sum(cols[..., :, None] * rows[..., None, :], dim=1)
+
+
+def _sep_loglik_torch(amp, cx, cy, iv, xs, ys, counts, sky, mask, centered: bool = False):
+    """The forward kernel's math, dense: [B, C] planes -> [B] log-likelihoods."""
+    _, _, _, rows, cols = _sep_factors(amp, cx, cy, iv, xs, ys)
+    lam = _sep_lam(rows, cols, sky)
+    return torch.sum(pixel_loglik(lam, counts, centered) * mask, dim=(1, 2))
+
+
+def _sep_loglik_bwd_torch(amp, cx, cy, iv, xs, ys, counts, sky, mask, g):
+    """The backward kernel's algebra, dense: the cotangents of the four
+    planes given the cotangent ``g`` [B] of the output.  The pixel cotangent
+    contracts into R_c[w] = sum_h g_lam col_c[h] and G_c[h] = sum_w g_lam
+    row_c[w]; each plane's cotangent is then a short sum over W or H.
+    Independent of ``centered``."""
+    dx, dy, ex, rows, cols = _sep_factors(amp, cx, cy, iv, xs, ys)
+    lam = _sep_lam(rows, cols, sky)
+    active = (lam > LAMBDA_MIN).to(lam.dtype)
+    g_lam = (g[:, None, None] * mask) * (counts / torch.clamp(lam, min=LAMBDA_MIN) - 1.0) * active
+    r = torch.sum(g_lam[:, None] * cols[..., :, None], dim=2)     # [B, C, W]
+    s = torch.sum(g_lam[:, None] * rows[..., None, :], dim=3)     # [B, C, H]
+    rr, ss = r * rows, s * cols
+    return ((r * ex).sum(-1),
+            iv * (rr * dx).sum(-1),
+            iv * (ss * dy).sum(-1),
+            -0.5 * ((rr * dx * dx).sum(-1) + (ss * dy * dy).sum(-1)))
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels: ctypes wrappers
+# ---------------------------------------------------------------------------
+
+def _declare(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mog_field_sep_fwd.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.mog_field_sep_fwd.restype = i
+    lib.mog_field_sep_bwd.argtypes = [p] * 14 + [i] * 4 + [p]
+    lib.mog_field_sep_bwd.restype = i
+    lib.mog_field_sep_error_string.argtypes = [i]
+    lib.mog_field_sep_error_string.restype = ctypes.c_char_p
+
+
+def _lib():
+    from celeste_tpu_torch.kernels._build import load_library
+
+    return load_library("mog_field_sep", _SOURCES, _declare)
+
+
+def build_kernels():
+    """Build and load the CUDA library now (it is otherwise built at the
+    first launch).  Returns the path of the shared library."""
+    return Path(_lib()._name)
+
+
+def _check_inputs(planes, pixels, extra=()):
+    """Raise unless every tensor is a contiguous float32 CUDA tensor on one
+    device with planes [B, C], xs [1, W], ys [1, H] and [H, W] images."""
+    amp = planes[0]
+    if amp.dim() != 2:
+        raise ValueError(f"planes must be [B, C], got {tuple(amp.shape)}")
+    if pixels[2].dim() != 2:
+        raise ValueError(f"counts must be [H, W], got {tuple(pixels[2].shape)}")
+    h, w = pixels[2].shape
+    device = amp.device
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
+    named = ([(t, tuple(amp.shape), "plane") for t in planes]
+             + [(pixels[0], (1, w), "xs"), (pixels[1], (1, h), "ys")]
+             + [(t, (h, w), name) for t, name in zip(pixels[2:], ("counts", "sky", "mask"))]
+             + list(extra))
+    for t, shape, name in named:
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, expected {device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected torch.float32")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    return amp.shape[0], amp.shape[1], h, w, device
+
+
+def _raise_on_error(lib, err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.mog_field_sep_error_string(err).decode()} ({err})")
+
+
+def _ptrs(ts):
+    return [t.data_ptr() for t in ts]
+
+
+def sep_fwd_cuda(amp, cx, cy, iv, xs, ys, counts, sky, mask, centered: bool = False):
+    """Launch the forward kernel: [B] log-likelihoods on the planes' card."""
+    planes = (amp, cx, cy, iv)
+    pixels = (xs, ys, counts, sky, mask)
+    b, c, h, w, device = _check_inputs(planes, pixels)
+    out = torch.empty(b, dtype=torch.float32, device=device)
+    if b == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.mog_field_sep_fwd(*_ptrs(planes), *_ptrs(pixels), out.data_ptr(),
+                                    b, c, h, w, int(bool(centered)), stream)
+    _raise_on_error(lib, err, "mog_field_sep_fwd")
+    sep_fwd_cuda.launches += 1
+    return out
+
+
+sep_fwd_cuda.launches = 0
+
+
+def sep_bwd_cuda(amp, cx, cy, iv, xs, ys, counts, sky, mask, g):
+    """Launch the backward kernel: the four [B, C] plane cotangents."""
+    planes = (amp, cx, cy, iv)
+    pixels = (xs, ys, counts, sky, mask)
+    b, c, h, w, device = _check_inputs(planes, pixels, extra=[(g, (amp.shape[0],), "g")])
+    grads = tuple(torch.empty(b, c, dtype=torch.float32, device=device) for _ in range(4))
+    if b == 0:
+        return grads
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.mog_field_sep_bwd(*_ptrs(planes), *_ptrs(pixels), g.data_ptr(),
+                                    *_ptrs(grads), b, c, h, w, stream)
+    _raise_on_error(lib, err, "mog_field_sep_bwd")
+    sep_bwd_cuda.launches += 1
+    return grads
+
+
+sep_bwd_cuda.launches = 0
+
+
+def reset_launch_counts():
+    sep_fwd_cuda.launches = 0
+    sep_bwd_cuda.launches = 0
+
+
+def launch_counts():
+    return {"mog_field_sep_fwd": sep_fwd_cuda.launches,
+            "mog_field_sep_bwd": sep_bwd_cuda.launches}
+
+
+class _SepKernel(torch.autograd.Function):
+    """Forward kernel with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, amp, cx, cy, iv, xs, ys, counts, sky, mask, centered):
+        ctx.save_for_backward(amp, cx, cy, iv, xs, ys, counts, sky, mask)
+        return sep_fwd_cuda(amp, cx, cy, iv, xs, ys, counts, sky, mask, centered)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = sep_bwd_cuda(*ctx.saved_tensors, g.contiguous())
+        return (*grads,) + (None,) * 6
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+def mog_field_loglik_isotropic(amp, cx, cy, inv_var, pixel_data, *, centered: bool = False):
+    """Poisson log-likelihood of a batched isotropic MoG field.
+
+    ``amp`` [B, C] carries the normaliser ``weight * inv_var / (2 pi)``;
+    ``cx``/``cy`` [B, C] are pixel centres and ``inv_var`` [B, C] is
+    1 / variance; ``pixel_data`` comes from :func:`stamp_pixel_data_2d`.
+    Returns [B].  Differentiable on both devices.  ``centered``:
+    saturated-model centering (``likelihood/_pixel.py``).
+    """
+    xs, ys, counts, sky, mask = pixel_data
+    if amp.device.type == "cuda":
+        planes = [t.contiguous() for t in (amp, cx, cy, inv_var)]
+        return _SepKernel.apply(*planes, xs, ys, counts, sky, mask, bool(centered))
+    if amp.device.type == "cpu":
+        return _sep_loglik_torch(amp, cx, cy, inv_var, xs, ys, counts, sky, mask, centered)
+    raise ValueError(f"mog_field_loglik_isotropic has no implementation on {amp.device}")
+
+
+def star_planes_isotropic(vecs, stamp, band, n_bands: int):
+    """[B, D] star vectors -> isotropic planes (amp, cx, cy, inv_var), each
+    [B, K].  The stamp's PSF must be isotropic (cov = v I): the caller checks
+    it once per stamp on the host (:func:`psf_is_isotropic`)."""
+    from celeste_tpu_torch.model.params import StarParams
+
+    params = StarParams.from_vector(vecs, n_bands)
+    p = stamp.duas2pixel(params.u)
+    inv_var = 1.0 / stamp.psf.cov[..., 0, 0]
+    amp = stamp.iota * params.flux[..., band, None] * stamp.psf.w * inv_var / (2.0 * math.pi)
+    cx = p[..., 0, None] + stamp.psf.mu[..., 0]
+    cy = p[..., 1, None] + stamp.psf.mu[..., 1]
+    return amp, cx, cy, inv_var.expand(amp.shape)
+
+
+def psf_is_isotropic(psf, tol: float = 1e-6) -> bool:
+    """Host-side check: every component circular within ``tol``."""
+    cov = psf.cov.detach().cpu().numpy()
+    return bool(
+        np.all(np.abs(cov[..., 0, 1]) <= tol * np.abs(cov[..., 0, 0]))
+        and np.all(np.abs(cov[..., 0, 0] - cov[..., 1, 1]) <= tol * np.abs(cov[..., 0, 0]))
+    )

@@ -5,8 +5,9 @@ Gaussian roll-off, a log-normal reference-band flux prior with Gaussian
 colors, and the galaxy shape prior.  The sampler-side log |det J| is added
 by the posterior factory (``inference/problems.py``).
 
-The empirical color GMM (``color_gmm``) belongs to config 2 and is not
-ported yet: a ``FluxPrior`` given one raises rather than ignoring it.
+``FluxPrior.color_gmm`` (a ``model.color_prior.ColorGMM``) replaces the
+Gaussian colors with the empirical color mixture (config 2's
+``color_prior=gmm``).
 """
 
 from __future__ import annotations
@@ -35,19 +36,15 @@ def _beta_logpdf(x, a, b):
 
 @dataclass(frozen=True)
 class FluxPrior:
-    """Reference-band log-normal + Gaussian color prior."""
+    """Reference-band log-normal + color prior: Gaussian by default, or an
+    empirical ``ColorGMM`` over the colors when ``color_gmm`` is given."""
 
     log_ref_mean: float = 3.0       # log nanomaggies (~20 nmgy)
     log_ref_std: float = 3.0        # broad
     color_mean: tuple = (0.0, 0.0, 0.0, 0.0)
     color_std: tuple = (1.5, 1.5, 1.5, 1.5)
     ref_band: int = REF_BAND
-    color_gmm: Optional[object] = None
-
-    def __post_init__(self):
-        if self.color_gmm is not None:
-            raise NotImplementedError(
-                "the color GMM prior (config 2) is not yet ported to celeste_tpu_torch")
+    color_gmm: Optional[object] = None   # ColorGMM; overrides the Gaussian
 
     def logpdf(self, log_flux):
         """``log_flux`` [..., B] natural-log fluxes -> the constrained-space
@@ -59,10 +56,13 @@ class FluxPrior:
         lp = _normal_logpdf(log_flux[..., ref], self.log_ref_mean, self.log_ref_std)
         if b > 1:
             colors = log_flux[..., :-1] - log_flux[..., 1:]
-            kw = dict(dtype=torch.float32, device=log_flux.device)
-            mean = torch.as_tensor(self.color_mean[: b - 1], **kw)
-            std = torch.as_tensor(self.color_std[: b - 1], **kw)
-            lp = lp + torch.sum(_normal_logpdf(colors, mean, std), dim=-1)
+            if self.color_gmm is not None:
+                lp = lp + self.color_gmm.logpdf(colors)
+            else:
+                kw = dict(dtype=torch.float32, device=log_flux.device)
+                mean = torch.as_tensor(self.color_mean[: b - 1], **kw)
+                std = torch.as_tensor(self.color_std[: b - 1], **kw)
+                lp = lp + torch.sum(_normal_logpdf(colors, mean, std), dim=-1)
         return lp - torch.sum(log_flux, dim=-1)
 
 

@@ -28,7 +28,8 @@ class Stamp:
     psf : MoG2D — zero-centered PSF mixture in pixel coordinates.
     wcs_A : [2, 2] float32 — d(pixel)/d(arcsec offset).
     wcs_p0 : [2] float32 — pixel (x, y) of the scene reference point.
-    band : int — band index (u, g, r, i, z = 0..4).
+    band : int — band index (u, g, r, i, z = 0..4); a tensor of band
+        indices on a stack of stamps (:func:`stack_stamps`).
     """
 
     def __init__(self, counts, sky, iota, mask, psf: MoG2D, wcs_A, wcs_p0, band=2):
@@ -39,7 +40,7 @@ class Stamp:
         self.psf = psf
         self.wcs_A = wcs_A
         self.wcs_p0 = wcs_p0
-        self.band = int(band)
+        self.band = band if torch.is_tensor(band) else int(band)
 
     @property
     def device(self):
@@ -119,3 +120,18 @@ class HostWcs:
         """(wcs_A [2, 2] fp32 px/arcsec, wcs_p0 [2] fp32) for ``Stamp``."""
         return (torch.as_tensor(self.A_as, dtype=torch.float32, device=device),
                 torch.as_tensor(self.p_ref, dtype=torch.float32, device=device))
+
+
+def stack_stamps(stamps) -> Stamp:
+    """Stack same-shape Stamps into one Stamp whose every field has a
+    leading band axis (``band`` becomes a [N] int64 tensor)."""
+    stamps = list(stamps)
+
+    def stack(get):
+        return torch.stack([get(s) for s in stamps])
+
+    psf = MoG2D(stack(lambda s: s.psf.w), stack(lambda s: s.psf.mu), stack(lambda s: s.psf.cov))
+    return Stamp(counts=stack(lambda s: s.counts), sky=stack(lambda s: s.sky),
+                 iota=stack(lambda s: s.iota), mask=stack(lambda s: s.mask), psf=psf,
+                 wcs_A=stack(lambda s: s.wcs_A), wcs_p0=stack(lambda s: s.wcs_p0),
+                 band=torch.as_tensor([int(s.band) for s in stamps], device=stamps[0].device))

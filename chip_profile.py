@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the device time of config 1 (``star_single``) and config 5 (the
-crowded field) goes, on one NVIDIA GPU.
+"""Where the device time of config 1 (``star_single``), configs 2 and 3
+(``star_ugriz``, ``galaxy``) and config 5 (the crowded field) goes, on one
+NVIDIA GPU.
 
     python3 chip_profile.py [--iters N] [--out FILE]
 
@@ -9,7 +10,9 @@ per call, CUDA synchronized) and then under ``torch.profiler`` with CUPTI
 device tracing.  Config 1: the star log-density and its ``value_and_grad``
 at B=64 (the sampling run's chains) and at B=65536 (the timing protocol of
 ``chip_smoke.py``), one HMC step of 16 leapfrog steps and one MH step at
-B=64.  Config 5 (12 sources, 48x128, tiled): the log-density and its
+B=64.  Configs 2 and 3: the five-band star and the 31x31 galaxy, each
+log-density and ``value_and_grad`` at their 32 sampling chains.  Config 5
+(12 sources, 48x128, tiled): the log-density and its
 ``value_and_grad`` at B=1024, one whitened ChEES ensemble step of
 ``CHEES_LEAPFROGS`` leapfrog steps at B=1024, and the ``value_and_grad`` of
 the source-sharded rectangular posterior on one rank (K5 and K6) at
@@ -100,6 +103,31 @@ def config5_calls(device):
     ]
 
 
+def config23_calls(device):
+    """Configs 2 and 3 at their sampling chains (32): the five-band star
+    log-density and its ``value_and_grad``, one slice batched call's
+    log-density, and the galaxy's ``value_and_grad``."""
+    from celeste_tpu_torch.experiments import CONFIGS, _galaxy_problem, _star_problem
+    from celeste_tpu_torch.inference.hmc import value_and_grad
+
+    out = []
+    for name, problem in (("star_ugriz", _star_problem), ("galaxy", _galaxy_problem)):
+        cfg = copy.deepcopy(CONFIGS[name])
+        _, logd, x0 = problem(cfg, device)
+        rng = np.random.default_rng(1)
+        x = torch.as_tensor((x0[None] + 0.01 * rng.normal(size=(cfg.n_chains, x0.size)))
+                            .astype(np.float32), device=device)
+
+        def no_grad(f=logd, x=x):
+            with torch.no_grad():
+                f(x)
+
+        out += [(f"{name} logdensity B={cfg.n_chains}", no_grad),
+                (f"{name} value_and_grad B={cfg.n_chains}",
+                 lambda f=logd, x=x: value_and_grad(f, x))]
+    return out
+
+
 def calls(device):
     """The config-1 calls to profile, as (name, zero-argument function)."""
     from celeste_tpu_torch.experiments import CONFIGS, _star_problem
@@ -170,7 +198,7 @@ def main(argv=None) -> int:
     tables = []
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     device = torch.device("cuda:0")
-    for name, fn in calls(device) + config5_calls(device):
+    for name, fn in calls(device) + config23_calls(device) + config5_calls(device):
         wall, busy, ops, table = breakdown(fn, args.iters, activities)
         if ops == 0:
             raise RuntimeError(f"chip_profile: the trace of {name!r} holds no device op")

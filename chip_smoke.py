@@ -26,16 +26,26 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    through the plain K5, rtol 5e-4, atol 0.1; K6 on the random-plane setup,
    rtol 2e-4, atol 5e-3; K6 twice, bitwise equal; sentinels render exactly
    0 with finite cotangents;
-5. the card's log-likelihood at the truth against the fp64 NumPy oracle,
-   for config 1 (25x25 stamp) and config 5 (tiled, 48x128 field), and the
-   config-5 tiled-vs-dense parity gate (gap < 1 nat; a 0.05 radii cut trips
-   it above 100);
-6. drive config 1 through its entry point, ``run_experiment`` of
+5. hold the stamp render kernel (K7) against its plain version on star
+   (C=3, 25x25) and galaxy (C=48, 31x31) planes at B=32, 1000 and 4096 and
+   on config 5's dense planes over the 48x128 field at B=1024, rtol 1e-5,
+   atol 1e-3, zero-amplitude rows exactly the sky; the separable kernels
+   (K8-fwd, K8-bwd) against theirs and K8-fwd against K1 on the same
+   isotropic star planes, B=1000 and 4096, centered both ways, full and
+   holed masks, values rtol 2e-6, atol 0.5, cotangents against the plain
+   backward and torch autograd rtol 5e-4, atol 5e-2, finite for
+   zero-amplitude components, two calls bitwise equal;
+6. the card's log-likelihood at the truth against the fp64 NumPy oracle,
+   for config 1 (25x25 stamp), config 2 (each of the five bands), config 3
+   (31x31 galaxy) and config 5 (tiled, 48x128 field), and the config-5
+   tiled-vs-dense parity gate (gap < 1 nat; a 0.05 radii cut trips it above
+   100);
+7. drive config 1 through its entry point, ``run_experiment`` of
    ``star_single`` (64 chains), MH as written and HMC, with the stamp
    kernels' counters set to 0 just before and read just after; fail on
    max R-hat > 1.1, on a truth outside mean +- 5 std, or on a kernel the
    run never launched;
-7. drive config 5 at full width (12 sources, 48x128, 1024 chains) with every
+8. drive config 5 at full width (12 sources, 48x128, 1024 chains) with every
    counter set to 0 just before and read just after: ``build_config5`` ->
    parity -> ``config5_warmup_and_whiten`` -> ``measure_chees_z`` ->
    ``measure_nuts_z``, then ``run_experiment`` of ``crowded_field`` with
@@ -43,7 +53,19 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    divergence <= 0.05 in both arms, max split-R-hat <= 1.1 on the ChEES
    arm; check the whitening maps on the card against float64 on the host;
    fail on a tiled kernel the run never launched;
-8. drive the source-sharded config 5 at full width (12 sources, 48x128,
+9. drive configs 2 and 3 through ``run_experiment``, the stamp kernels'
+   counters set to 0 just before each run and read just after: ``star_ugriz``
+   (32 chains, five 25x25 bands) with HMC (max R-hat <= 1.1) and with the
+   slice sampler (<= 1.15), the truth within mean +- 5 std, slice against
+   HMC means within 0.5 sigma and widths within (0.65, 1.55); ``galaxy``
+   (32 chains, 31x31) with NUTS, divergence < 0.05, R-hat < 1.2, the truth
+   within 5 std (phi in principal value); K1 launched by each.  Then the
+   posterior-predictive check on config 2's r band and on config 3 (K7's
+   counter set to 0 just before): p in (0.02, 0.98), and p < 0.02 with the
+   source's log-flux at -8.  Then ``batched_stamp_loglik(impl="sep")`` and
+   its gradient at B=65536 on config 1's stamp (K8's counters set to 0
+   just before), against the general kernel;
+10. drive the source-sharded config 5 at full width (12 sources, 48x128,
    1024 chains, per-source radii), every tiled counter set to 0 just
    before and read just after: on a one-rank NCCL mesh (1, 1), in this
    process, the sharded tiled log-likelihood plus the rectangular prior
@@ -55,20 +77,24 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    0.05; fail if K5 or K6 was never launched.  Then two spawned gloo ranks
    on this one card, mesh (1, 2), must give the one-rank value and gradient
    at the same tolerances, and ``dryrun_multichip(1)`` runs;
-9. time with CUDA events (best of 3 after a warm-up): config 1 at B=65536
+11. time with CUDA events (best of 3 after a warm-up): config 1 at B=65536
    (K1 and the HMC gradient, kernel and plain); K2, K3 and K4 over config
    5's field at B=1024 and 4096, and one config-5 ``value_and_grad`` at
    B=1024, kernel and plain; K5 and K6 over the sharded tables at B=1024
    and 4096, kernel and plain, and one sharded ``value_and_grad`` at B=1024
-   beside the single-device one;
-10. print the kernels' JSON line, each kernel with its bound (the larger
-    of its bytes over the card's memory rate and its float32 operations
-    over the card's float32 rate), the card line, and the result line.
+   beside the single-device one; K8-fwd and K8-bwd at B=65536 on config 1's
+   stamp in turns with K1-fwd and K1-bwd, plain, and the entry point's
+   ``value_and_grad`` with each kernel; K7 at B=1024 on config 5's field
+   and on a 25x25 stamp, kernel and plain;
+12. print the kernels' JSON line (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd),
+    each kernel with its bound (the larger of its bytes over the card's
+    memory rate and its float32 operations over the card's float32 rate),
+    the card line, and the result line.
 
 Config 5's flow runs the bench's step counts (the defaults of
 ``celeste_tpu_torch/bench/config5.py``).  The entry-point runs and the
-sharded ChEES run are cut so that the script fits its time, by the
-constants below (PERF.md lists them).
+sharded ChEES run are cut in steps only so that the script fits its time,
+by the constants below (PERF.md lists them).
 """
 
 from __future__ import annotations
@@ -100,6 +126,15 @@ STAR_HMC = dict(n_steps=500, n_warmup=300)
 # the sharded ChEES run on config 5's rectangular posterior (the JAX
 # helper's defaults: 100 warmup, 400 steps, trajectory cap 256)
 SHARDED_CHEES = dict(n_warmup=100, n_steps=100, max_leapfrog=32)
+# configs 2 and 3 through the entry point, cut in steps only (chains, bands
+# and stamps as the configs have them): star_ugriz HMC (JAX defaults: 300
+# warmup, 1000 steps) and slice (1000 sweeps); galaxy NUTS (300 warmup, 800
+# steps)
+UGRIZ_HMC = dict(n_warmup=300, n_steps=150)
+UGRIZ_SLICE = dict(n_steps=100)
+GALAXY_NUTS = dict(n_warmup=150, n_steps=150)
+SEP_TOL = (2e-6, 0.5)           # K8 against its plain version and against K1
+PPC_DRAWS = 32
 # the card's peaks (H100 SXM at 700 W, NVIDIA's data sheet: HBM3 rate, float32
 # outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -111,6 +146,13 @@ FP32_FLOPS_PER_S = 67e12
 # multiply, subtract, mask) 5 and its cotangent g_lam 6
 FLOPS_TERM_E, FLOPS_TERM_SUM, FLOPS_TERM_COT = 11, 2, 26
 FLOPS_PIXEL_LOGLIK, FLOPS_PIXEL_GLAM = 5, 6
+# the separable kernel (K8): a row or column factor of a component takes the
+# offset, its square, the products by the inverse variance and by -1/2, the
+# exp and (rows) the amplitude, 6; a pixel then adds each component's
+# col * row in one multiply-add, 2 per component; the backward's two
+# contractions are a multiply-add per (pixel, component) each, 4, and each
+# factor's cotangent sums take 6 more
+FLOPS_SEP_FACTOR, FLOPS_SEP_TERM, FLOPS_SEP_CONTRACT, FLOPS_SEP_FACTOR_COT = 6, 2, 4, 6
 
 
 def check(ok, msg):
@@ -410,6 +452,118 @@ def autograd_render(planes, bucket, g, chunk=128):
 
 
 # ---------------------------------------------------------------------------
+# configs 2 and 3: the stamp render kernel and the separable kernels
+# ---------------------------------------------------------------------------
+
+def ugriz_scene(device):
+    """star_ugriz's scene: one star in five 25x25 bands, seed 0."""
+    from celeste_tpu_torch.data.synthetic import make_synthetic_stamp, star_source
+
+    src = star_source(u=(30.00005, 10.00008), flux_r=30.0)
+    return make_synthetic_stamp([src], shape=(25, 25), bands=(0, 1, 2, 3, 4), seed=0,
+                                device=device)
+
+
+def galaxy_scene(device):
+    """galaxy's scene: one galaxy on a 31x31 r-band stamp, seed 0."""
+    from celeste_tpu_torch.data.synthetic import galaxy_source, make_synthetic_stamp
+
+    return make_synthetic_stamp([galaxy_source(u=(30.0, 10.0), flux_r=60.0)], shape=(31, 31),
+                                bands=(2,), seed=0, device=device)
+
+
+def stamp_render_checks(device, config5):
+    """K7 against its plain version: star (C=3, 25x25) and galaxy (C=48,
+    31x31) planes at B=32 (the PPC's draws), 1000 and 4096, with every 9th
+    row at zero amplitude (it must render exactly the sky); config 5's
+    dense planes (C=126) over the 48x128 field at B=1024."""
+    from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.parallel.crowded import scene_field_planes
+
+    err = 0.0
+    for kind, scene in (("star", scenes(device)["star"]), ("galaxy", galaxy_scene(device))):
+        stamp = scene.stamps[0]
+        px, py, _, sky, _ = mf.stamp_pixel_data(stamp)
+        for b in (32, 1000, 4096):
+            vecs = torch.as_tensor(source_vecs(scene, kind, b, seed=b), device=device)
+            planes = [t.contiguous() for t in mf._field_planes(vecs, stamp, 2, kind, 5)]
+            planes[0][::9] = 0.0
+            got = mf.render_cuda(*planes, px, py, sky)
+            want = mf._render_torch(*planes, px, py, sky)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, want, *LAM_TOL, f"K7 {kind} B={b}"))
+            check(torch.equal(got[::9], sky.expand(got[::9].shape[0], -1)),
+                  f"K7 {kind} B={b}: a zero-amplitude row does not render exactly the sky")
+    _, _, vec, info = config5
+    rng = np.random.default_rng(5)
+    vecs = vec[None] + torch.as_tensor(0.01 * rng.normal(size=(C5_CHAINS, vec.shape[0])),
+                                       dtype=torch.float32, device=device)
+    planes = [p.contiguous() for p in scene_field_planes(info["scene"], vecs, info["stamp"], 0)]
+    px, py, _, sky, _ = mf.stamp_pixel_data(info["stamp"])
+    got = mf.render_cuda(*planes, px, py, sky)
+    want = mf._render_torch(*planes, px, py, sky)
+    torch.cuda.synchronize()
+    err = max(err, max_abs_err(got, want, *LAM_TOL, f"K7 config-5 field B={C5_CHAINS}"))
+    print(f"[kernels] K7 matches the plain version on star, galaxy and config-5 planes (max abs "
+          f"err {err:.4g}); zero-amplitude rows render exactly the sky", flush=True)
+    return err
+
+
+def sep_kernel_checks(device):
+    """K8-fwd against its plain version and against K1 on the same isotropic
+    star planes; K8-bwd against its plain version and torch autograd through
+    the plain forward, finite for zero-amplitude components, bitwise equal
+    across two calls."""
+    from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.kernels import mog_field_sep as ms
+
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    scene = scenes(device)["star"]
+    stamp = scene.stamps[0]
+    pd2 = ms.stamp_pixel_data_2d(stamp)
+    pd1 = mf.stamp_pixel_data(stamp)
+    holed2 = pd2[4].clone()
+    holed2[:, ::7] = 0.0
+    holed1 = pd1[4].clone()
+    holed1[0, :holed2.numel()] = holed2.reshape(-1)
+    masks = {"full": (pd2[4], pd1[4]), "holed": (holed2, holed1)}
+    for b in (1000, 4096):
+        vecs = torch.as_tensor(source_vecs(scene, "star", b, seed=b), device=device)
+        planes = [t.contiguous() for t in ms.star_planes_isotropic(vecs, stamp, 2, 5)]
+        k1_planes = [t.contiguous() for t in mf._field_planes(vecs, stamp, 2, "star", 5)]
+        for mname, (m2, m1) in masks.items():
+            for centered in (False, True):
+                what = f"B={b} mask={mname} centered={centered}"
+                got = ms.sep_fwd_cuda(*planes, *pd2[:4], m2, centered=centered)
+                want = ms._sep_loglik_torch(*planes, *pd2[:4], m2, centered=centered)
+                k1 = mf.loglik_fwd_cuda(*k1_planes, *pd1[:4], m1, centered=centered)
+                torch.cuda.synchronize()
+                errs["fwd"] = max(errs["fwd"], max_abs_err(got, want, *SEP_TOL, "K8-fwd " + what))
+                max_abs_err(got, k1, *SEP_TOL, "K8-fwd vs K1-fwd " + what)
+        g = torch.as_tensor(np.random.default_rng(b + 1).normal(size=b).astype(np.float32),
+                            device=device)
+        zero_amp = planes[0].clone()
+        zero_amp[::5, 0] = 0.0
+        for aname, amp in (("amp", planes[0]), ("zero-amp", zero_amp)):
+            ps = [amp, *planes[1:]]
+            pix = (*pd2[:4], holed2)
+            got = ms.sep_bwd_cuda(*ps, *pix, g)
+            again = ms.sep_bwd_cuda(*ps, *pix, g)
+            hand = ms._sep_loglik_bwd_torch(*ps, *pix, g)
+            leaves = [t.detach().clone().requires_grad_(True) for t in ps]
+            auto = torch.autograd.grad(ms._sep_loglik_torch(*leaves, *pix), leaves, g)
+            torch.cuda.synchronize()
+            for name, a, h, w, a2 in zip(("amp", "cx", "cy", "iv"), got, hand, auto, again):
+                what = f"K8-bwd B={b} {aname} d_{name}"
+                max_abs_err(a, h, *BWD_TOL, what + " vs plain K8-bwd")
+                errs["bwd"] = max(errs["bwd"], max_abs_err(a, w, *BWD_TOL, what + " vs autograd"))
+                check(torch.equal(a, a2), f"{what}: two calls differ")
+    print(f"[kernels] K8 matches the plain versions and K1 (max abs err {errs}); K8-bwd is "
+          f"bitwise deterministic", flush=True)
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # oracle and parity
 # ---------------------------------------------------------------------------
 
@@ -454,6 +608,43 @@ def oracle_checks(device, config5):
     check(gap_cut > 100.0, f"a 0.05 radii cut moved the gap only to {gap_cut:.4g} nats")
     print(f"[parity] config 5 tiled vs dense: gap {gap:.6g} nats (rel {rel:.3g}); "
           f"radii x0.05: {gap_cut:.6g} nats", flush=True)
+
+
+def oracle_checks_23(device):
+    """The card's log-likelihoods at the truth against the fp64 oracle: config
+    2 per band (five bands, K1) and config 3 (K1)."""
+    from celeste_tpu_torch.kernels.mog_field import batched_stamp_loglik
+    from celeste_tpu_torch.oracle.forward import (
+        oracle_galaxy_lambda, oracle_poisson_loglik, oracle_star_lambda,
+    )
+
+    scene = ugriz_scene(device)
+    src = scene.sources[0]
+    x = np.concatenate([scene.wcs.equa2duas(src["u"]), np.log(src["flux"])])
+    x = torch.as_tensor(x[None], dtype=torch.float32, device=device)
+    errs = []
+    for b, (stamp, ost) in enumerate(zip(scene.stamps, scene.oracle_stamps)):
+        want = oracle_poisson_loglik(oracle_star_lambda(src["u"], src["flux"][b], ost),
+                                     ost["counts"])
+        got = batched_stamp_loglik(x, stamp, band=b, kind="star", n_bands=5)
+        errs.append(max_abs_err(got.cpu(), torch.tensor([want]), *ORACLE_TOL,
+                                f"config-2 band {b} loglik vs oracle"))
+    print(f"[oracle] config 2 loglik at truth, per band (ugriz): abs err "
+          f"{', '.join(f'{e:.4g}' for e in errs)}", flush=True)
+    scene = galaxy_scene(device)
+    src, ost = scene.sources[0], scene.oracle_stamps[0]
+    want = oracle_poisson_loglik(oracle_galaxy_lambda(
+        src["u"], src["flux"][2], src["theta_dev"], src["sigma"], src["ab"], src["phi"], ost),
+        ost["counts"])
+    t, ab = src["theta_dev"], src["ab"]
+    x = np.concatenate([scene.wcs.equa2duas(src["u"]), [np.log(src["flux"][2]),
+                        np.log(t / (1 - t)), np.log(src["sigma"]), np.log(ab / (1 - ab)),
+                        src["phi"]]])
+    got = batched_stamp_loglik(torch.as_tensor(x[None], dtype=torch.float32, device=device),
+                               scene.stamps[0], band=0, kind="galaxy", n_bands=1)
+    err = max_abs_err(got.cpu(), torch.tensor([want]), *ORACLE_TOL, "config-3 loglik vs oracle")
+    print(f"[oracle] config 3 loglik at truth: card {float(got[0]):.3f} oracle {want:.3f} "
+          f"abs err {err:.4g}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -681,27 +872,178 @@ def sharded_world2(world1):
           flush=True)
 
 
+def entry_run(name, overrides, device):
+    """One ``run_experiment`` of a config with ``overrides``, the stamp
+    kernels' counters set to 0 just before and read just after."""
+    from celeste_tpu_torch.experiments import CONFIGS, run_experiment
+    from celeste_tpu_torch.kernels import mog_field as mf
+
+    cfg = copy.deepcopy(CONFIGS[name])
+    cfg.device = str(device)
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    mf.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_experiment(cfg)
+    torch.cuda.synchronize()
+    return cfg, res, time.perf_counter() - t0, dict(mf.launch_counts())
+
+
+def report_entry(tag, cfg, res, seconds, counts, rhat_gate, periodic=()):
+    """Print a run's summary; gate finite samples, max split-R-hat and the
+    truth within mean +- 5 std (``periodic``: pi-periodic coordinates,
+    compared in principal value)."""
+    samples = res["samples"]
+    check(samples.shape == (cfg.n_chains, cfg.n_steps, res["x0"].size),
+          f"{tag}: samples shape {samples.shape}")
+    check(bool(np.isfinite(samples).all()), f"{tag}: non-finite samples")
+    mean, std, x0 = res["mean"], res["std"], res["x0"]
+    err = np.abs(mean - x0)
+    for i in periodic:
+        err[i] = min(err[i], abs(err[i] - np.pi))
+    z = err / std
+    rhat_max = float(np.max(res["rhat"]))
+    extra = " ".join(f"{k}={res[k]:.4f}" for k in ("accept_rate", "divergence_rate", "step_size",
+                                                    "evals_per_sweep", "calls_per_sweep")
+                     if k in res)
+    print(f"[{tag}] chains={cfg.n_chains} steps={cfg.n_steps} "
+          f"warmup={cfg.n_warmup if cfg.sampler not in ('mh', 'slice') else 0} "
+          f"wall={seconds:.3f}s {extra} max_rhat={rhat_max:.4f} "
+          f"min_ess={float(np.min(res['ess'])):.1f} launches={counts}", flush=True)
+    print("    |z| of the truth: " + " ".join(f"{v:.3f}" for v in z), flush=True)
+    check(rhat_max <= rhat_gate, f"{tag}: max R-hat {rhat_max:.4f} > {rhat_gate}")
+    check(bool(np.all(z <= 5.0)), f"{tag}: truth outside mean +- 5 std (|z|={z})")
+
+
+def configs23_path(device):
+    """Configs 2 and 3 through ``run_experiment``: star_ugriz with HMC and
+    with the slice sampler (32 chains, five 25x25 bands), galaxy with NUTS
+    (32 chains, 31x31).  Returns the runs by name."""
+    runs = {}
+    for key, name, overrides, rhat_gate in (
+            ("ugriz hmc", "star_ugriz", dict(UGRIZ_HMC, sampler="hmc"), 1.1),
+            ("ugriz slice", "star_ugriz", dict(UGRIZ_SLICE, sampler="slice"), 1.15),
+            ("galaxy nuts", "galaxy", GALAXY_NUTS, 1.2)):
+        cfg, res, seconds, counts = entry_run(name, overrides, device)
+        report_entry(f"entry {name} {cfg.sampler}", cfg, res, seconds, counts, rhat_gate,
+                     periodic=(6,) if name == "galaxy" else ())
+        check(counts["mog_field_loglik_fwd"] > 0, f"{name} {cfg.sampler} never launched K1-fwd")
+        if cfg.sampler != "slice":
+            check(counts["mog_field_loglik_bwd"] > 0,
+                  f"{name} {cfg.sampler} never launched K1-bwd")
+        runs[key] = (cfg, res, seconds, counts)
+    nuts = runs["galaxy nuts"][1]
+    check(nuts["divergence_rate"] < 0.05, f"galaxy NUTS divergence {nuts['divergence_rate']:.4f}")
+
+    # slice against HMC on config 2: means within 0.5 sigma, widths within
+    # (0.65, 1.55) (tests/test_e2e_multiband.py)
+    h, sl = runs["ugriz hmc"][1], runs["ugriz slice"][1]
+    scale = np.maximum(h["std"], sl["std"])
+    ratio = sl["std"] / h["std"]
+    print(f"[entry] star_ugriz slice vs HMC: |mean gap| / sigma "
+          f"{' '.join(f'{v:.3f}' for v in np.abs(sl['mean'] - h['mean']) / scale)}; "
+          f"width ratio {' '.join(f'{v:.3f}' for v in ratio)}", flush=True)
+    check(bool(np.all(np.abs(sl["mean"] - h["mean"]) < 0.5 * scale)),
+          "star_ugriz: slice and HMC means differ by more than 0.5 sigma")
+    check(bool(np.all((ratio > 0.65) & (ratio < 1.55))),
+          f"star_ugriz: slice/HMC width ratio {ratio} outside (0.65, 1.55)")
+    return runs
+
+
+def ppc_path(device, runs):
+    """The posterior-predictive check on config 2's r band (HMC draws) and on
+    config 3 (NUTS draws), K7's counter set to 0 just before and read just
+    after: the calibrated draws give p in (0.02, 0.98); with the source's
+    log-flux set to -8, p < 0.02."""
+    from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.parallel.crowded import CrowdedScene
+    from celeste_tpu_torch.ppc import ppc_chi2_pvalue, ppc_lambda_draws, ppc_pixel_zscores
+
+    cases = (("config 2 r band", ugriz_scene(device), 2, CrowdedScene(("star",), 5), 2 + 2,
+              runs["ugriz hmc"][1]),
+             ("config 3", galaxy_scene(device), 0, CrowdedScene(("galaxy",), 1), 2,
+              runs["galaxy nuts"][1]))
+    mf.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = []
+    for tag, scene, band, cs, flux_slot, res in cases:
+        stamp = scene.stamps[band]
+        counts, mask = stamp.counts.cpu().numpy(), stamp.mask.cpu().numpy()
+        kept = res["samples"][:, res["samples"].shape[1] // 4:]
+        lam = ppc_lambda_draws(cs, kept, stamp, band=band, n_draws=PPC_DRAWS)
+        check(lam.shape == (PPC_DRAWS,) + tuple(counts.shape) and bool(np.isfinite(lam).all()),
+              f"PPC {tag}: lambda draws {lam.shape}")
+        p, d_obs, d_rep = ppc_chi2_pvalue(lam, counts, mask=mask)
+        z = ppc_pixel_zscores(lam, counts)
+        wrong = kept.copy()
+        wrong[..., flux_slot] = -8.0
+        lam_w = ppc_lambda_draws(cs, wrong, stamp, band=band, n_draws=PPC_DRAWS)
+        p_w, _, _ = ppc_chi2_pvalue(lam_w, counts, mask=mask)
+        print(f"[ppc] {tag}: p={p:.4f} (deviance obs {d_obs.mean():.2f}, rep {d_rep.mean():.2f}), "
+              f"max |z| {np.abs(z).max():.3f}; source flux removed: p={p_w:.4f}", flush=True)
+        check(0.02 < p < 0.98, f"PPC {tag}: p={p:.4f} outside (0.02, 0.98)")
+        check(p_w < 0.02, f"PPC {tag}: the missing source gives p={p_w:.4f} >= 0.02")
+        out.append(p)
+    counts_k7 = mf.launch_counts()["mog_field_render"]
+    print(f"[ppc] {time.perf_counter() - t0:.3f}s; K7 launches {counts_k7}", flush=True)
+    check(counts_k7 > 0, "the PPC path never launched K7")
+    return counts_k7
+
+
+def sep_entry_path(device):
+    """K8 through its entry point: ``batched_stamp_loglik(impl="sep")`` and
+    its gradient at B=65536 on config 1's stamp, K8's counters set to 0 just
+    before and read just after, held against the general kernel's value and
+    gradient."""
+    from celeste_tpu_torch.inference.hmc import value_and_grad
+    from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.kernels import mog_field_sep as ms
+
+    stamp, vecs = config1_batch(device)
+    ms.reset_launch_counts()
+    val, grad = value_and_grad(
+        lambda v: mf.batched_stamp_loglik(v, stamp, band=0, n_bands=1, impl="sep"), vecs)
+    torch.cuda.synchronize()
+    counts = ms.launch_counts()
+    want, want_g = value_and_grad(
+        lambda v: mf.batched_stamp_loglik(v, stamp, band=0, n_bands=1), vecs)
+    ev = max_abs_err(val, want, *SEP_TOL, "impl=sep value vs K1 at B=65536")
+    eg = max_abs_err(grad, want_g, *BWD_TOL, "impl=sep gradient vs K1 at B=65536")
+    print(f"[entry] batched_stamp_loglik(impl='sep') value_and_grad at B={BENCH_CHAINS}: "
+          f"launches {counts}; against K1: value {ev:.4g}, gradient {eg:.4g}", flush=True)
+    for name, n in counts.items():
+        check(n > 0, f"the impl='sep' entry point never launched {name}")
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # timings
 # ---------------------------------------------------------------------------
 
+def config1_batch(device):
+    """Config 1's 25x25 r-band stamp and B=65536 one-band star vectors
+    scattered around the truth."""
+    from celeste_tpu_torch.data.synthetic import make_synthetic_stamp, star_source
+
+    src = star_source(u=(30.00005, 10.00008), flux_r=30.0)
+    scene = make_synthetic_stamp([src], shape=(25, 25), bands=(2,), seed=0, device=device)
+    x0 = np.concatenate([scene.wcs.equa2duas(src["u"]), [np.log(src["flux"][2])]])
+    rng = np.random.default_rng(0)
+    vecs = torch.as_tensor((x0[None] + 0.01 * rng.normal(size=(BENCH_CHAINS, 3)))
+                           .astype(np.float32), device=device)
+    return scene.stamps[0], vecs
+
+
 def config1_timings(device, card):
     """B=65536 chains on one 25x25 r-band stamp."""
-    from celeste_tpu_torch.data.synthetic import make_synthetic_stamp, star_source
     from celeste_tpu_torch.inference.hmc import value_and_grad
     from celeste_tpu_torch.inference.problems import make_star_logdensity
     from celeste_tpu_torch.kernels import mog_field as mf
     from celeste_tpu_torch.model.params import StarParams
     from celeste_tpu_torch.model.priors import FluxPrior, SourcePriors
 
-    src = star_source(u=(30.00005, 10.00008), flux_r=30.0)
-    scene = make_synthetic_stamp([src], shape=(25, 25), bands=(2,), seed=0, device=device)
-    stamp = scene.stamps[0]
+    stamp, vecs = config1_batch(device)
     pd = mf.stamp_pixel_data(stamp)
-    x0 = np.concatenate([scene.wcs.equa2duas(src["u"]), [np.log(src["flux"][2])]])
-    rng = np.random.default_rng(0)
-    vecs = torch.as_tensor((x0[None] + 0.01 * rng.normal(size=(BENCH_CHAINS, 3)))
-                           .astype(np.float32), device=device)
     planes = [t.contiguous() for t in mf._field_planes(vecs, stamp, 0, "star", 1)]
     g = torch.ones(BENCH_CHAINS, dtype=torch.float32, device=device)
     t = {
@@ -835,6 +1177,71 @@ def render_timings(card, sharded5, vg_single_ms):
     return out
 
 
+def sep_timings(device, card):
+    """K8-fwd and K8-bwd at B=65536 on config 1's stamp, kernel and plain,
+    timed in turns with K1-fwd and K1-bwd on the same chains; and the
+    entry point's value_and_grad with impl="sep" and with the general
+    kernel."""
+    from celeste_tpu_torch.inference.hmc import value_and_grad
+    from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.kernels import mog_field_sep as ms
+
+    stamp, vecs = config1_batch(device)
+    planes = [t.contiguous() for t in ms.star_planes_isotropic(vecs, stamp, 0, 1)]
+    k1_planes = [t.contiguous() for t in mf._field_planes(vecs, stamp, 0, "star", 1)]
+    pd2, pd1 = ms.stamp_pixel_data_2d(stamp), mf.stamp_pixel_data(stamp)
+    g = torch.ones(BENCH_CHAINS, dtype=torch.float32, device=device)
+    t = {}
+    for turn in ("a", "b"):     # K1, K8, K8, K1
+        order = ("K1", "K8") if turn == "a" else ("K8", "K1")
+        for k in order:
+            if k == "K1":
+                fwd = time_ms(lambda: mf.loglik_fwd_cuda(*k1_planes, *pd1), 20)
+                bwd = time_ms(lambda: mf.loglik_bwd_cuda(*k1_planes, *pd1, g), 20)
+            else:
+                fwd = time_ms(lambda: ms.sep_fwd_cuda(*planes, *pd2), 20)
+                bwd = time_ms(lambda: ms.sep_bwd_cuda(*planes, *pd2, g), 20)
+            t[f"{k}_fwd_ms"] = min(t.get(f"{k}_fwd_ms", fwd), fwd)
+            t[f"{k}_bwd_ms"] = min(t.get(f"{k}_bwd_ms", bwd), bwd)
+    t["K8_fwd_plain_ms"] = time_ms(lambda: ms._sep_loglik_torch(*planes, *pd2), 5)
+    t["K8_bwd_plain_ms"] = time_ms(lambda: ms._sep_loglik_bwd_torch(*planes, *pd2, g), 3)
+    for impl in ("sep", "general"):
+        t[f"vg_{impl}_ms"] = time_ms(lambda: value_and_grad(
+            lambda v: mf.batched_stamp_loglik(v, stamp, band=0, n_bands=1, impl=impl), vecs), 10)
+    print(f"[timing] K8 against K1: B={BENCH_CHAINS} chains, config 1's 25x25 stamp, card: "
+          f"{card}", flush=True)
+    for k, v in t.items():
+        print(f"    {k} = {v:.6f} ms  ({BENCH_CHAINS / (v * 1e-3):.6e} chain-evals/s)", flush=True)
+    return t
+
+
+def stamp_render_timings(device, card, config5):
+    """K7 at B=1024 over config 5's 48x128 field (dense planes, C=126) and on
+    config 2's 25x25 r-band stamp (C=3), kernel and plain."""
+    from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.parallel.crowded import scene_field_planes
+
+    _, _, vec, info = config5
+    rng = np.random.default_rng(6)
+    vecs = vec[None] + torch.as_tensor(0.01 * rng.normal(size=(C5_CHAINS, vec.shape[0])),
+                                       dtype=torch.float32, device=device)
+    field = ([p.contiguous() for p in scene_field_planes(info["scene"], vecs, info["stamp"], 0)],
+             mf.stamp_pixel_data(info["stamp"]))
+    scene = ugriz_scene(device)
+    svecs = torch.as_tensor(source_vecs(scene, "star", C5_CHAINS, seed=6), device=device)
+    stamp = ([t.contiguous() for t in mf._field_planes(svecs, scene.stamps[2], 2, "star", 5)],
+             mf.stamp_pixel_data(scene.stamps[2]))
+    t = {}
+    for name, (planes, (px, py, _, sky, _)) in (("field", field), ("stamp", stamp)):
+        t[f"K7_{name}_ms"] = time_ms(lambda: mf.render_cuda(*planes, px, py, sky), 20)
+        t[f"K7_{name}_plain_ms"] = time_ms(lambda: mf._render_torch(*planes, px, py, sky), 3)
+    print(f"[timing] K7 at B={C5_CHAINS}: config 5's 48x128 field (C=126) and a 25x25 stamp "
+          f"(C=3), card: {card}", flush=True)
+    for k, v in t.items():
+        print(f"    {k} = {v:.6f} ms", flush=True)
+    return t
+
+
 def bound(flops, nbytes):
     """(least time in ms, what bounds it) for ``flops`` float32 operations
     and ``nbytes`` moved, at the card's peaks."""
@@ -887,6 +1294,24 @@ def kernel_bounds(config5, sharded5):
                       planes + table + 2 * tiles * 1024 * f4 + lam)
     out["K6"] = bound(terms * (FLOPS_TERM_E + FLOPS_TERM_COT),
                       2 * planes + table + 2 * tiles * 1024 * f4 + lam + cols)
+    # K7 on config 5's field with the dense planes (12 sources: 10 stars of
+    # 3 components, 2 galaxies of 48) at B=1024: 13 operations per (pixel,
+    # component) term and the [B, P] store
+    c, pix = 10 * 3 + 2 * 48, 48 * 128
+    out["K7"] = bound(b * pix * c * (FLOPS_TERM_E + FLOPS_TERM_SUM),
+                      6 * b * c * f4 + 3 * pix * f4 + b * pix * f4)
+    # K8 on config 1's 25x25 stamp at B=65536: the C (H + W) factors, then per
+    # pixel C multiply-adds and the Poisson term (forward) or its cotangent
+    # and the two contractions (backward), then the factors' cotangent sums
+    b, c, h, w = BENCH_CHAINS, 3, 25, 25
+    factors = c * (h + w) * FLOPS_SEP_FACTOR
+    pixel_arrays = (h + w + 3 * h * w) * f4
+    out["K8-fwd"] = bound(b * (factors + h * w * (c * FLOPS_SEP_TERM + FLOPS_PIXEL_LOGLIK)),
+                          4 * b * c * f4 + pixel_arrays + b * f4)
+    out["K8-bwd"] = bound(b * (factors + h * w * (c * (FLOPS_SEP_TERM + FLOPS_SEP_CONTRACT)
+                                                  + FLOPS_PIXEL_GLAM)
+                               + c * (h + w) * FLOPS_SEP_FACTOR_COT),
+                          8 * b * c * f4 + pixel_arrays + b * f4)
     return out
 
 
@@ -897,6 +1322,7 @@ def main() -> int:
         return 1
     from celeste_tpu_torch.bench.config5 import build_config5, build_config5_sharded
     from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.kernels import mog_field_sep as ms
     from celeste_tpu_torch.kernels import tiled_field as tf
     from celeste_tpu_torch.kernels._build import build_library
     from celeste_tpu_torch.parallel import process_group
@@ -909,9 +1335,10 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # one nvcc per library, started together; the loads then find them built
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        list(pool.map(build_library, ("mog_field", "tiled_field"), (mf._SOURCES, tf._SOURCES)))
-    libs = [mf.build_kernels(), tf.build_kernels()]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        list(pool.map(build_library, ("mog_field", "tiled_field", "mog_field_sep"),
+                      (mf._SOURCES, tf._SOURCES, ms._SOURCES)))
+    libs = [mf.build_kernels(), tf.build_kernels(), ms.build_kernels()]
     print(f"[build] {', '.join(lib.name for lib in libs)} built and loaded in "
           f"{time.perf_counter() - t_start:.3f} s", flush=True)
 
@@ -919,7 +1346,10 @@ def main() -> int:
     config5 = build_config5(device=device)
     tiled_errs = tiled_kernel_checks(device, config5)
     render_errs = render_kernel_checks(device, build_config5_sharded(config5[3], None))
+    k7_err = stamp_render_checks(device, config5)
+    k8_errs = sep_kernel_checks(device)
     oracle_checks(device, config5)
+    oracle_checks_23(device)
 
     mf.reset_launch_counts()
     runs = config1_path(device)
@@ -927,8 +1357,8 @@ def main() -> int:
     for sampler, cfg, res, seconds, after in runs:
         report_config1(sampler, cfg, res, seconds, after)
     check(runs[0][4]["mog_field_loglik_fwd"] > 0, "MH run never launched the forward kernel")
-    for name, n in k1_counts.items():
-        check(n > 0, f"the config-1 path never launched {name}")
+    for name in ("mog_field_loglik_fwd", "mog_field_loglik_bwd"):
+        check(k1_counts[name] > 0, f"the config-1 path never launched {name}")
 
     mf.reset_launch_counts()
     tf.reset_launch_counts()
@@ -937,6 +1367,10 @@ def main() -> int:
     print(f"[config 5] launches: {c5_counts} (stamp kernels: {mf.launch_counts()})", flush=True)
     for name in ("tiled_field_fwd", "tiled_field_fwd_lam", "tiled_field_bwd"):
         check(c5_counts[name] > 0, f"the config-5 path never launched {name}")
+
+    runs23 = configs23_path(device)
+    k7_launches = ppc_path(device, runs23)
+    k8_counts = sep_entry_path(device)
 
     with process_group("nccl"):
         mf.reset_launch_counts()
@@ -952,6 +1386,8 @@ def main() -> int:
         t1 = config1_timings(device, card)
         t5 = config5_timings(device, card, config5)
         tr = render_timings(card, sharded5, t5["vg_ms"])
+        t8 = sep_timings(device, card)
+        t7 = stamp_render_timings(device, card, config5)
         bounds = kernel_bounds(config5, sharded5)
     tiled = "celeste_tpu/kernels/tiled_field.py"
     t5b, trb = t5[TIMING_CHAINS[0]], tr[TIMING_CHAINS[0]]
@@ -971,6 +1407,14 @@ def main() -> int:
          sh_counts["tiled_field_render"], render_errs["K5"], trb["K5"], trb["K5_plain"]),
         ("tiled_field_render_bwd", "tiled_field.cu", f"{tiled}:652", "K6",
          sh_counts["tiled_field_render_bwd"], render_errs["K6"], trb["K6"], trb["K6_plain"]),
+        ("mog_field_render", "mog_field.cu", "celeste_tpu/kernels/mog_field.py:103", "K7",
+         k7_launches, k7_err, t7["K7_field_ms"], t7["K7_field_plain_ms"]),
+        ("mog_field_sep_fwd", "mog_field_sep.cu", "celeste_tpu/kernels/mog_field_sep.py:71",
+         "K8-fwd", k8_counts["mog_field_sep_fwd"], k8_errs["fwd"], t8["K8_fwd_ms"],
+         t8["K8_fwd_plain_ms"]),
+        ("mog_field_sep_bwd", "mog_field_sep.cu", "celeste_tpu/kernels/mog_field_sep.py:163",
+         "K8-bwd", k8_counts["mog_field_sep_bwd"], k8_errs["bwd"], t8["K8_bwd_ms"],
+         t8["K8_bwd_plain_ms"]),
     ]
     kernels = []
     for name, src, replaces, key, launches, err, ms, plain_ms in rows:

@@ -148,10 +148,10 @@ def test_cli_and_not_yet_ported_paths(tmp_path):
     with open(out + ".metrics.jsonl") as fh:
         assert [json.loads(line)["event"] for line in fh] == ["start", "done"]
     with pytest.raises(SystemExit, match="not yet ported"):
-        main(["config=galaxy", "device=cpu"])
+        main(["config=quasar_photoz", "device=cpu"])
     with pytest.raises(SystemExit, match="unknown config key"):
-        main(["config=star_single", "color_prior=gmm"])
-    for bad in (dict(sampler="slice"), dict(sampler="tempered_slice"), dict(bands=(0, 2)),
+        main(["config=star_single", "n_temps=8"])
+    for bad in (dict(sampler="tempered_slice"), dict(name="crowded_field", bands=(0, 2)),
                 dict(checkpoint_every=10), dict(resume="ckpt")):
         with pytest.raises(NotImplementedError):
             run_experiment(_cfg(**bad))

@@ -479,3 +479,122 @@ def test_sharded_nccl_across_four_cards(cuda, sharded5, shape):
         rows = slice((rank // shape[1]) * per, (rank // shape[1] + 1) * per)
         torch.testing.assert_close(val, want.detach()[rows].cpu(), **TILED_TOL)
         torch.testing.assert_close(g, want_g[rows].cpu(), **TILED_GRAD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the stamp render kernel K7 and the separable kernels K8 (configs 2 and 3)
+# ---------------------------------------------------------------------------
+
+SEP_TOL = dict(rtol=2e-6, atol=0.5)
+
+
+@pytest.mark.parametrize("kind", ["star", "galaxy"])
+def test_render_stamp_kernel_matches_plain(cuda, kind):
+    planes, pd, _, _ = _planes(kind, 1000, cuda)
+    planes[0][::9] = 0.0                    # zero-amplitude rows render exactly the sky
+    got = mf.render_cuda(*planes, pd[0], pd[1], pd[3])
+    want = mf._render_torch(*planes, pd[0], pd[1], pd[3])
+    assert tuple(got.shape) == (1000, 640)
+    torch.testing.assert_close(got, want, **LAM_TOL)
+    assert torch.equal(got[::9], pd[3].expand(got[::9].shape[0], -1))
+
+
+def test_render_stamp_kernel_on_the_config5_field(cuda, config5):
+    """K7 tiles the pixels: the 48x128 field (6144 pixels) renders with no cap."""
+    _, _, vec, info = config5
+    from celeste_tpu_torch.parallel.crowded import scene_field_planes
+
+    vecs = vec[None] + 0.01 * torch.randn((64, vec.shape[0]), device=cuda,
+                                          generator=torch.Generator(cuda).manual_seed(1))
+    planes = [p.contiguous() for p in scene_field_planes(info["scene"], vecs, info["stamp"], 0)]
+    pd = mf.stamp_pixel_data(info["stamp"])
+    before = mf.launch_counts()["mog_field_render"]
+    got = mf.mog_field_render(*planes, pd)
+    assert mf.launch_counts()["mog_field_render"] == before + 1
+    torch.testing.assert_close(got, mf._render_torch(*planes, pd[0], pd[1], pd[3]), **LAM_TOL)
+
+
+def _sep_planes(n, device, seed=0):
+    from celeste_tpu_torch.kernels import mog_field_sep as ms
+
+    _, _, vecs, stamp = _planes("star", n, device, seed=seed)
+    planes = [t.contiguous() for t in ms.star_planes_isotropic(vecs, stamp, 2, 5)]
+    return planes, ms.stamp_pixel_data_2d(stamp), vecs, stamp
+
+
+@pytest.mark.parametrize("centered", [False, True])
+def test_sep_forward_kernel_matches_plain_and_k1(cuda, centered):
+    from celeste_tpu_torch.kernels import mog_field_sep as ms
+
+    planes, pd, vecs, stamp = _sep_planes(1000, cuda)
+    holed = pd[4].clone()
+    holed[:, ::7] = 0.0
+    for mask in (pd[4], holed):
+        pix = (*pd[:4], mask)
+        got = ms.sep_fwd_cuda(*planes, *pix, centered=centered)
+        torch.testing.assert_close(got, ms._sep_loglik_torch(*planes, *pix, centered=centered),
+                                   **SEP_TOL)
+    k1 = mf.batched_stamp_loglik(vecs, stamp, band=2, n_bands=5, centered=centered)
+    torch.testing.assert_close(ms.sep_fwd_cuda(*planes, *pd, centered=centered), k1, **SEP_TOL)
+
+
+def test_sep_backward_kernel_matches_plain_autograd_and_repeats(cuda):
+    from celeste_tpu_torch.kernels import mog_field_sep as ms
+
+    planes, pd, _, _ = _sep_planes(777, cuda, seed=1)
+    pd = (*pd[:4], pd[4].clone())
+    pd[4][:, ::7] = 0.0
+    planes[0][::5, 0] = 0.0                 # zero-amplitude components: finite cotangents
+    g = torch.as_tensor(np.random.default_rng(2).normal(size=777).astype(np.float32),
+                        device=cuda)
+    got = ms.sep_bwd_cuda(*planes, *pd, g)
+    again = ms.sep_bwd_cuda(*planes, *pd, g)
+    hand = ms._sep_loglik_bwd_torch(*planes, *pd, g)
+    leaves = [t.clone().requires_grad_(True) for t in planes]
+    auto = torch.autograd.grad(ms._sep_loglik_torch(*leaves, *pd), leaves, g)
+    for a, h, w, a2 in zip(got, hand, auto, again):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, h, **GRAD_TOL)
+        torch.testing.assert_close(a, w, **GRAD_TOL)
+        assert torch.equal(a, a2)
+
+
+def test_sep_entry_point_launches_both_kernels(cuda):
+    from celeste_tpu_torch.kernels import mog_field_sep as ms
+
+    _, _, vecs, stamp = _sep_planes(96, cuda)
+    before = ms.launch_counts()
+    x = vecs.clone().requires_grad_(True)
+    out = mf.batched_stamp_loglik(x, stamp, band=2, n_bands=5, impl="sep")
+    (gx,) = torch.autograd.grad(out.sum(), x)
+    after = ms.launch_counts()
+    assert after["mog_field_sep_fwd"] == before["mog_field_sep_fwd"] + 1
+    assert after["mog_field_sep_bwd"] == before["mog_field_sep_bwd"] + 1
+    x_cpu = vecs.cpu().requires_grad_(True)
+    want = mf.batched_stamp_loglik(x_cpu, stamp.to("cpu"), band=2, n_bands=5, impl="sep")
+    (gw,) = torch.autograd.grad(want.sum(), x_cpu)
+    torch.testing.assert_close(out.detach().cpu(), want.detach(), **SEP_TOL)
+    torch.testing.assert_close(gx.cpu(), gw, **GRAD_TOL)
+
+
+def test_sep_and_render_wrappers_reject_bad_inputs(cuda):
+    from celeste_tpu_torch.kernels import mog_field_sep as ms
+
+    planes, pd, _, _ = _sep_planes(8, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        ms.sep_fwd_cuda(planes[0].double(), *planes[1:], *pd)
+    with pytest.raises(ValueError, match="shape"):
+        ms.sep_fwd_cuda(*planes, pd[0][:, :-1], *pd[1:])
+    with pytest.raises(ValueError):
+        ms.sep_fwd_cuda(*planes, pd[0].cpu(), *pd[1:])
+    with pytest.raises(ValueError, match="g has"):
+        ms.sep_bwd_cuda(*planes, *pd, torch.ones(7, device=cuda))
+    big = [torch.ones(1, 200, device=cuda), torch.ones(1, 200, device=cuda)] + [
+        torch.ones(200, 200, device=cuda) for _ in range(3)]
+    before = ms.launch_counts()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ms.sep_bwd_cuda(*planes, *big, torch.ones(8, device=cuda))
+    assert ms.launch_counts() == before
+    rplanes, rpd, _, _ = _planes("star", 8, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        mf.render_cuda(rplanes[0].t().contiguous().t(), *rplanes[1:], rpd[0], rpd[1], rpd[3])

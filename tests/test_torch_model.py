@@ -165,8 +165,18 @@ def test_psf_models_match_jax():
 
 
 def test_color_gmm_prior_is_not_silently_ignored():
-    with pytest.raises(NotImplementedError):
-        FluxPrior(color_gmm=object())
+    """A colour mixture replaces the Gaussian colour term of the flux prior:
+    log N(log f_r; 3, 3) + gmm(colours) - sum log f."""
+    from celeste_tpu_torch.model.color_prior import default_star_gmm
+
+    gmm = default_star_gmm()
+    log_flux = torch.log(torch.tensor([[9.0, 21.0, 30.0, 34.5, 36.0]]))
+    got = FluxPrior(color_gmm=gmm).logpdf(log_flux)
+    ref = (log_flux[:, 2] - 3.0) / 3.0
+    want = (-0.5 * ref * ref - np.log(3.0) - 0.5 * np.log(2 * np.pi)
+            + gmm.logpdf(log_flux[:, :-1] - log_flux[:, 1:]) - log_flux.sum(-1))
+    assert not torch.allclose(got, FluxPrior().logpdf(log_flux))
+    torch.testing.assert_close(got, want.float(), rtol=1e-6, atol=1e-5)
 
 
 def test_synthetic_counts_bitwise_equal():
