@@ -1,7 +1,7 @@
 // Device helpers shared by the MoG-field kernels (mog_field.cu) and the
 // tiled field kernels (tiled_field.cu): the lambda floor, the NaN-keeping
-// clamp, the warp sum, and the opt-in to more than 48 KB of dynamic shared
-// memory.
+// clamp, the base-2 exponential, the warp sum, and the opt-in to more than
+// 48 KB of dynamic shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,11 +9,21 @@
 namespace celeste {
 
 constexpr float kLambdaMin = 1e-10f;    // likelihood/_pixel.py LAMBDA_MIN
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kDefaultSmem = 48 * 1024;
 
 // max(v, lo) that propagates NaN like jnp.maximum / torch.clamp
 __device__ __forceinline__ float clamp_min(float v, float lo) {
   return v < lo ? lo : v;
+}
+
+// 2^x as one MUFU.EX2 (PTX ex2.approx.ftz.f32): at most 2 ulp from the
+// correctly rounded result, subnormal results flushed to 0, and 2^0 = 1
+// exactly.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Butterfly sum over the warp; every lane ends with the total.

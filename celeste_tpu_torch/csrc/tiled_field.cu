@@ -35,36 +35,68 @@
 // with the per-pixel cotangent g[t, b, p] of that sum given in place of
 // g_lam.
 //
-// What bounds it on the card.  Per (chain, tile) the forward does K
-// exponentials and ~12 K FP32 operations for each of 1024 pixels, plus one
-// logarithm per pixel, against 6 K * 4 bytes of gathered parameters: it is
-// bound by the special-function unit and FP32 issue, not by memory.  K3
-// also writes lambda, 4 KB per (chain, tile); K4 reads it back, which saves
-// the backward one pass of exponentials.  K5 does K2's exponentials and
-// writes 4 KB of lambda per (chain, tile), ~1% of its time at config 5's
-// K ~ 110; K6 does K4's work and reads 4 KB of cotangent per (chain, tile):
-// both stay bound by FP32 throughput.
+// What bounds it on the card.  Every (pixel, component) term needs one
+// exponential, and the special-function unit gives 16 per clock per SM
+// against 128 FP32 lanes (CUDA Programming Guide, arithmetic throughput,
+// compute capability 9.0): at config 5's ~6.7e8 terms per call that alone
+// is ~0.16 ms at 1.98 GHz.  A term's FP32 work (the offsets, the quadratic
+// form, the amplitude's multiply-add; in the backward the six pixel moments)
+// competes with the exponential for the SM's four issue slots per clock, so
+// the kernels are bound by instruction issue, never by memory: per (chain,
+// tile) they read 32 K bytes of parameters against ~1024 K exponentials.
+// On the H100 (PERF.md) K3 runs only ~10% faster with its exponential taken
+// out: issue, not the special-function unit, sets the pace, reached at
+// ~60% because each term is a chain of dependent instructions and config
+// 5's grid gives each scheduler ~4-6 warps.  K3 writes lambda (4 KB per chain and tile)
+// and K4 reads it back, which spares the backward a second pass of
+// exponentials; K5 writes the sky-free lambda and K6 reads its cotangent.
 //
 // What the design does about that.  A block is one tile and 8 chains; one
-// warp owns one chain and its lanes stride over the tile's 1024 pixels.  The
-// tile's pixel arrays (20 KB) are staged once per block in shared memory.
-// Each warp gathers its chain's K components straight from the planes by
-// the tile's tile_src row (no gathered copy of the planes in device memory,
-// which the TPU needed only because Mosaic cannot slice lanes by data) and
-// stages them, pre-transformed (a, mx, my, -pa/2, -pb, -pc/2), in shared
-// memory.  The inner loop is then two subtractions, a few FMAs, one exp and
-// one multiply per (pixel, component); the amplitude multiplies e (a * e,
-// not exp(log a + ...)), so the sentinel (a = 0 and a zero quadratic form)
-// adds exactly 0 and its gradient stays finite.  The per-chain sum is a
-// shuffle tree; per-tile partials [T, B] are summed by the caller in a fixed
-// order.  K4 writes per-(tile, entry) cotangents [6, T * K, B] and a second
-// kernel sums them into the plane columns through a host-built column ->
-// entry list (CSR), in list order: no atomics, so two calls on the same
-// inputs give bitwise-equal gradients.  K5 is a third instantiation of the
-// forward kernel (lambda from 0, stored, no reduction) and K6 a second one
-// of the backward kernel (the cotangent row read, not derived), so the
-// render pair shares the gather, the staging, the scatter and the
-// determinism of K2-K4.
+// warp owns one chain.  The tile's pixel arrays are staged once per block in
+// shared memory, and each warp gathers its chain's K components straight
+// from the planes by the tile's tile_src row (no gathered copy of the planes
+// in device memory, which the TPU needed only because Mosaic cannot slice
+// lanes by data) into shared memory as two float4 per component,
+// (a, mx, my, column) and (qa, qb, qc, 0), with the quadratic form's
+// coefficients in base 2 (qa = -pa log2e / 2, qb = -pb log2e,
+// qc = -pc log2e / 2) so that e = 2^(qa dx^2 + qb dx dy + qc dy^2) is one
+// ex2.approx (mog_common.cuh): one MUFU.EX2 and no FP32 range reduction.
+// The amplitude multiplies e (a * e, not 2^(log2 a + ...)), so the zero
+// sentinel (a = 0 and a zero form, 2^0 = 1 exactly) adds exactly 0 and its
+// gradient stays finite.
+//   Forward (K2, K3, K5): a lane keeps kFwdPix of its 32 pixels in
+// registers (x, y and lambda) and walks the components with two broadcast
+// 16-byte shared loads per component for all of them, so a term costs ~8
+// FP32 instructions and one MUFU.EX2, with no shared load of its own.  Each
+// pixel adds its components in index order, its Poisson term is taken with
+// the accurate logf, and the per-chain sum is a shuffle tree over lanes that
+// each summed their pixels in index order; K2 and K3 write per-tile partials
+// [T, B] that the caller sums in a fixed order.
+//   Backward (K4, K6), in moment form.  With ge = g_lam e summed over the
+// pixels into S0 = sum ge, Sx = sum ge dx, Sy = sum ge dy, Sxx = sum ge dx^2,
+// Sxy = sum ge dx dy and Syy = sum ge dy^2, an entry's cotangents are
+//   d a = S0,  d pa = -a Sxx / 2,  d pb = -a Sxy,  d pc = -a Syy / 2,
+//   d mx = a (pa Sx + pb Sy),  d my = a (pb Sx + pc Sy):
+// the algebra above with the constant -a/2 taken out of the sums, and the
+// products dx^2, dx dy, dy^2 shared by the exponent and the moments.  Lanes
+// stride over the pixels; each pass over a lane's pixels serves kBwdEntries
+// entries, so one load of (px, py) and of g_lam feeds that many terms, and
+// the 6 kBwdEntries moments are then summed over the warp by halving (each
+// butterfly level sends half of a lane's values and keeps the other half),
+// after which the lanes holding an entry's first or second moments write
+// its three cotangents of each kind.  K4 writes per-(tile, entry)
+// cotangents [6, T * K, B] and a second kernel sums them into the plane
+// columns through a host-built column -> entry list (CSR), in list order,
+// transposing through shared memory so that its reads and its writes both
+// move whole rows: no atomics, so two calls on the same inputs give
+// bitwise-equal gradients.
+// K5 is a third instantiation of the forward kernel (lambda from 0, stored,
+// no reduction) and K6 a second one of the backward kernel (the cotangent row
+// read, not derived), so the render pair shares the gather, the staging, the
+// loops, the scatter and the determinism of K2-K4.  The staged components
+// take 32 bytes per component and warp of shared memory, which caps a tile
+// at about 800 components in the forward and 740 in the backward (config 5
+// has 114).
 //
 // Interface: plain C, bound with ctypes.  Each entry launches on the given
 // stream, allocates nothing and returns cudaGetLastError() after its last
@@ -77,43 +109,58 @@
 namespace {
 
 using celeste::clamp_min;
+using celeste::ex2_approx;
 using celeste::kLambdaMin;
+using celeste::kLog2e;
 using celeste::launch_prep;
 using celeste::warp_sum;
 
 constexpr int kPix = 1024;              // parallel/tiles.py PIX_PER_TILE
 constexpr int kWarps = 8;               // chains per block
 constexpr int kThreads = kWarps * 32;
-constexpr int kScatterThreads = 128;
+constexpr int kScatterThreads = 256;
+constexpr int kScatterTile = 32;        // plane columns and chains per scatter block
+constexpr int kFwdPix = 16;             // pixels a lane of the forward keeps in registers
+constexpr int kBwdEntries = 8;          // entries per pixel pass of the backward
+static_assert(kPix % (32 * kFwdPix) == 0, "a lane's pixels split into register blocks");
+static_assert(kBwdEntries == 1 || kBwdEntries == 2 || kBwdEntries == 4 || kBwdEntries == 8
+              || kBwdEntries == 16, "the halving sum takes 6 * 2^m moments");
 
 // What the forward kernel produces: K2 the per-tile log-likelihood, K3 that
 // and the pre-clamp lambda (sky included), K5 the sky-free lambda alone.
 enum FwdMode { kLoglik, kLoglikLam, kRender };
 
-// Stage chain b's gathered components of tile t, pre-transformed for the
-// forward: a, mx, my, -pa/2, -pb, -pc/2 ([6][K] floats at w).
+__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+// Stage chain b's gathered components of tile t as two float4 each,
+// w[2k] = (a, mx, my, plane column as int bits) and w[2k+1] = (qa, qb, qc, 0)
+// with the form in base 2 (qa = -pa log2e / 2, qb = -pb log2e,
+// qc = -pc log2e / 2); entries n_k .. n_pad - 1 are all zero.
 __device__ __forceinline__ void stage_components(
     const float* __restrict__ amp, const float* __restrict__ mx,
     const float* __restrict__ my, const float* __restrict__ pa,
     const float* __restrict__ pb, const float* __restrict__ pc,
-    const int* __restrict__ src_row, float* w, int b, int plane_w, int n_comp,
-    int n_k, int lane) {
-  for (int k = lane; k < n_k; k += 32) {
-    const int col = src_row[k / n_comp] * n_comp + k % n_comp;
-    const size_t i = static_cast<size_t>(b) * plane_w + col;
-    w[k] = amp[i];
-    w[n_k + k] = mx[i];
-    w[2 * n_k + k] = my[i];
-    w[3 * n_k + k] = -0.5f * pa[i];
-    w[4 * n_k + k] = -pb[i];
-    w[5 * n_k + k] = -0.5f * pc[i];
+    const int* __restrict__ src_row, float4* w, int b, int plane_w, int n_comp,
+    int n_k, int n_pad, int lane) {
+  for (int k = lane; k < n_pad; k += 32) {
+    float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 q = c;
+    if (k < n_k) {
+      const int col = src_row[k / n_comp] * n_comp + k % n_comp;
+      const size_t i = static_cast<size_t>(b) * plane_w + col;
+      c = make_float4(amp[i], mx[i], my[i], __int_as_float(col));
+      q = make_float4(-0.5f * kLog2e * pa[i], -kLog2e * pb[i], -0.5f * kLog2e * pc[i], 0.0f);
+    }
+    w[2 * k] = c;
+    w[2 * k + 1] = q;
   }
 }
 
 // K2 (kLoglik), K3 (kLoglikLam) and K5 (kRender).  Grid (tiles, chain
 // blocks); K2 and K3 write partial[t, b]; K3 writes the pre-clamp lambda
 // lam[t, b, p] with sky, K5 the sum of the components without it.  K5 reads
-// only px and py of the pixel arrays (the others may be null).
+// only px and py of the pixel arrays (the others may be null).  Lane l owns
+// pixels l + 32 j, j = 0 .. 31, taken kFwdPix at a time.
 template <bool kCentered, int kMode>
 __global__ void __launch_bounds__(kThreads)
 tiled_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
@@ -126,14 +173,14 @@ tiled_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
                  int n_chains, int plane_w, int s_cap, int n_comp) {
   constexpr bool kReduce = kMode != kRender;
   constexpr bool kStoreLam = kMode != kLoglik;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* s_px = smem;
   float* s_py = s_px + kPix;
   float* s_cnt = s_py + kPix;            // counts .. log max(counts, eps):
   float* s_sky = s_cnt + kPix;           // the log-likelihood's arrays,
   float* s_mask = s_sky + kPix;          // absent from K5's shared memory
   float* s_lxt = s_mask + kPix;          // (centered only)
-  float* s_par = kReduce ? s_lxt + kPix : s_cnt;   // kWarps x 6 x K
+  float* s_par = kReduce ? s_lxt + kPix : s_cnt;   // kWarps x 2K float4
 
   const int t = blockIdx.x;
   const size_t tile_off = static_cast<size_t>(t) * kPix;
@@ -152,37 +199,46 @@ tiled_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.y * kWarps + warp;
   const int n_k = s_cap * n_comp;
-  float* w = s_par + warp * 6 * n_k;
+  float4* w = reinterpret_cast<float4*>(s_par) + warp * 2 * n_k;
   if (b < n_chains) {
     stage_components(amp, mx, my, pa, pb, pc, tile_src + static_cast<size_t>(t) * s_cap, w,
-                     b, plane_w, n_comp, n_k, lane);
+                     b, plane_w, n_comp, n_k, n_k, lane);
   }
   __syncthreads();
   if (b >= n_chains) return;
 
-  const float* w_a = w;
-  const float* w_mx = w + n_k;
-  const float* w_my = w + 2 * n_k;
-  const float* w_ha = w + 3 * n_k;
-  const float* w_hb = w + 4 * n_k;
-  const float* w_hc = w + 5 * n_k;
   float* lam_row = kStoreLam ? lam_out + (static_cast<size_t>(t) * n_chains + b) * kPix
                              : nullptr;
   float acc = 0.0f;
-  for (int p = lane; p < kPix; p += 32) {
-    const float x = s_px[p];
-    const float y = s_py[p];
-    float lam = kReduce ? s_sky[p] : 0.0f;
-    for (int k = 0; k < n_k; ++k) {
-      const float dx = x - w_mx[k];
-      const float dy = y - w_my[k];
-      lam += w_a[k] * expf(w_ha[k] * dx * dx + w_hb[k] * dx * dy + w_hc[k] * dy * dy);
+  for (int p0 = lane; p0 < kPix; p0 += 32 * kFwdPix) {
+    float x[kFwdPix], y[kFwdPix], lam[kFwdPix];
+#pragma unroll
+    for (int r = 0; r < kFwdPix; ++r) {
+      x[r] = s_px[p0 + 32 * r];
+      y[r] = s_py[p0 + 32 * r];
+      lam[r] = kReduce ? s_sky[p0 + 32 * r] : 0.0f;
     }
-    if (kStoreLam) lam_row[p] = lam;
-    if (kReduce) {
-      lam = clamp_min(lam, kLambdaMin);
-      acc += celeste::pixel_loglik<kCentered>(lam, s_cnt[p], kCentered ? s_lxt[p] : 0.0f)
-             * s_mask[p];
+#pragma unroll 2
+    for (int k = 0; k < n_k; ++k) {
+      const float4 c = w[2 * k];
+      const float4 q = w[2 * k + 1];
+#pragma unroll
+      for (int r = 0; r < kFwdPix; ++r) {
+        const float dx = x[r] - c.y;
+        const float dy = y[r] - c.z;
+        const float u = fmaf(q.x, dx, q.y * dy);                 // qa dx + qb dy
+        lam[r] = fmaf(c.x, ex2_approx(fmaf(u, dx, q.z * dy * dy)), lam[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kFwdPix; ++r) {
+      const int p = p0 + 32 * r;
+      if (kStoreLam) lam_row[p] = lam[r];
+      if (kReduce) {
+        const float l = clamp_min(lam[r], kLambdaMin);
+        acc += celeste::pixel_loglik<kCentered>(l, s_cnt[p], kCentered ? s_lxt[p] : 0.0f)
+               * s_mask[p];
+      }
     }
   }
   if (kReduce) {
@@ -191,12 +247,48 @@ tiled_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
   }
 }
 
+// Sum N = 3 * 2^m values over the warp by halving.  At each of the first m
+// butterfly levels (offsets 16, 8, ...) a lane sends the half of its live
+// values that its partner keeps, keeps the other half (the upper half where
+// the lane's offset bit is set) and adds what it receives; the last 5 - m
+// levels sum the 3 values left.  Lane l ends with the warp's totals of
+// v[3i .. 3i + 2], i = l >> (5 - m), in v[0 .. 2].  The order of the adds is
+// fixed, so the sums repeat bitwise.
+template <int N>
+__device__ __forceinline__ void warp_sum_halving(float (&v)[N], int lane) {
+  int n = N;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    if (n > 3) {
+      n /= 2;
+      const bool upper = lane & off;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        if (i < n) {
+          const float send = upper ? v[i] : v[i + n];
+          const float keep = upper ? v[i + n] : v[i];
+          v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
+    }
+  }
+}
+
+// log2 of 2 kBwdEntries: the halving levels of the backward's moment sum
+constexpr int kHalvings = kBwdEntries == 1 ? 1 : kBwdEntries == 2 ? 2 : kBwdEntries == 4 ? 3
+                          : kBwdEntries == 8 ? 4 : 5;
+
 // K4 (kRender = false) and K6 (kRender = true), part 1.  Grid (tiles, chain
-// blocks).  Pass 1 stages the pixel cotangent (shared memory, one row per
-// warp): K4 derives g_lam from lambda, counts, mask and g [B]; K6 reads the
-// given cotangent g [T, B, 1024] (counts, mask and lam_in may be null).
-// Pass 2 sums the six cotangents of each of the tile's K entries over the
-// pixels and writes them to d_part[q, t * K + k, b].
+// blocks).  Each warp stages its chain's components and its pixel cotangent
+// (one row of shared memory per warp): K4 derives g_lam from lambda,
+// counts, mask and g [B]; K6 reads the given cotangent g [T, B, 1024]
+// (counts, mask and lam_in may be null).  Then, kBwdEntries entries at a
+// time, it sums the six pixel moments over the tile and writes each entry's
+// six cotangents to d_part[q, t * K + k, b].  Moments are kept in v as
+// triples: entry j's (S0, Sx, Sy) at 6j and (Sxx, Sxy, Syy) at 6j + 3.
 template <bool kRender>
 __global__ void __launch_bounds__(kThreads)
 tiled_bwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
@@ -207,111 +299,161 @@ tiled_bwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
                  const float* __restrict__ mask, const float* __restrict__ lam_in,
                  const float* __restrict__ g, float* __restrict__ d_part,
                  int n_tiles, int n_chains, int plane_w, int s_cap, int n_comp) {
-  extern __shared__ float smem[];
-  float* s_px = smem;
-  float* s_py = s_px + kPix;
-  float* s_glam = s_py + kPix;           // kWarps x kPix
+  constexpr int kE = kBwdEntries;
+  extern __shared__ __align__(16) float smem[];
+  float2* s_xy = reinterpret_cast<float2*>(smem);                      // kPix
+  float* s_glam = smem + 2 * kPix;                                     // kWarps x kPix
+  float4* s_par = reinterpret_cast<float4*>(s_glam + kWarps * kPix);  // kWarps x 2 n_pad
 
   const int t = blockIdx.x;
   const size_t tile_off = static_cast<size_t>(t) * kPix;
   for (int i = threadIdx.x; i < kPix; i += kThreads) {
-    s_px[i] = px[tile_off + i];
-    s_py[i] = py[tile_off + i];
+    s_xy[i] = make_float2(px[tile_off + i], py[tile_off + i]);
   }
-  __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.y * kWarps + warp;
-  if (b >= n_chains) return;
-
+  const int n_k = s_cap * n_comp;
+  const int n_pad = round_up(n_k, kE);
+  float4* w = s_par + warp * 2 * n_pad;
   float* w_glam = s_glam + warp * kPix;
   const size_t row = (static_cast<size_t>(t) * n_chains + b) * kPix;
-  if (kRender) {
-    for (int p = lane; p < kPix; p += 32) w_glam[p] = g[row + p];
-  } else {
-    const float gb = g[b];
-    for (int p = lane; p < kPix; p += 32) {
-      const float lam = lam_in[row + p];
-      const float active = lam > kLambdaMin ? 1.0f : 0.0f;
-      w_glam[p] = (gb * mask[tile_off + p])
-                  * (counts[tile_off + p] / clamp_min(lam, kLambdaMin) - 1.0f) * active;
+  if (b < n_chains) {
+    stage_components(amp, mx, my, pa, pb, pc, tile_src + static_cast<size_t>(t) * s_cap, w,
+                     b, plane_w, n_comp, n_k, n_pad, lane);
+    if (kRender) {
+      for (int p = lane; p < kPix; p += 32) w_glam[p] = g[row + p];
+    } else {
+      const float gb = g[b];
+      for (int p = lane; p < kPix; p += 32) {
+        const float lam = lam_in[row + p];
+        const float active = lam > kLambdaMin ? 1.0f : 0.0f;
+        w_glam[p] = (gb * mask[tile_off + p])
+                    * (counts[tile_off + p] / clamp_min(lam, kLambdaMin) - 1.0f) * active;
+      }
     }
   }
-  __syncwarp();
+  __syncthreads();
+  if (b >= n_chains) return;
 
-  const int n_k = s_cap * n_comp;
   const size_t plane_stride = static_cast<size_t>(n_tiles) * n_k * n_chains;
-  const int* src_row = tile_src + static_cast<size_t>(t) * s_cap;
-  for (int k = 0; k < n_k; ++k) {
-    const size_t i = static_cast<size_t>(b) * plane_w + src_row[k / n_comp] * n_comp
-                     + k % n_comp;
-    const float a = amp[i], cx = mx[i], cy = my[i];
-    const float qa = pa[i], qb = pb[i], qc = pc[i];
-    float s_a = 0.0f, s_mx = 0.0f, s_my = 0.0f, s_pa = 0.0f, s_pb = 0.0f, s_pc = 0.0f;
-    for (int p = lane; p < kPix; p += 32) {
-      const float dx = s_px[p] - cx;
-      const float dy = s_py[p] - cy;
-      const float e = expf(-0.5f * qa * dx * dx - qb * dx * dy - 0.5f * qc * dy * dy);
-      const float ge = w_glam[p] * e;
-      const float dq = -0.5f * ge * a;
-      s_a += ge;
-      s_pa += dq * dx * dx;
-      s_pb += 2.0f * dq * dx * dy;
-      s_pc += dq * dy * dy;
-      s_mx += dq * -2.0f * (qa * dx + qb * dy);
-      s_my += dq * -2.0f * (qb * dx + qc * dy);
+  // after the halving sum this lane holds triple `mine`: entry mine / 2 of
+  // the pass, first moments if mine is even, second moments if odd
+  const int mine = lane >> (5 - kHalvings);
+  const bool writer = (lane & ((1 << (5 - kHalvings)) - 1)) == 0;
+  for (int k0 = 0; k0 < n_k; k0 += kE) {
+    float cx[kE], cy[kE], qa[kE], qb[kE], qc[kE];
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      const float4 c = w[2 * (k0 + j)];
+      const float4 q = w[2 * (k0 + j) + 1];
+      cx[j] = c.y;
+      cy[j] = c.z;
+      qa[j] = q.x;
+      qb[j] = q.y;
+      qc[j] = q.z;
     }
-    s_a = warp_sum(s_a);
-    s_mx = warp_sum(s_mx);
-    s_my = warp_sum(s_my);
-    s_pa = warp_sum(s_pa);
-    s_pb = warp_sum(s_pb);
-    s_pc = warp_sum(s_pc);
-    if (lane == 0) {
+    float v[6 * kE];
+#pragma unroll
+    for (int i = 0; i < 6 * kE; ++i) v[i] = 0.0f;
+#pragma unroll 2
+    for (int p = lane; p < kPix; p += 32) {
+      const float2 xy = s_xy[p];
+      const float gl = w_glam[p];
+#pragma unroll
+      for (int j = 0; j < kE; ++j) {
+        const float dx = xy.x - cx[j];
+        const float dy = xy.y - cy[j];
+        const float dxx = dx * dx, dxy = dx * dy, dyy = dy * dy;
+        const float ge = gl * ex2_approx(fmaf(qa[j], dxx, fmaf(qb[j], dxy, qc[j] * dyy)));
+        v[6 * j] += ge;
+        v[6 * j + 1] = fmaf(ge, dx, v[6 * j + 1]);
+        v[6 * j + 2] = fmaf(ge, dy, v[6 * j + 2]);
+        v[6 * j + 3] = fmaf(ge, dxx, v[6 * j + 3]);
+        v[6 * j + 4] = fmaf(ge, dxy, v[6 * j + 4]);
+        v[6 * j + 5] = fmaf(ge, dyy, v[6 * j + 5]);
+      }
+    }
+    warp_sum_halving(v, lane);
+    const int k = k0 + mine / 2;
+    if (writer && k < n_k) {
+      const float4 c = w[2 * k];
+      const float a = c.x;
       const size_t o = (static_cast<size_t>(t) * n_k + k) * n_chains + b;
-      d_part[o] = s_a;
-      d_part[plane_stride + o] = s_mx;
-      d_part[2 * plane_stride + o] = s_my;
-      d_part[3 * plane_stride + o] = s_pa;
-      d_part[4 * plane_stride + o] = s_pb;
-      d_part[5 * plane_stride + o] = s_pc;
+      if (mine & 1) {
+        d_part[3 * plane_stride + o] = -0.5f * a * v[0];
+        d_part[4 * plane_stride + o] = -a * v[1];
+        d_part[5 * plane_stride + o] = -0.5f * a * v[2];
+      } else {
+        const size_t i = static_cast<size_t>(b) * plane_w + __float_as_int(c.w);
+        const float ea = pa[i], eb = pb[i], ec = pc[i];
+        d_part[o] = v[0];
+        d_part[plane_stride + o] = a * fmaf(ea, v[1], eb * v[2]);
+        d_part[2 * plane_stride + o] = a * fmaf(eb, v[1], ec * v[2]);
+      }
     }
   }
 }
 
-// K4, part 2: the deterministic scatter.  Grid (plane columns, chain
-// blocks); thread b of column c sums d_part over the entries listed for c in
-// col_ptr/col_ent, in list order, for each of the six planes, into
-// d_planes[q, b, c].  A column that no tile lists gets 0.
+// K4, part 2: the deterministic scatter.  Grid (plane columns / 32, chains /
+// 32); a block sums d_part over the entries listed for each of its 32
+// columns in col_ptr/col_ent, in list order, for 32 chains and the six
+// planes, reading along the chains (one warp per column) into shared memory,
+// then writes d_planes[q, b, c] along the columns (one warp per chain), so
+// that reads and writes both move whole rows.  A column that no tile lists
+// gets 0.
 __global__ void __launch_bounds__(kScatterThreads)
 tiled_scatter_kernel(const float* __restrict__ d_part, const int* __restrict__ col_ptr,
                      const int* __restrict__ col_ent, float* __restrict__ d_planes,
                      int n_rows, int n_chains, int plane_w) {
-  const int col = blockIdx.x;
-  const int b = blockIdx.y * kScatterThreads + threadIdx.x;
-  if (b >= n_chains) return;
-  const int lo = col_ptr[col], hi = col_ptr[col + 1];
+  __shared__ float sums[6][kScatterTile][kScatterTile + 1];
+  const int c0 = blockIdx.x * kScatterTile;
+  const int b0 = blockIdx.y * kScatterTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const size_t part_stride = static_cast<size_t>(n_rows) * n_chains;
+  for (int i = warp; i < kScatterTile; i += kScatterThreads / 32) {
+    const int col = c0 + i;
+    const int b = b0 + lane;
+    float s[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (col < plane_w && b < n_chains) {
+      const int lo = col_ptr[col], hi = col_ptr[col + 1];
+#pragma unroll 4
+      for (int e = lo; e < hi; ++e) {
+        const float* part = d_part + static_cast<size_t>(col_ent[e]) * n_chains + b;
+#pragma unroll
+        for (int q = 0; q < 6; ++q) s[q] += part[q * part_stride];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 6; ++q) sums[q][i][lane] = s[q];
+  }
+  __syncthreads();
   const size_t out_stride = static_cast<size_t>(n_chains) * plane_w;
-  const size_t o = static_cast<size_t>(b) * plane_w + col;
-  for (int q = 0; q < 6; ++q) {
-    const float* part = d_part + q * part_stride;
-    float s = 0.0f;
-    for (int e = lo; e < hi; ++e) s += part[static_cast<size_t>(col_ent[e]) * n_chains + b];
-    d_planes[q * out_stride + o] = s;
+  for (int i = warp; i < kScatterTile; i += kScatterThreads / 32) {
+    const int b = b0 + i;
+    const int col = c0 + lane;
+    if (b < n_chains && col < plane_w) {
+      const size_t o = static_cast<size_t>(b) * plane_w + col;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) d_planes[q * out_stride + o] = sums[q][lane][i];
+    }
   }
 }
 
 // The pixel arrays the forward stages (six for K2/K3, px and py for K5) and
-// every warp's 6 x K components.
+// every warp's 2 K float4 of components.
 size_t fwd_smem_bytes(int n_k, int n_pixel_arrays) {
-  return (n_pixel_arrays * static_cast<size_t>(kPix) + kWarps * 6 * static_cast<size_t>(n_k))
-         * sizeof(float);
+  return n_pixel_arrays * static_cast<size_t>(kPix) * sizeof(float)
+         + kWarps * 2 * static_cast<size_t>(n_k) * sizeof(float4);
 }
 
-size_t bwd_smem_bytes() {
-  return (2 + kWarps) * static_cast<size_t>(kPix) * sizeof(float);
+// (px, py) pairs, every warp's pixel cotangent row and its components,
+// padded to whole passes of kBwdEntries.
+size_t bwd_smem_bytes(int n_k) {
+  return (2 + kWarps) * static_cast<size_t>(kPix) * sizeof(float)
+         + kWarps * 2 * static_cast<size_t>(round_up(n_k, kBwdEntries)) * sizeof(float4);
 }
 
 template <bool kCentered, int kMode>
@@ -340,7 +482,7 @@ cudaError_t launch_bwd(const float* amp, const float* mx, const float* my, const
                        const int* col_ptr, const int* col_ent, float* d_part, float* d_planes,
                        int n_tiles, int n_chains, int plane_w, int s_cap, int n_comp,
                        cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes();
+  const size_t smem = bwd_smem_bytes(s_cap * n_comp);
   cudaError_t err = launch_prep(tiled_bwd_kernel<kRender>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_tiles, (n_chains + kWarps - 1) / kWarps);
@@ -349,7 +491,8 @@ cudaError_t launch_bwd(const float* amp, const float* mx, const float* my, const
       n_chains, plane_w, s_cap, n_comp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 sgrid(plane_w, (n_chains + kScatterThreads - 1) / kScatterThreads);
+  const dim3 sgrid((plane_w + kScatterTile - 1) / kScatterTile,
+                   (n_chains + kScatterTile - 1) / kScatterTile);
   tiled_scatter_kernel<<<sgrid, kScatterThreads, 0, stream>>>(
       d_part, col_ptr, col_ent, d_planes, n_tiles * s_cap * n_comp, n_chains, plane_w);
   return cudaGetLastError();

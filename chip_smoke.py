@@ -77,19 +77,23 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    0.05; fail if K5 or K6 was never launched.  Then two spawned gloo ranks
    on this one card, mesh (1, 2), must give the one-rank value and gradient
    at the same tolerances, and ``dryrun_multichip(1)`` runs;
-11. time with CUDA events (best of 3 after a warm-up): config 1 at B=65536
-   (K1 and the HMC gradient, kernel and plain); K2, K3 and K4 over config
-   5's field at B=1024 and 4096, and one config-5 ``value_and_grad`` at
-   B=1024, kernel and plain; K5 and K6 over the sharded tables at B=1024
+11. time with CUDA events (best of 3 after a warm-up), in ms per wrapper
+   call: config 1 at B=65536 (K1 and the HMC gradient, kernel and plain);
+   K2, K3 and K4 over config 5's field at B=1024 and 4096 (both buckets'
+   launches timed together, divided by two), and one config-5
+   ``value_and_grad`` at B=1024, kernel and plain; K5 and K6 over the sharded tables at B=1024
    and 4096, kernel and plain, and one sharded ``value_and_grad`` at B=1024
    beside the single-device one; K8-fwd and K8-bwd at B=65536 on config 1's
    stamp in turns with K1-fwd and K1-bwd, plain, and the entry point's
    ``value_and_grad`` with each kernel; K7 at B=1024 on config 5's field
    and on a 25x25 stamp, kernel and plain;
 12. print the kernels' JSON line (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd),
-    each kernel with its bound (the larger of its bytes over the card's
-    memory rate and its float32 operations over the card's float32 rate),
-    the card line, and the result line.
+    each kernel's ms per wrapper call (K2-K4: both buckets timed together,
+    divided by their two launches) with its bound per call (the largest of
+    its bytes over the card's memory rate, its float32 operations over the
+    card's float32 rate, and its exponentials and logarithms over the
+    special-function unit's rate), failing on a kernel faster than its
+    bound, then the card line and the result line.
 
 Config 5's flow runs the bench's step counts (the defaults of
 ``celeste_tpu_torch/bench/config5.py``).  The entry-point runs and the
@@ -136,23 +140,35 @@ GALAXY_NUTS = dict(n_warmup=150, n_steps=150)
 SEP_TOL = (2e-6, 0.5)           # K8 against its plain version and against K1
 PPC_DRAWS = 32
 # the card's peaks (H100 SXM at 700 W, NVIDIA's data sheet: HBM3 rate, float32
-# outside the tensor cores)
+# outside the tensor cores; 67 TFLOP/s is 132 SMs x 128 lanes x 2 x 1.98 GHz)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-# float32 operations the kernels' algebra needs, an exponential counted as
-# one: per (pixel, component) term, e = exp(quadratic form) takes dx, dy,
-# the form (8) and the exp (11), lambda's a * e summed 2, the six cotangent
-# sums of csrc/tiled_field.cu 26; per pixel, the Poisson term (clamp, log,
-# multiply, subtract, mask) 5 and its cotangent g_lam 6
-FLOPS_TERM_E, FLOPS_TERM_SUM, FLOPS_TERM_COT = 11, 2, 26
-FLOPS_PIXEL_LOGLIK, FLOPS_PIXEL_GLAM = 5, 6
+# exponentials and logarithms go through the special-function unit: 16 per
+# clock per SM (CUDA C++ Programming Guide, throughput of native arithmetic
+# instructions, compute capability 9.0: base-2 exponential and logarithm) on
+# 132 SMs at the 1.98 GHz behind the float32 peak
+SPECIAL_PER_S = 132 * 16 * 1.98e9
+# float32 operations the kernels' algebra needs, a multiply-add counted as
+# two as the peak counts it, exponentials and logarithms counted apart.  Per
+# (pixel, component) term: the offsets dx, dy and the base-2 quadratic form
+# (qa dx + qb dy) dx + qc dy dy, 9; lambda's a * e summed, 2; the backward's
+# six pixel moments of ge = g_lam e (ge, its sum, ge dx and ge dy and their
+# sums, three multiply-adds for ge dx^2, ge dx dy, ge dy^2), 12, the least
+# algebra of every backward here (K1-bwd's kernel still sums JAX's).  Per entry
+# and chain, the moment form's epilogue (-a/2, three second-moment products,
+# pa Sx + pb Sy and pb Sx + pc Sy and their products by a), 12.  Per pixel,
+# the Poisson term (clamp, multiply, subtract, mask) 4 and its cotangent
+# g_lam 6.
+FLOPS_TERM_FORM, FLOPS_TERM_SUM, FLOPS_TERM_MOMENTS = 9, 2, 12
+FLOPS_ENTRY_EPILOGUE = 12
+FLOPS_PIXEL_LOGLIK, FLOPS_PIXEL_GLAM = 4, 6
 # the separable kernel (K8): a row or column factor of a component takes the
-# offset, its square, the products by the inverse variance and by -1/2, the
-# exp and (rows) the amplitude, 6; a pixel then adds each component's
-# col * row in one multiply-add, 2 per component; the backward's two
-# contractions are a multiply-add per (pixel, component) each, 4, and each
-# factor's cotangent sums take 6 more
-FLOPS_SEP_FACTOR, FLOPS_SEP_TERM, FLOPS_SEP_CONTRACT, FLOPS_SEP_FACTOR_COT = 6, 2, 4, 6
+# offset, its square, the products by the inverse variance and by -1/2 and
+# (rows) the amplitude, 5, and an exponential; a pixel then adds each
+# component's col * row in one multiply-add, 2 per component; the backward's
+# two contractions are a multiply-add per (pixel, component) each, 4, and
+# each factor's cotangent sums take 6 more
+FLOPS_SEP_FACTOR, FLOPS_SEP_TERM, FLOPS_SEP_CONTRACT, FLOPS_SEP_FACTOR_COT = 5, 2, 4, 6
 
 
 def check(ok, msg):
@@ -1075,9 +1091,10 @@ def config1_timings(device, card):
 
 
 def config5_timings(device, card, config5):
-    """K2, K3 and K4 over config 5's field (both occupancy buckets, one
-    launch each) at B=1024 and 4096, and one config-5 value_and_grad at
-    B=1024, kernel and plain."""
+    """K2, K3 and K4 over config 5's field at B=1024 and 4096, in ms per
+    wrapper call (both occupancy buckets' launches timed together, divided by
+    the number of launches, the unit in which the launch counters count),
+    and one config-5 value_and_grad at B=1024, kernel and plain."""
     from celeste_tpu_torch.inference.hmc import value_and_grad
     from celeste_tpu_torch.kernels import tiled_field as tf
     from celeste_tpu_torch.parallel.crowded import _crowded_logprior
@@ -1110,9 +1127,11 @@ def config5_timings(device, card, config5):
                                                              lam, g, 3)
                                          for bk, lam in zip(buckets, lams_plain)], 2),
         }
+        t = {k: v / len(buckets) for k, v in t.items()}
         out[b] = t
-        print(f"[timing] config 5 tiled kernels, B={b}, 12 sources 48x128 "
-              f"(two buckets, one launch each), card: {card}", flush=True)
+        print(f"[timing] config 5 tiled kernels, B={b}, 12 sources 48x128, ms per wrapper "
+              f"call (the {len(buckets)} buckets' launches timed together / {len(buckets)}), "
+              f"card: {card}", flush=True)
         for k, v in t.items():
             print(f"    {k} = {v:.6f} ms", flush=True)
 
@@ -1242,18 +1261,22 @@ def stamp_render_timings(device, card, config5):
     return t
 
 
-def bound(flops, nbytes):
-    """(least time in ms, what bounds it) for ``flops`` float32 operations
-    and ``nbytes`` moved, at the card's peaks."""
-    t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+def bound(flops, nbytes, special):
+    """(least time in ms, what bounds it) for ``flops`` float32 operations,
+    ``special`` exponentials and logarithms and ``nbytes`` moved, at the
+    card's peaks."""
+    times = {"operations": flops / FP32_FLOPS_PER_S, "special functions": special / SPECIAL_PER_S,
+             "bytes": nbytes / HBM_BYTES_PER_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
 
 
 def kernel_bounds(config5, sharded5):
-    """Each kernel's bound at the shapes it is timed at: config 1's 25x25
-    stamp at B=65536 (625 pixels, padded to 640), config 5's buckets at
-    B=1024 (the single-device tables for K2-K4, the one-rank sharded tables
-    for K5 and K6).  Terms count the table entries that are not the
+    """Each kernel's bound per wrapper call at the shapes it is timed at:
+    config 1's 25x25 stamp at B=65536 (625 pixels, padded to 640), config
+    5's buckets at B=1024 (the single-device tables for K2-K4, whose bound
+    over both buckets is divided by their two launches; the one-rank sharded
+    table for K5 and K6).  Terms count the table entries that are not the
     sentinel: the work this run's data needs."""
     from celeste_tpu_torch.model.galaxy import N_GAL
 
@@ -1261,12 +1284,13 @@ def kernel_bounds(config5, sharded5):
     b, c = BENCH_CHAINS, 3
     planes = 6 * b * c * f4
     pix, pixel_arrays = 625, 5 * 640 * f4
+    terms = b * pix * c
     out = {
-        "K1-fwd": bound(b * pix * (c * (FLOPS_TERM_E + FLOPS_TERM_SUM) + FLOPS_PIXEL_LOGLIK),
-                        planes + pixel_arrays + b * f4),
-        "K1-bwd": bound(b * pix * (c * (FLOPS_TERM_E + FLOPS_TERM_SUM + FLOPS_TERM_COT)
-                                   + FLOPS_PIXEL_GLAM),
-                        2 * planes + pixel_arrays + b * f4),
+        "K1-fwd": bound(terms * (FLOPS_TERM_FORM + FLOPS_TERM_SUM) + b * pix * FLOPS_PIXEL_LOGLIK,
+                        planes + pixel_arrays + b * f4, terms + b * pix),
+        "K1-bwd": bound(terms * (FLOPS_TERM_FORM + FLOPS_TERM_SUM + FLOPS_TERM_MOMENTS)
+                        + b * pix * FLOPS_PIXEL_GLAM + b * c * FLOPS_ENTRY_EPILOGUE,
+                        2 * planes + pixel_arrays + b * f4, terms),
     }
     b = TIMING_CHAINS[0]
     sentinel = config5[3]["scene"].n_sources * N_GAL
@@ -1274,32 +1298,44 @@ def kernel_bounds(config5, sharded5):
     planes = 6 * b * width * f4
 
     def sizes(buckets):
-        """(terms, tiles, table bytes, column-list bytes) of a table's buckets."""
-        entries = sum(int((bk.tile_src != sentinel).sum()) for bk in buckets)
+        """(terms, entries x chains, tiles, table bytes, column-list bytes) of
+        a table's buckets."""
+        entries = sum(int((bk.tile_src != sentinel).sum()) for bk in buckets) * 3 * b
         tiles = sum(bk.tile_src.shape[0] for bk in buckets)
         slots = sum(bk.tile_src.numel() for bk in buckets)
-        return (entries * 3 * 1024 * b, tiles, slots * f4,
+        return (entries * 1024, entries, tiles, slots * f4,
                 (len(buckets) * (width + 1) + slots * 3) * f4)
 
-    terms, tiles, table, cols = sizes(config5[3]["tiled_data"].bucket_tables)
+    def per_call(n_calls, ms_by):
+        return ms_by[0] / n_calls, ms_by[1]
+
+    buckets = config5[3]["tiled_data"].bucket_tables
+    terms, entries, tiles, table, cols = sizes(buckets)
+    lam, pixels = tiles * b * 1024 * f4, tiles * b * 1024
+    fwd = terms * (FLOPS_TERM_FORM + FLOPS_TERM_SUM) + pixels * FLOPS_PIXEL_LOGLIK
+    out["K2"] = per_call(len(buckets), bound(
+        fwd, planes + table + 5 * tiles * 1024 * f4 + tiles * b * f4, terms + pixels))
+    out["K3"] = per_call(len(buckets), bound(
+        fwd, planes + table + 5 * tiles * 1024 * f4 + tiles * b * f4 + lam, terms + pixels))
+    out["K4"] = per_call(len(buckets), bound(
+        terms * (FLOPS_TERM_FORM + FLOPS_TERM_MOMENTS) + pixels * FLOPS_PIXEL_GLAM
+        + entries * FLOPS_ENTRY_EPILOGUE,
+        2 * planes + table + 4 * tiles * 1024 * f4 + lam + b * f4 + cols, terms))
+    buckets = sharded5["loglik"].buckets
+    terms, entries, tiles, table, cols = sizes(buckets)
     lam = tiles * b * 1024 * f4
-    fwd = terms * (FLOPS_TERM_E + FLOPS_TERM_SUM) + tiles * b * 1024 * FLOPS_PIXEL_LOGLIK
-    out["K2"] = bound(fwd, planes + table + 5 * tiles * 1024 * f4 + tiles * b * f4)
-    out["K3"] = bound(fwd, planes + table + 5 * tiles * 1024 * f4 + tiles * b * f4 + lam)
-    out["K4"] = bound(terms * (FLOPS_TERM_E + FLOPS_TERM_COT) + tiles * b * 1024 * FLOPS_PIXEL_GLAM,
-                      2 * planes + table + 4 * tiles * 1024 * f4 + lam + b * f4 + cols)
-    terms, tiles, table, cols = sizes(sharded5["loglik"].buckets)
-    lam = tiles * b * 1024 * f4
-    out["K5"] = bound(terms * (FLOPS_TERM_E + FLOPS_TERM_SUM),
-                      planes + table + 2 * tiles * 1024 * f4 + lam)
-    out["K6"] = bound(terms * (FLOPS_TERM_E + FLOPS_TERM_COT),
-                      2 * planes + table + 2 * tiles * 1024 * f4 + lam + cols)
+    out["K5"] = per_call(len(buckets), bound(
+        terms * (FLOPS_TERM_FORM + FLOPS_TERM_SUM), planes + table + 2 * tiles * 1024 * f4 + lam,
+        terms))
+    out["K6"] = per_call(len(buckets), bound(
+        terms * (FLOPS_TERM_FORM + FLOPS_TERM_MOMENTS) + entries * FLOPS_ENTRY_EPILOGUE,
+        2 * planes + table + 2 * tiles * 1024 * f4 + lam + cols, terms))
     # K7 on config 5's field with the dense planes (12 sources: 10 stars of
-    # 3 components, 2 galaxies of 48) at B=1024: 13 operations per (pixel,
-    # component) term and the [B, P] store
+    # 3 components, 2 galaxies of 48) at B=1024: a term's form and sum, and
+    # the [B, P] store
     c, pix = 10 * 3 + 2 * 48, 48 * 128
-    out["K7"] = bound(b * pix * c * (FLOPS_TERM_E + FLOPS_TERM_SUM),
-                      6 * b * c * f4 + 3 * pix * f4 + b * pix * f4)
+    out["K7"] = bound(b * pix * c * (FLOPS_TERM_FORM + FLOPS_TERM_SUM),
+                      6 * b * c * f4 + 3 * pix * f4 + b * pix * f4, b * pix * c)
     # K8 on config 1's 25x25 stamp at B=65536: the C (H + W) factors, then per
     # pixel C multiply-adds and the Poisson term (forward) or its cotangent
     # and the two contractions (backward), then the factors' cotangent sums
@@ -1307,11 +1343,11 @@ def kernel_bounds(config5, sharded5):
     factors = c * (h + w) * FLOPS_SEP_FACTOR
     pixel_arrays = (h + w + 3 * h * w) * f4
     out["K8-fwd"] = bound(b * (factors + h * w * (c * FLOPS_SEP_TERM + FLOPS_PIXEL_LOGLIK)),
-                          4 * b * c * f4 + pixel_arrays + b * f4)
+                          4 * b * c * f4 + pixel_arrays + b * f4, b * (c * (h + w) + h * w))
     out["K8-bwd"] = bound(b * (factors + h * w * (c * (FLOPS_SEP_TERM + FLOPS_SEP_CONTRACT)
                                                   + FLOPS_PIXEL_GLAM)
                                + c * (h + w) * FLOPS_SEP_FACTOR_COT),
-                          8 * b * c * f4 + pixel_arrays + b * f4)
+                          8 * b * c * f4 + pixel_arrays + b * f4, b * c * (h + w))
     return out
 
 
@@ -1419,6 +1455,8 @@ def main() -> int:
     kernels = []
     for name, src, replaces, key, launches, err, ms, plain_ms in rows:
         bound_ms, bound_by = bounds[key]
+        check(bound_ms <= ms, f"{key}: {ms:.6f} ms is under its bound {bound_ms:.6f} ms: the "
+                              "bound counts work the kernel does not do")
         kernels.append({"name": name, "route": "cuda", "source": f"celeste_tpu_torch/csrc/{src}",
                         "replaces": replaces, "launches": launches, "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,

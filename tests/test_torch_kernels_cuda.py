@@ -154,6 +154,7 @@ def test_launch_error_raises_and_does_not_leak(cuda):
 TILED_TOL = dict(rtol=2e-6, atol=1.0)
 TILED_GRAD_TOL = dict(rtol=5e-4, atol=0.1)
 LAM_TOL = dict(rtol=1e-5, atol=1e-3)
+RENDER_BWD_RANDOM_TOL = dict(rtol=2e-4, atol=5e-3)
 
 
 @pytest.fixture(scope="module")
@@ -248,6 +249,113 @@ def test_tiled_sentinel_adds_nothing_and_has_finite_gradients(cuda):
     assert all(bool((d[:, :12] == 0).all()) for d in grads)
 
 
+def _on(device, arrays):
+    return [torch.as_tensor(a, device=device) for a in arrays]
+
+
+@pytest.mark.parametrize("b", [1, 9, 1000])
+@pytest.mark.parametrize("s_cap,c", [(1, 1), (1, 3), (5, 1), (5, 3)])
+def test_tiled_kernels_any_entry_count_and_batch(cuda, b, s_cap, c):
+    """Entry counts (1, 3, 5, 15) that fill no whole pass of the backward's
+    entries, and batches that fill no whole block of 8 chains: K3, K4, K5
+    and K6 against their plain versions, and K3's lambda and K4's and K6's
+    cotangents twice, bitwise equal."""
+    planes, tile_src, pixels, g = random_tile_problem(seed=b + 10 * s_cap + c, b=b, s=s_cap,
+                                                      c=c, t=3)
+    planes, pixels = _on(cuda, planes), _on(cuda, pixels)
+    ts, g = torch.as_tensor(tile_src, device=cuda), torch.as_tensor(g, device=cuda)
+    cols = _on(cuda, tf.tile_columns(tile_src, c, (s_cap + 1) * c))
+    want_ll, want_lam = tf._tiled_lam_torch(planes, ts, pixels, c)
+    ll, lam = tf.tiled_fwd_lam_cuda(*planes, ts, *pixels, n_comp=c)
+    torch.testing.assert_close(ll, want_ll, rtol=2e-5, atol=2e-2)
+    torch.testing.assert_close(lam, want_lam, **LAM_TOL)
+    assert torch.equal(lam, tf.tiled_fwd_lam_cuda(*planes, ts, *pixels, n_comp=c)[1])
+    got = tf.tiled_bwd_cuda(*planes, ts, *pixels, lam, g, *cols, n_comp=c)
+    again = tf.tiled_bwd_cuda(*planes, ts, *pixels, lam, g, *cols, n_comp=c)
+    for a, w, a2 in zip(got, tf._tiled_bwd_torch(planes, ts, pixels, lam, g, c), again):
+        torch.testing.assert_close(a, w, rtol=2e-4, atol=5e-3)
+        assert torch.equal(a, a2)
+    px, py = pixels[:2]
+    torch.testing.assert_close(tf.tiled_render_cuda(*planes, ts, px, py, n_comp=c),
+                               tf._tiled_render_torch(planes, ts, px, py, c), **LAM_TOL)
+    gr = torch.as_tensor(np.random.default_rng(b).normal(size=(3, b, 1024)).astype(np.float32),
+                         device=cuda)
+    got = tf.tiled_render_bwd_cuda(*planes, ts, px, py, gr, *cols, n_comp=c)
+    again = tf.tiled_render_bwd_cuda(*planes, ts, px, py, gr, *cols, n_comp=c)
+    for a, w, a2 in zip(got, tf._tiled_render_bwd_torch(planes, ts, px, py, gr, c), again):
+        torch.testing.assert_close(a, w, **RENDER_BWD_RANDOM_TOL)
+        assert torch.equal(a, a2)
+
+
+def _padded_field(device, b, seed=41):
+    """Six stars of three components each on a 41x41 field, cut into six
+    8x128 tiles whose pad (x >= 41 or y >= 41) has mask 0 and sky 1, in two
+    occupancy buckets; ``b`` chains of planes scattered around the stars."""
+    from types import SimpleNamespace
+
+    from celeste_tpu_torch.parallel import tiles
+
+    rng = np.random.default_rng(seed)
+    n_src, c = 6, 3
+    pos = rng.uniform(3.0, 38.0, (n_src, 2))
+    tm = tiles.build_tile_map(pos, 8.0, (41, 41))
+    field = SimpleNamespace(
+        counts=torch.as_tensor(rng.poisson(20.0, (41, 41)).astype(np.float32), device=device),
+        sky=torch.full((41, 41), 15.0, device=device), mask=torch.ones(41, 41, device=device))
+    data = tf.TiledStampData(tm, field, n_buckets=2)
+    w = (n_src + 1) * c
+    centre = np.repeat(pos, c, axis=0)                                    # [S*C, 2]
+    mx = centre[None, :, 0] + 0.3 * rng.normal(size=(b, n_src * c))
+    my = centre[None, :, 1] + 0.3 * rng.normal(size=(b, n_src * c))
+    planes = [np.abs(rng.normal(5.0, 1.0, (b, n_src * c))), mx, my,
+              np.abs(rng.normal(0.5, 0.1, (b, n_src * c))), 0.05 * rng.normal(size=(b, n_src * c)),
+              np.abs(rng.normal(0.5, 0.1, (b, n_src * c)))]
+    planes = [torch.as_tensor(np.concatenate([p, np.zeros((b, c))], 1).astype(np.float32),
+                              device=device) for p in planes]
+    assert planes[0].shape == (b, w)
+    return planes, data
+
+
+@pytest.mark.parametrize("b", [1, 9, 1000])
+def test_tiled_kernels_on_a_padded_field(cuda, b):
+    """A 41x41 field: K2, K3 and K4 against their plain versions per
+    bucket, the pad's pixels (mask 0, sky 1) adding nothing to the
+    log-likelihood, and K4 twice, bitwise equal."""
+    planes, data = _padded_field(cuda, b)
+    g = torch.as_tensor(np.random.default_rng(b).normal(size=b).astype(np.float32), device=cuda)
+    assert len(data.bucket_tables) == 2
+    for bk in data.bucket_tables:
+        assert bool((bk.pixels[4][bk.pixels[0] >= 41] == 0).all())
+        assert bool((bk.pixels[3][bk.pixels[1] >= 41] == 1).all())
+        want_ll, want_lam = tf._tiled_lam_torch(planes, bk.tile_src, bk.pixels, 3, True)
+        ll, lam = tf.tiled_fwd_lam_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=3,
+                                        centered=True)
+        torch.testing.assert_close(ll, want_ll, **TILED_TOL)
+        torch.testing.assert_close(lam, want_lam, **LAM_TOL)
+        torch.testing.assert_close(tf.tiled_fwd_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=3,
+                                                     centered=True), want_ll, **TILED_TOL)
+        cols = bk.columns(3, planes[0].shape[1])
+        got = tf.tiled_bwd_cuda(*planes, bk.tile_src, *bk.pixels, lam, g, *cols, n_comp=3)
+        again = tf.tiled_bwd_cuda(*planes, bk.tile_src, *bk.pixels, lam, g, *cols, n_comp=3)
+        want = tf._tiled_bwd_torch(planes, bk.tile_src, bk.pixels, lam, g, 3)
+        for a, w, a2 in zip(got, want, again):
+            torch.testing.assert_close(a, w, **TILED_GRAD_TOL)
+            assert torch.equal(a, a2)
+
+
+def test_tiled_lambda_of_ex2_is_within_lam_tol_of_float64(cuda, config5):
+    """K3's lambda, whose exponentials are ex2.approx, against the plain
+    version in float32 and in float64 on config 5's buckets, at LAM_TOL."""
+    planes = _c5_planes(config5, 1000, seed=4)
+    for bk in config5[3]["tiled_data"].bucket_tables:
+        _, lam = tf.tiled_fwd_lam_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=3)
+        _, want = tf._tiled_lam_torch(planes, bk.tile_src, bk.pixels, 3)
+        _, want64 = tf._tiled_lam_torch([p.double() for p in planes], bk.tile_src,
+                                        [p.double() for p in bk.pixels], 3)
+        torch.testing.assert_close(lam, want, **LAM_TOL)
+        torch.testing.assert_close(lam.double(), want64, **LAM_TOL)
+
+
 @pytest.mark.parametrize("b", [1, 9, 65536])
 def test_tiled_forward_any_batch(cuda, config5, b):
     planes = _c5_planes(config5, b, seed=b)
@@ -315,9 +423,6 @@ def test_tiled_wrappers_reject_bad_inputs(cuda, config5):
 # ---------------------------------------------------------------------------
 # the render kernels K5, K6 (the source-sharded field)
 # ---------------------------------------------------------------------------
-
-RENDER_BWD_RANDOM_TOL = dict(rtol=2e-4, atol=5e-3)
-
 
 @pytest.fixture(scope="module")
 def sharded5(config5):

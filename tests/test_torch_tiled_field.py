@@ -220,6 +220,72 @@ def test_plain_k3_k4_match_jax_pallas_interpret():
     assert all(bool(torch.isfinite(d).all()) for d in d_t)
 
 
+LOG2E = 1.4426950408889634
+
+
+def _moment_cotangents(planes, tile_src, px, py, n_comp, g_lam):
+    """The backward of ``csrc/tiled_field.cu`` (K4, K6) in moment form, in
+    torch: per (tile, entry) the six pixel moments of ge = g_lam e, with e
+    from the base-2 form the kernels stage, turned into the six cotangents
+    by the kernels' epilogue, then summed into the plane columns in the
+    order of ``tile_columns``."""
+    t_n, s_cap = tile_src.shape
+    plane_w = planes[0].shape[1]
+    cols = (tile_src.long()[:, :, None] * n_comp + torch.arange(n_comp)).reshape(t_n, -1)
+    parts = []
+    for t in range(t_n):
+        amp, mx, my, pa, pb, pc = (p[:, cols[t], None] for p in planes)   # [B, K, 1]
+        dx, dy = px[t] - mx, py[t] - my                                    # [B, K, PIX]
+        dxx, dxy, dyy = dx * dx, dx * dy, dy * dy
+        e = torch.exp2((-0.5 * LOG2E * pa) * dxx + (-LOG2E * pb) * dxy + (-0.5 * LOG2E * pc) * dyy)
+        ge = g_lam[t][:, None, :] * e
+        s0, sx, sy, sxx, sxy, syy = (torch.sum(ge * m, -1) for m in (1.0, dx, dy, dxx, dxy, dyy))
+        a, pa, pb, pc = amp[..., 0], pa[..., 0], pb[..., 0], pc[..., 0]
+        parts.append(torch.stack([s0, a * (pa * sx + pb * sy), a * (pb * sx + pc * sy),
+                                  -0.5 * a * sxx, -a * sxy, -0.5 * a * syy]))   # [6, B, K]
+    d_part = torch.cat(parts, dim=2)                                       # [6, B, T*K]
+    col_ptr, col_ent = ttf.tile_columns(tile_src.numpy(), n_comp, plane_w)
+    out = torch.zeros(6, planes[0].shape[0], plane_w, dtype=d_part.dtype)
+    for c in range(plane_w):
+        for e in col_ent[col_ptr[c]:col_ptr[c + 1]]:
+            out[:, :, c] += d_part[:, :, e]
+    return tuple(out)
+
+
+@pytest.mark.parametrize("seed", [3, 5, 8])
+@pytest.mark.parametrize("c", [1, 3])
+def test_moment_form_backward_matches_plain_k4(seed, c):
+    """K4's algebra (moments, epilogue, column scatter) against the plain
+    K4 at the card's random-plane gate, rtol 2e-4, atol 5e-3."""
+    planes, tile_src, pixels, g = random_tile_problem(seed=seed, b=7, s=5, c=c, t=3)
+    tp = tuple(torch.as_tensor(x) for x in planes)
+    px, py, counts, _, mask = tpix = tuple(torch.as_tensor(x) for x in pixels)
+    ts, gt = torch.as_tensor(tile_src), torch.as_tensor(g)
+    _, lam = ttf._tiled_lam_torch(tp, ts, tpix, c)
+    active = (lam > ttf.LAMBDA_MIN).to(lam.dtype)
+    g_lam = ((gt[None, :, None] * mask[:, None, :])
+             * (counts[:, None, :] / torch.clamp(lam, min=ttf.LAMBDA_MIN) - 1.0) * active)
+    got = _moment_cotangents(tp, ts, px, py, c, g_lam)
+    for name, a, w in zip(NAMES, got, ttf._tiled_bwd_torch(tp, ts, tpix, lam, gt, c)):
+        torch.testing.assert_close(a, w, rtol=2e-4, atol=5e-3, msg=name)
+
+
+@pytest.mark.parametrize("seed", [3, 5, 8])
+@pytest.mark.parametrize("c", [1, 3])
+def test_moment_form_backward_matches_plain_k6(seed, c):
+    """K6's algebra, a given cotangent of the sky-free lambda, against the
+    plain K6 at the same gate."""
+    planes, tile_src, pixels, _ = random_tile_problem(seed=seed, b=5, s=4, c=c, t=2)
+    tp = tuple(torch.as_tensor(x) for x in planes)
+    px, py = (torch.as_tensor(x) for x in pixels[:2])
+    ts = torch.as_tensor(tile_src)
+    g = torch.as_tensor(np.random.default_rng(seed + 1).normal(size=(2, 5, 1024)),
+                        dtype=torch.float32)
+    got = _moment_cotangents(tp, ts, px, py, c, g)
+    for name, a, w in zip(NAMES, got, ttf._tiled_render_bwd_torch(tp, ts, px, py, g, c)):
+        torch.testing.assert_close(a, w, rtol=2e-4, atol=5e-3, msg=name)
+
+
 def test_chunked_and_unchunked_plain_versions_agree(monkeypatch):
     planes, tile_src, pixels, g = random_tile_problem(seed=7, b=7)
     tp = tuple(torch.as_tensor(x) for x in planes)
