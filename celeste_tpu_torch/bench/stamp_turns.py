@@ -1,0 +1,296 @@
+"""The stamp kernels K1 (``csrc/mog_field.cu``) and K8
+(``csrc/mog_field_sep.cu``) against an earlier version of their sources,
+built and timed in turns in one process on one card.
+
+    python -m celeste_tpu_torch.bench.stamp_turns --parent DIR [--out FILE]
+
+``DIR`` holds the earlier ``mog_field.cu`` and ``mog_common.cuh`` (for
+example ``git show <rev>:celeste_tpu_torch/csrc/mog_field.cu``), whose K1
+entries take no launch geometry: ``(..., n_chains, n_comp, n_pix[,
+centered], stream)``; and, to compare K8 too, the earlier
+``mog_field_sep.cu``.  The script
+
+1. builds both K1 sources with the package's nvcc flags plus ``-Xptxas -v``
+   and prints each kernel's registers and spills;
+2. counts the SASS of every K1 kernel of both (``cuobjdump -sass``): the
+   instructions of each innermost loop (a backward branch and its body) by
+   opcode;
+3. times K1-fwd and K1-bwd of both at the shapes where the samplers call
+   K1, and K8-fwd and K8-bwd at config 1's stamp, in turns (parent, new,
+   new, parent), each turn the best of 3 replays of a CUDA graph of 20
+   calls (``bench/timing.py``), so that a few-microsecond kernel is timed
+   on the card, not at the host's launch rate; the new kernels' outputs are
+   held against the parent's on the way.
+
+``--out`` takes the SASS listings and a JSON of the numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import shutil
+import subprocess
+from collections import Counter
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from celeste_tpu_torch.bench.timing import graph_ms
+from celeste_tpu_torch.kernels import _build
+from celeste_tpu_torch.kernels import mog_field as mf
+
+# (name, kind, stamp side, chains): config 1 (star_single, 64 chains),
+# config 2 (star_ugriz, 32 chains; each band's call is this shape), config 3
+# (galaxy, 32 chains, 31x31), and the star at 4096 and 65536 chains (the
+# evals/s shape)
+SHAPES = (("config 1", "star", 25, 64), ("config 2", "star", 25, 32),
+          ("config 3", "galaxy", 31, 32), ("B=4096", "star", 25, 4096),
+          ("B=65536", "star", 25, 65536))
+
+
+# K8's shapes: config 1's 25x25 stamp at the evals/s chain count and at 4096
+K8_CHAINS = (4096, 65536)
+
+
+def build(src: Path, out: Path) -> str:
+    """nvcc the source ``src`` into ``out``; returns ptxas's report."""
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed building {src}:\n{proc.stdout}{proc.stderr}")
+    return proc.stderr
+
+
+def registers(report: str) -> dict:
+    """{kernel: {registers, spill_bytes}} from ptxas's report."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d+((?:loglik|render|sep)\w*?_kernel)"
+                      r"(?:IL[ib](\d)E)?", line)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if name and m:
+            out.setdefault(name, {})["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def sass_loops(lib: Path, listing: Path) -> dict:
+    """{kernel: [innermost loops as {opcode: count}]} of the K1 kernels,
+    from ``cuobjdump -sass``; the listing is written to ``listing``."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    listing.write_text(text)
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if "loglik" not in name:
+            continue
+        instrs = []
+        for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
+                             block):
+            instrs.append((int(m.group(1), 16), m.group(2), m.group(3)))
+        loops = []
+        for addr, op, args in instrs:
+            t = re.search(r"0x([0-9a-f]+)", args)
+            if op.startswith("BRA") and t and int(t.group(1), 16) < addr:
+                lo = int(t.group(1), 16)
+                body = [o for a, o, _ in instrs if lo <= a <= addr]
+                loops.append((lo, addr, body))
+        # innermost: loops that contain no other loop
+        inner = [lp for lp in loops
+                 if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+        out[name] = [dict(Counter(body), total=len(body)) for _, _, body in inner]
+    return out
+
+
+def declare_parent(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mog_field_loglik_fwd.argtypes = [p] * 12 + [i] * 4 + [p]
+    lib.mog_field_loglik_bwd.argtypes = [p] * 18 + [i] * 3 + [p]
+    lib.mog_field_loglik_fwd.restype = lib.mog_field_loglik_bwd.restype = i
+
+
+def shape_inputs(kind, side, b, device):
+    """One-band K1 planes of ``b`` chains scattered around the truth, the
+    stamp's pixel arrays, a cotangent g, the chains' vectors and the
+    stamp."""
+    from celeste_tpu_torch.data.synthetic import galaxy_source, make_synthetic_stamp, star_source
+
+    if kind == "star":
+        src = star_source(u=(30.00005, 10.00008), flux_r=30.0)
+        extra = []
+    else:
+        src = galaxy_source(u=(30.0, 10.0), flux_r=60.0)
+        t, ab = src["theta_dev"], src["ab"]
+        extra = [[np.log(t / (1 - t)), np.log(src["sigma"]), np.log(ab / (1 - ab)), src["phi"]]]
+    scene = make_synthetic_stamp([src], shape=(side, side), bands=(2,), seed=0, device=device)
+    x0 = np.concatenate([scene.wcs.equa2duas(src["u"]), [np.log(src["flux"][2])], *extra])
+    rng = np.random.default_rng(b)
+    vecs = torch.as_tensor((x0[None] + 0.01 * rng.normal(size=(b, x0.size))).astype(np.float32),
+                           device=device)
+    stamp = scene.stamps[0]
+    planes = [t.contiguous() for t in mf._field_planes(vecs, stamp, 0, kind, 1)]
+    g = torch.as_tensor(rng.normal(size=b).astype(np.float32), device=device)
+    return planes, mf.stamp_pixel_data(stamp), g, vecs, stamp
+
+
+def calls(lib, planes, pixels, g, geometry):
+    """(forward, backward) closures over preallocated outputs; ``geometry``
+    is None for the parent's interface."""
+    b, c = planes[0].shape
+    p = pixels[0].shape[1]
+    out = torch.empty(b, device=g.device)
+    grads = [torch.empty(b, c, device=g.device) for _ in range(6)]
+    ptrs = [t.data_ptr() for t in (*planes, *pixels)]
+    extra = list(geometry) if geometry else []
+
+    def fwd():
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mog_field_loglik_fwd(*ptrs, out.data_ptr(), b, c, p, 0, *extra, stream)
+        assert err == 0, err
+        return out
+
+    def bwd():
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mog_field_loglik_bwd(*ptrs, g.data_ptr(), *(t.data_ptr() for t in grads),
+                                       b, c, p, *extra, stream)
+        assert err == 0, err
+        return grads
+
+    return fwd, bwd
+
+
+def sep_calls(lib, planes, pixels, g):
+    """K8's (forward, backward) closures over preallocated outputs."""
+    b, c = planes[0].shape
+    h, w = pixels[2].shape
+    out = torch.empty(b, device=g.device)
+    grads = [torch.empty(b, c, device=g.device) for _ in range(4)]
+    ptrs = [t.data_ptr() for t in (*planes, *pixels)]
+
+    def fwd():
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mog_field_sep_fwd(*ptrs, out.data_ptr(), b, c, h, w, 0, stream)
+        assert err == 0, err
+        return out
+
+    def bwd():
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mog_field_sep_bwd(*ptrs, g.data_ptr(), *(t.data_ptr() for t in grads),
+                                    b, c, h, w, stream)
+        assert err == 0, err
+        return grads
+
+    return fwd, bwd
+
+
+def in_turns(fns):
+    """Outputs of new against parent, then each kernel timed in turns
+    (parent, new, new, parent): ({fwd, bwd: difference}, {(tag, kernel):
+    [ms per turn]})."""
+    want_f, want_b = fns["parent"][0]().clone(), [t.clone() for t in fns["parent"][1]()]
+    got_f, got_b = fns["new"][0]().clone(), fns["new"][1]()
+    torch.cuda.synchronize()
+    diff = {"fwd": float((got_f - want_f).abs().max()),
+            "bwd": max(float((a - w).abs().max() / (w.abs().max() + 1e-30))
+                       for a, w in zip(got_b, want_b))}
+    times = {(tag, k): [] for tag in fns for k in ("fwd", "bwd")}
+    for tag in ("parent", "new", "new", "parent"):
+        for k, fn in zip(("fwd", "bwd"), fns[tag]):
+            times[(tag, k)].append(graph_ms(fn))
+    return diff, times
+
+
+def report_row(report, name, what, row, diff, times):
+    for (tag, k), ts in times.items():
+        row[f"{k}_{tag}_ms"] = min(ts)
+        row[f"{k}_{tag}_turns_ms"] = ts
+    row["new vs parent"] = diff
+    report["shapes"][name] = row
+    print(f"[turns] {name}: {what}: "
+          f"fwd parent {row['fwd_parent_ms']:.6f} -> new {row['fwd_new_ms']:.6f} ms "
+          f"(turns {times[('parent', 'fwd')]} / {times[('new', 'fwd')]}); "
+          f"bwd parent {row['bwd_parent_ms']:.6f} -> new {row['bwd_new_ms']:.6f} ms "
+          f"(turns {times[('parent', 'bwd')]} / {times[('new', 'bwd')]}); "
+          f"new vs parent: fwd max abs {diff['fwd']:.4g}, bwd max rel {diff['bwd']:.4g}",
+          flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--parent-takes-geometry", action="store_true",
+                    help="the parent's K1 entries take (CB, T) as this tree's do (a variant of "
+                         "this tree, not an earlier version)")
+    ap.add_argument("--out", type=Path,
+                    default=_build.BUILD_DIR / "stamp_turns" / "stamp_turns.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("stamp_turns: CUDA is not available")
+    device = torch.device("cuda:0")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    work = _build.BUILD_DIR / "stamp_turns"
+    work.mkdir(parents=True, exist_ok=True)
+    libs, report = {}, {"card": card, "registers": {}, "sass_inner_loops": {}, "shapes": {}}
+    for tag, src in (("parent", args.parent), ("new", _build.CSRC_DIR)):
+        so = work / f"{tag}.so"
+        report["registers"][tag] = registers(build(src / "mog_field.cu", so))
+        report["sass_inner_loops"][tag] = sass_loops(so, args.out.with_name(f"sass_{tag}.txt"))
+        libs[tag] = ctypes.CDLL(str(so))
+    (mf._declare if args.parent_takes_geometry else declare_parent)(libs["parent"])
+    mf._declare(libs["new"])
+    print(f"[stamp_turns] card: {card}", flush=True)
+    print(json.dumps({"registers": report["registers"]}), flush=True)
+    for tag, kernels in report["sass_inner_loops"].items():
+        for name, loops in kernels.items():
+            print(f"[sass] {tag} {name}: inner loops {loops}", flush=True)
+
+    for name, kind, side, b in SHAPES:
+        planes, pixels, g, _, _ = shape_inputs(kind, side, b, device)
+        geometry = mf.k1_geometry(b, pixels[0].shape[1])
+        fns = {"parent": calls(libs["parent"], planes, pixels, g,
+                               geometry if args.parent_takes_geometry else None),
+               "new": calls(libs["new"], planes, pixels, g, geometry)}
+        row = {"kernel": "K1", "kind": kind, "stamp": f"{side}x{side}", "chains": b,
+               "n_comp": planes[0].shape[1], "n_pix": pixels[0].shape[1],
+               "geometry (CB, T)": geometry}
+        report_row(report, name, f"K1 {kind} {side}x{side} B={b} (CB, T)={geometry}", row,
+                   *in_turns(fns))
+
+    if (args.parent / "mog_field_sep.cu").exists():
+        from celeste_tpu_torch.kernels import mog_field_sep as ms
+
+        sep = {}
+        for tag, src in (("parent", args.parent), ("new", _build.CSRC_DIR)):
+            so = work / f"sep_{tag}.so"
+            report["registers"][f"K8 {tag}"] = registers(build(src / "mog_field_sep.cu", so))
+            sep[tag] = ctypes.CDLL(str(so))
+            ms._declare(sep[tag])
+        print(json.dumps({"K8 registers": {t: report["registers"][f"K8 {t}"] for t in sep}}),
+              flush=True)
+        for b in K8_CHAINS:
+            _, _, g, vecs, stamp = shape_inputs("star", 25, b, device)
+            sp = [t.contiguous() for t in ms.star_planes_isotropic(vecs, stamp, 0, 1)]
+            pix = ms.stamp_pixel_data_2d(stamp)
+            fns = {tag: sep_calls(lib, sp, pix, g) for tag, lib in sep.items()}
+            report_row(report, f"K8 B={b}", f"K8 star 25x25 B={b}",
+                       {"kernel": "K8", "chains": b, "stamp": "25x25"}, *in_turns(fns))
+    args.out.write_text(json.dumps(report, indent=1))
+    print(f"[stamp_turns] card: {card}; wrote {args.out}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,6 +1,6 @@
 // Device helpers shared by the MoG-field kernels (mog_field.cu) and the
 // tiled field kernels (tiled_field.cu): the lambda floor, the NaN-keeping
-// clamp, the base-2 exponential, the warp sum, and the opt-in to more than
+// clamp, the base-2 exponential, the warp sums, and the opt-in to more than
 // 48 KB of dynamic shared memory.
 #pragma once
 
@@ -31,6 +31,42 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// Sum N = 3 * 2^m values over the warp by halving.  At each of the first m
+// butterfly levels (offsets 16, 8, ...) a lane sends the half of its live
+// values that its partner keeps, keeps the other half (the upper half where
+// the lane's offset bit is set) and adds what it receives; the last 5 - m
+// levels sum the 3 values left.  Lane l ends with the warp's totals of
+// v[3i .. 3i + 2], i = l >> (5 - m), in v[0 .. 2].  The order of the adds is
+// fixed, so the sums repeat bitwise.
+template <int N>
+__device__ __forceinline__ void warp_sum_halving(float (&v)[N], int lane) {
+  int n = N;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    if (n > 3) {
+      n /= 2;
+      const bool upper = lane & off;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        if (i < n) {
+          const float send = upper ? v[i] : v[i + n];
+          const float keep = upper ? v[i + n] : v[i];
+          v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
+    }
+  }
+}
+
+// log2 of 2 E: the halving levels of warp_sum_halving for the 6 E moments of
+// E entries (E a power of two up to 16)
+__host__ __device__ constexpr int halving_levels(int e) {
+  return e == 1 ? 1 : e == 2 ? 2 : e == 4 ? 3 : e == 8 ? 4 : 5;
 }
 
 // Poisson log-likelihood of one pixel at lam (already clamped); `log_xt` is

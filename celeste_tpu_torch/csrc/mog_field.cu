@@ -14,33 +14,78 @@
 //   q_c   = pa dx^2 + 2 pb dx dy + pc dy^2,   dx = x - mx_c, dy = y - my_c
 //   lam   = sky + sum_c a_c exp(-q_c / 2)
 //   ll_b  = sum_p mask * pixel_loglik(max(lam, eps), counts, centered)
-// and the backward, given the cotangent g_b of ll_b:
-//   g_lam = g mask (counts / max(lam, eps) - 1) [lam > eps]
-//   e_c = exp(-q_c / 2);  dq = -g_lam a_c e_c / 2
-//   d a = sum_p g_lam e_c;  d pa = sum_p dq dx^2;  d pb = sum_p 2 dq dx dy;
-//   d pc = sum_p dq dy^2;   d mx = sum_p -2 dq (pa dx + pb dy);
-//   d my = sum_p -2 dq (pb dx + pc dy).
+// and the backward, given the cotangent g_b of ll_b, in moment form: with
+//   g_lam = g mask (counts / max(lam, eps) - 1) [lam > eps],  ge = g_lam e_c
+// summed over the pixels into S0 = sum ge, Sx = sum ge dx, Sy = sum ge dy,
+// Sxx = sum ge dx^2, Sxy = sum ge dx dy and Syy = sum ge dy^2,
+//   d a = S0,  d pa = -a Sxx / 2,  d pb = -a Sxy,  d pc = -a Syy / 2,
+//   d mx = a (pa Sx + pb Sy),  d my = a (pb Sx + pc Sy).
 // The centered flag only adds parameter-free per-pixel terms, so the
 // backward does not take it.
 //
-// What bounds it on the card.  Per chain the kernel reads 6 C 4 bytes of
-// parameters and writes 4 bytes (the backward writes 6 C 4), while it does
-// C exponentials and ~10 C FP32 operations for each of ~P = 640 pixels plus
-// one logarithm per pixel.  Arithmetic intensity is thousands of operations
-// per byte: the kernels are bound by the special-function unit (exp/log)
-// and FP32 issue, not by memory.
+// What bounds K1 on the card.  Per chain it reads 6 C 4 bytes of parameters
+// and writes 4 (the backward 6 C 4), while it takes C exponentials and ~11
+// FP32 operations (the backward ~23) for each of P pixels, plus a logarithm
+// (the backward a division) per pixel: thousands of operations per byte, so
+// it is bound by instruction issue and the special-function unit, never by
+// memory.  At the samplers' 32-64 chains a second bound comes first: with
+// one warp per chain and 8 chains per block, 32 chains fill 4 of 132 SMs,
+// and one warp walks 961 pixels x 48 components with nothing to hide its
+// latency.
 //
-// What the design does about that.  The five pixel arrays (12.8 KB for a
-// 25x25 stamp) are staged once per block in shared memory and shared by the
-// block's chains; the chain's components are staged once, pre-transformed
-// (log a, -pa/2, -pb, -pc/2), so the inner loop is two subtractions, a few
-// FMAs and one exp per (pixel, component).  One warp owns one chain, its
-// lanes stride over pixels, and the per-chain sum is a shuffle tree.  Each
-// chain owns its outputs, so there are no atomics.  The forward folds the
-// amplitude into the exponent (exp(log a + ...)), which saves a multiply per
-// (pixel, component); the backward multiplies a * e instead, so that a
-// zero-amplitude component gives 0 and not 0 * inf = NaN.  Padded pixels
-// (mask 0, sky 1) are read as they are and contribute exactly 0.
+// What the design does about that.
+//   Geometry.  A block is 8 warps split between CB chains and 8 / CB warps
+// per chain, and a thread-block cluster of T blocks (T <= 8, the portable
+// size) splits the same chains' pixels further.  The Python wrapper picks
+// (CB, T) from (B, P) (kernels/mog_field.py k1_geometry): CB = 8, T = 1 at
+// B = 65536, where the pixel arrays staged once serve 8 chains, and CB = 1
+// with T = 4-8 at B = 32-64 (256 blocks, not 4).  The stamp is cut into
+// groups of 32 pixels (a pixel per lane); rank r of the cluster owns groups
+// [r G / T, (r + 1) G / T) of the G = ceil(P / 32), and warp w of a chain
+// takes groups w, w + 8 / CB, ... of each chunk (k1_pixel_slices in
+// kernels/mog_field.py mirrors this).  The ranks meet in distributed shared
+// memory (cooperative_groups this_cluster, map_shared_rank, cluster.sync;
+// cudaLaunchKernelEx with a cluster dimension), so a call stays one launch:
+// a second kernel or a host-side sum of partials costs ~20 us of host time
+// per call on the sampler paths, more than the kernel.  The launch asks
+// cudaOccupancyMaxActiveClusters whether the cluster fits with the kernel's
+// shared memory and returns an error if not: no other shape is tried.
+//   Chunked staging, no pixel cap.  A block walks its groups in chunks of
+// 1024 pixels staged in shared memory (x and y as a float2, counts, sky,
+// mask and, centered, log max(counts, eps)); pixels past P read as padding
+// (mask 0, sky 1) and add exactly 0.  Shared memory then depends on C
+// alone, through the staged components: the forward takes ~24 KB + 32 C CB
+// bytes (up to ~800 components at CB = 8), the general backward ~53 KB +
+// 448 C at CB = 8 (32 C CB of components and 24 C per warp of moment sums:
+// up to ~400 components; config 5's dense field has 126), the one-pass
+// backward ~21 KB.  Beyond that the launch fails and the wrapper raises.
+//   Forward, as the tiled forward (tiled_field.cu).  Components are staged
+// as two float4 each, (a, mx, my, 0) and (qa, qb, qc, 0), with the
+// quadratic form in base 2 (qa = -pa log2e / 2, qb = -pb log2e,
+// qc = -pc log2e / 2), so a term is a * ex2.approx(form) (mog_common.cuh):
+// one MUFU.EX2, no FP32 range reduction, and a zero amplitude adds exactly
+// 0.  A lane keeps up to 8 of its pixels in registers (x, y, lambda) and
+// walks the components with two broadcast 16-byte loads each; each pixel
+// adds its components in index order, then its Poisson term with a
+// logarithm of one MUFU.LG2 and one Newton step (log_newton): at a star's
+// 3 components the accurate logf would be half of a pixel's instructions.  The
+// forward is held to 64 registers, 4 blocks per SM: blocks are short (a
+// chunk or less per warp), and with 2 blocks per SM their staging loads
+// went unhidden.
+//   Backward.  With C <= 4 (a star's PSF has 3) one pass does it all: the
+// chain's components sit in registers, and per pixel the C exponentials
+// give lambda, g_lam and then the 6 C moments, which a lane sums in
+// registers over all its pixels; one exponential per term, not two (held to
+// 3 blocks per SM, 80 registers, at the price of a small spill).  With
+// more components, per chunk, pass 1 derives g_lam of the warp's pixels
+// into shared memory (the forward's loop) and pass 2 takes the components
+// 8 at a time, so one read of (x, y, g_lam) feeds 8 terms, and sums their
+// 48 moments over the warp with one halving butterfly (mog_common.cuh) into
+// the warp's rows of moment sums.
+//   Deterministic sums.  Lanes add their pixels in index order, then the
+// warp butterfly, the chain's warps in warp order and the cluster's ranks
+// in rank order; no atomics on values, so two calls on the same inputs are
+// bitwise equal, forward and backward.
 //
 // K7 is bound by the same units: ~13 FP32 operations and one exponential per
 // (pixel, component) against 4 bytes of lambda stored per pixel.  A block is
@@ -55,90 +100,320 @@
 // Interface: plain C, bound with ctypes.  Each entry launches on the given
 // stream, allocates nothing and returns cudaGetLastError() after the launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 #include "mog_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using celeste::clamp_min;
+using celeste::ex2_approx;
+using celeste::halving_levels;
 using celeste::kLambdaMin;
+using celeste::kLog2e;
 using celeste::launch_prep;
 using celeste::warp_sum;
+using celeste::warp_sum_halving;
 
-constexpr int kWarps = 8;               // chains per block
+constexpr int kWarps = 8;               // warps per block
 constexpr int kThreads = kWarps * 32;
+constexpr int kMaxCluster = 8;          // blocks per cluster, the portable limit
+constexpr int kChunkGroups = 32;        // 32-pixel groups staged per chunk
+constexpr int kChunk = 32 * kChunkGroups;
+constexpr int kFwdGroups = 8;           // groups (pixels) a lane keeps in registers
+constexpr int kBwdEntries = 8;          // components per pixel pass, general backward
+constexpr int kHalvings = halving_levels(kBwdEntries);
+static_assert(kChunkGroups % kFwdGroups == 0, "a warp's chunk splits into register blocks");
 
+__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+// ln x for the forward's Poisson term: l = lg2.approx(x) (one MUFU.LG2,
+// relative error ~2^-22, which on its own costs a 128x128 centered stamp
+// ~0.6 nats), then one Newton step through ex2.approx: t = x 2^-l = 1 + d
+// and ln x = l ln 2 + ln t ~ l ln 2 + (t - 1), whose error is ex2.approx's
+// relative error of t ~ 1, ~1e-7 absolute, about the accurate logf's, in 5
+// instructions where logf takes ~30.
+__device__ __forceinline__ float log_newton(float x) {
+  float l;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l) : "f"(x));
+  return fmaf(l, 0.6931471805599453f, x * ex2_approx(-l) - 1.0f);
+}
+
+// Groups [lo, hi) of the ceil(P / 32) 32-pixel groups of the stamp.
+struct Groups {
+  int lo, hi;
+};
+
+// Rank `rank` of a cluster of t blocks owns an even share of the groups.
+__device__ __forceinline__ Groups rank_groups(int n_pix, int rank, int t) {
+  const long long g = (n_pix + 31) / 32;
+  return {static_cast<int>(g * rank / t), static_cast<int>(g * (rank + 1) / t)};
+}
+
+// The block's chains, warps and cluster rank.  Grid: ceil(B / cb) chain
+// groups of t blocks each, one cluster per chain group.
+struct Layout {
+  int t, rank, n_sub, warp, lane, j, sub, b0;
+  bool valid;
+};
+
+__device__ __forceinline__ Layout block_layout(const cg::cluster_group& cluster, int cb,
+                                               int n_chains) {
+  Layout l;
+  l.t = static_cast<int>(cluster.num_blocks());
+  l.rank = static_cast<int>(cluster.block_rank());
+  l.n_sub = kWarps / cb;                 // warps per chain
+  l.warp = threadIdx.x >> 5;
+  l.lane = threadIdx.x & 31;
+  l.j = l.warp / l.n_sub;                // the warp's chain in the block
+  l.sub = l.warp - l.j * l.n_sub;        // the warp's place among its chain's
+  l.b0 = (blockIdx.x / l.t) * cb;
+  l.valid = l.b0 + l.j < n_chains;
+  return l;
+}
+
+// Stage pixels p0 .. p0 + n - 1 in shared memory; pixels at or past n_pix
+// read as padding (x = y = 0, counts 0, sky 1, mask 0), which adds exactly 0
+// to the log-likelihood and has g_lam = 0.  kLxt also stages
+// log max(counts, eps) for the centered forward.
+template <bool kLxt>
+__device__ __forceinline__ void stage_chunk(
+    const float* __restrict__ px, const float* __restrict__ py,
+    const float* __restrict__ counts, const float* __restrict__ sky,
+    const float* __restrict__ mask, float2* s_xy, float* s_cnt, float* s_sky, float* s_mask,
+    float* s_lxt, int p0, int n, int n_pix) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int p = p0 + i;
+    const bool in = p < n_pix;
+    const float cnt = in ? counts[p] : 0.0f;
+    s_xy[i] = in ? make_float2(px[p], py[p]) : make_float2(0.0f, 0.0f);
+    s_cnt[i] = cnt;
+    s_sky[i] = in ? sky[p] : 1.0f;
+    s_mask[i] = in ? mask[p] : 0.0f;
+    if (kLxt) s_lxt[i] = logf(clamp_min(cnt, kLambdaMin));
+  }
+}
+
+// Stage the components of chains b0 .. b0 + cb - 1 as two float4 each,
+// (a, mx, my, 0) and (qa, qb, qc, 0) with the form in base 2; chains past
+// n_chains and entries n_comp .. n_pad - 1 are all zero.
+__device__ __forceinline__ void stage_components(
+    const float* __restrict__ amp, const float* __restrict__ mx,
+    const float* __restrict__ my, const float* __restrict__ pa,
+    const float* __restrict__ pb, const float* __restrict__ pc, float4* s_comp, int b0,
+    int cb, int n_chains, int n_comp, int n_pad) {
+  for (int i = threadIdx.x; i < cb * n_pad; i += kThreads) {
+    const int j = i / n_pad;
+    const int k = i - j * n_pad;
+    float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 q = c;
+    if (b0 + j < n_chains && k < n_comp) {
+      const size_t e = static_cast<size_t>(b0 + j) * n_comp + k;
+      c = make_float4(amp[e], mx[e], my[e], 0.0f);
+      q = make_float4(-0.5f * kLog2e * pa[e], -kLog2e * pb[e], -0.5f * kLog2e * pc[e], 0.0f);
+    }
+    s_comp[2 * i] = c;
+    s_comp[2 * i + 1] = q;
+  }
+}
+
+// The staged chunk.
+struct Chunk {
+  const float2* xy;
+  const float* cnt;
+  const float* sky;
+  const float* mask;
+  const float* lxt;                      // centered forward only
+};
+
+// This lane's pixels of the R groups g0, g0 + step, ... of the chunk:
+// lambda over the n_comp staged components in index order; then kGlam =
+// false adds each pixel's Poisson term to acc in group order, kGlam = true
+// stores its cotangent g_lam (gb = g of the chain) to glam.
+template <int R, bool kCentered, bool kGlam>
+__device__ __forceinline__ void lam_groups(const Chunk& ch, const float4* w, int n_comp, int g0,
+                                           int step, int lane, float gb, float* glam,
+                                           float& acc) {
+  float x[R], y[R], lam[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int p = (g0 + step * r) * 32 + lane;
+    const float2 xy = ch.xy[p];
+    x[r] = xy.x;
+    y[r] = xy.y;
+    lam[r] = ch.sky[p];
+  }
+#pragma unroll 2
+  for (int k = 0; k < n_comp; ++k) {
+    const float4 c = w[2 * k];
+    const float4 q = w[2 * k + 1];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float dx = x[r] - c.y;
+      const float dy = y[r] - c.z;
+      const float u = fmaf(q.x, dx, q.y * dy);                 // qa dx + qb dy
+      lam[r] = fmaf(c.x, ex2_approx(fmaf(u, dx, q.z * dy * dy)), lam[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int p = (g0 + step * r) * 32 + lane;
+    if (kGlam) {
+      const float active = lam[r] > kLambdaMin ? 1.0f : 0.0f;
+      glam[p] = (gb * ch.mask[p])
+                * (__fdividef(ch.cnt[p], clamp_min(lam[r], kLambdaMin)) - 1.0f) * active;
+    } else {
+      const float l = clamp_min(lam[r], kLambdaMin);
+      const float cnt = ch.cnt[p];
+      const float ll = kCentered ? cnt * (log_newton(l) - ch.lxt[p]) + (cnt - l)
+                                 : cnt * log_newton(l) - l;
+      acc += ll * ch.mask[p];
+    }
+  }
+}
+
+// Every group of the chunk's n_cg that warp `sub` of its chain's n_sub
+// takes (sub, sub + n_sub, ...): kFwdGroups at a time, the rest in blocks
+// of 4, 2 and 1.
+template <bool kCentered, bool kGlam>
+__device__ __forceinline__ void lam_chunk(const Chunk& ch, const float4* w, int n_comp, int n_cg,
+                                          int sub, int n_sub, int lane, float gb, float* glam,
+                                          float& acc) {
+  const int n_mine = sub < n_cg ? (n_cg - sub + n_sub - 1) / n_sub : 0;
+  int k = 0;
+  for (; k + kFwdGroups <= n_mine; k += kFwdGroups) {
+    lam_groups<kFwdGroups, kCentered, kGlam>(ch, w, n_comp, sub + n_sub * k, n_sub, lane, gb,
+                                             glam, acc);
+  }
+  if (k + 4 <= n_mine) {
+    lam_groups<4, kCentered, kGlam>(ch, w, n_comp, sub + n_sub * k, n_sub, lane, gb, glam, acc);
+    k += 4;
+  }
+  if (k + 2 <= n_mine) {
+    lam_groups<2, kCentered, kGlam>(ch, w, n_comp, sub + n_sub * k, n_sub, lane, gb, glam, acc);
+    k += 2;
+  }
+  if (k < n_mine) {
+    lam_groups<1, kCentered, kGlam>(ch, w, n_comp, sub + n_sub * k, n_sub, lane, gb, glam, acc);
+  }
+}
+
+// K1 forward: out[b] = chain b's log-likelihood.
 template <bool kCentered>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 loglik_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
                   const float* __restrict__ my, const float* __restrict__ pa,
                   const float* __restrict__ pb, const float* __restrict__ pc,
                   const float* __restrict__ px, const float* __restrict__ py,
                   const float* __restrict__ counts, const float* __restrict__ sky,
                   const float* __restrict__ mask, float* __restrict__ out,
-                  int n_chains, int n_comp, int n_pix) {
-  extern __shared__ float smem[];
-  float* s_px = smem;
-  float* s_py = s_px + n_pix;
-  float* s_cnt = s_py + n_pix;
-  float* s_sky = s_cnt + n_pix;
-  float* s_mask = s_sky + n_pix;
-  float* s_lxt = s_mask + n_pix;         // log max(counts, eps), centered only
-  float* s_par = s_lxt + n_pix;          // kWarps x 6 x C
+                  int n_chains, int n_comp, int n_pix, int cb) {
+  extern __shared__ __align__(16) float k1_smem[];
+  float4* s_comp = reinterpret_cast<float4*>(k1_smem);                // cb x 2 C
+  float2* s_xy = reinterpret_cast<float2*>(s_comp + 2 * cb * n_comp);  // kChunk
+  float* s_cnt = reinterpret_cast<float*>(s_xy + kChunk);
+  float* s_sky = s_cnt + kChunk;
+  float* s_mask = s_sky + kChunk;
+  float* s_lxt = s_mask + kChunk;
+  float* s_warp = s_lxt + kChunk;        // kWarps: each warp's sum
+  float* s_chain = s_warp + kWarps;      // cb: each chain's sum over the block's pixels
 
-  for (int i = threadIdx.x; i < n_pix; i += kThreads) {
-    s_px[i] = px[i];
-    s_py[i] = py[i];
-    s_cnt[i] = counts[i];
-    s_sky[i] = sky[i];
-    s_mask[i] = mask[i];
-    if (kCentered) s_lxt[i] = logf(clamp_min(counts[i], kLambdaMin));
-  }
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + warp;
-  const int C = n_comp;
-  float* w_la = s_par + warp * 6 * C;    // log a (log 0 = -inf: contributes 0)
-  float* w_mx = w_la + C;
-  float* w_my = w_mx + C;
-  float* w_ha = w_my + C;                // -pa / 2
-  float* w_hb = w_ha + C;                // -pb
-  float* w_hc = w_hb + C;                // -pc / 2
-  if (b < n_chains) {
-    for (int c = lane; c < C; c += 32) {
-      const size_t i = static_cast<size_t>(b) * C + c;
-      w_la[c] = logf(amp[i]);
-      w_mx[c] = mx[i];
-      w_my[c] = my[i];
-      w_ha[c] = -0.5f * pa[i];
-      w_hb[c] = -pb[i];
-      w_hc[c] = -0.5f * pc[i];
-    }
-  }
-  __syncthreads();
-  if (b >= n_chains) return;
-
+  const cg::cluster_group cluster = cg::this_cluster();
+  const Layout l = block_layout(cluster, cb, n_chains);
+  stage_components(amp, mx, my, pa, pb, pc, s_comp, l.b0, cb, n_chains, n_comp, n_comp);
+  const float4* w = s_comp + 2 * l.j * n_comp;
+  const Chunk ch{s_xy, s_cnt, s_sky, s_mask, s_lxt};
+  const Groups gr = rank_groups(n_pix, l.rank, l.t);
   float acc = 0.0f;
-  for (int p = lane; p < n_pix; p += 32) {
-    const float x = s_px[p];
-    const float y = s_py[p];
-    float lam = s_sky[p];
-    for (int c = 0; c < C; ++c) {
-      const float dx = x - w_mx[c];
-      const float dy = y - w_my[c];
-      lam += expf(w_la[c] + w_ha[c] * dx * dx + w_hb[c] * dx * dy + w_hc[c] * dy * dy);
+  for (int g0 = gr.lo; g0 < gr.hi; g0 += kChunkGroups) {
+    const int n_cg = min(kChunkGroups, gr.hi - g0);
+    if (g0 != gr.lo) __syncthreads();    // the last chunk is read
+    stage_chunk<kCentered>(px, py, counts, sky, mask, s_xy, s_cnt, s_sky, s_mask, s_lxt,
+                           32 * g0, 32 * n_cg, n_pix);
+    __syncthreads();                     // the chunk (and the components) staged
+    if (l.valid) {
+      lam_chunk<kCentered, false>(ch, w, n_comp, n_cg, l.sub, l.n_sub, l.lane, 0.0f, nullptr,
+                                  acc);
     }
-    lam = clamp_min(lam, kLambdaMin);
-    acc += celeste::pixel_loglik<kCentered>(lam, s_cnt[p], kCentered ? s_lxt[p] : 0.0f)
-           * s_mask[p];
   }
   acc = warp_sum(acc);
-  if (lane == 0) out[b] = acc;
+  if (l.lane == 0) s_warp[l.warp] = acc;
+  __syncthreads();
+  const int tid = threadIdx.x;
+  if (tid < cb) {
+    const float* sums = s_warp + tid * l.n_sub;
+    float v = sums[0];
+    for (int i = 1; i < l.n_sub; ++i) v += sums[i];
+    s_chain[tid] = v;
+  }
+  cluster.sync();
+  if (l.rank == 0 && tid < cb && l.b0 + tid < n_chains) {
+    float v = *cluster.map_shared_rank(s_chain + tid, 0);
+    for (int r = 1; r < l.t; ++r) v += *cluster.map_shared_rank(s_chain + tid, r);
+    out[l.b0 + tid] = v;
+  }
+  cluster.sync();                        // every rank's sums stay until rank 0 has read them
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The end of both backwards.  s_acc holds kWarps x n_pad rows of six
+// moments (S0, Sx, Sy, Sxx, Sxy, Syy).  Each chain's rows are summed over
+// its warps in warp order into its first warp's rows, then over the
+// cluster's ranks in rank order, and the moment-form epilogue writes the six
+// cotangents; rank r takes the (chain, component) pairs r kThreads + i,
+// r kThreads + i + t kThreads, ...
+__device__ __forceinline__ void finish_bwd(
+    const cg::cluster_group& cluster, const Layout& l, float* s_acc, int n_pad, int cb,
+    const float* __restrict__ amp, const float* __restrict__ pa,
+    const float* __restrict__ pb, const float* __restrict__ pc, float* __restrict__ d_amp,
+    float* __restrict__ d_mx, float* __restrict__ d_my, float* __restrict__ d_pa,
+    float* __restrict__ d_pb, float* __restrict__ d_pc, int n_chains, int n_comp) {
+  __syncthreads();
+  const int rows = n_pad * 6;
+  for (int i = threadIdx.x; i < cb * rows; i += kThreads) {
+    const int j = i / rows;
+    float* first = s_acc + j * l.n_sub * rows + (i - j * rows);
+    float v = first[0];
+    for (int w = 1; w < l.n_sub; ++w) v += first[w * rows];
+    first[0] = v;
+  }
+  cluster.sync();
+  for (int i = l.rank * kThreads + threadIdx.x; i < cb * n_comp; i += l.t * kThreads) {
+    const int j = i / n_comp;
+    const int c = i - j * n_comp;
+    if (l.b0 + j >= n_chains) continue;
+    float* mine = s_acc + (j * l.n_sub * n_pad + c) * 6;
+    float m[6];
+    const float* src = cluster.map_shared_rank(mine, 0);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) m[q] = src[q];
+    for (int r = 1; r < l.t; ++r) {
+      src = cluster.map_shared_rank(mine, r);
+#pragma unroll
+      for (int q = 0; q < 6; ++q) m[q] += src[q];
+    }
+    const size_t e = static_cast<size_t>(l.b0 + j) * n_comp + c;
+    const float a = amp[e], ea = pa[e], eb = pb[e], ec = pc[e];
+    d_amp[e] = m[0];
+    d_mx[e] = a * fmaf(ea, m[1], eb * m[2]);
+    d_my[e] = a * fmaf(eb, m[1], ec * m[2]);
+    d_pa[e] = -0.5f * a * m[3];
+    d_pb[e] = -a * m[4];
+    d_pc[e] = -0.5f * a * m[5];
+  }
+  cluster.sync();                        // every rank's moments stay until they are read
+}
+
+// K1 backward for any C: per chunk, pass 1 (g_lam of the warp's pixels)
+// and pass 2 (the moments of kBwdEntries components per pixel pass).  Held
+// to two blocks per SM (128 registers), as the tiled backward runs.
+__global__ void __launch_bounds__(kThreads, 2)
 loglik_bwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
                   const float* __restrict__ my, const float* __restrict__ pa,
                   const float* __restrict__ pb, const float* __restrict__ pc,
@@ -148,102 +423,183 @@ loglik_bwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
                   float* __restrict__ d_amp, float* __restrict__ d_mx,
                   float* __restrict__ d_my, float* __restrict__ d_pa,
                   float* __restrict__ d_pb, float* __restrict__ d_pc,
-                  int n_chains, int n_comp, int n_pix) {
-  extern __shared__ float smem[];
-  float* s_px = smem;
-  float* s_py = s_px + n_pix;
-  float* s_cnt = s_py + n_pix;
-  float* s_sky = s_cnt + n_pix;
-  float* s_mask = s_sky + n_pix;
-  float* s_glam = s_mask + n_pix;        // kWarps x P
-  float* s_par = s_glam + kWarps * n_pix;  // kWarps x 6 x C
+                  int n_chains, int n_comp, int n_pix, int cb) {
+  constexpr int kE = kBwdEntries;
+  const int n_pad = round_up(n_comp, kE);
+  extern __shared__ __align__(16) float k1_smem[];
+  float4* s_comp = reinterpret_cast<float4*>(k1_smem);                // cb x 2 n_pad
+  float2* s_xy = reinterpret_cast<float2*>(s_comp + 2 * cb * n_pad);   // kChunk
+  float* s_cnt = reinterpret_cast<float*>(s_xy + kChunk);
+  float* s_sky = s_cnt + kChunk;
+  float* s_mask = s_sky + kChunk;
+  float* s_glam = s_mask + kChunk;       // cb x kChunk
+  float* s_acc = s_glam + cb * kChunk;   // kWarps x n_pad x 6
 
-  for (int i = threadIdx.x; i < n_pix; i += kThreads) {
-    s_px[i] = px[i];
-    s_py[i] = py[i];
-    s_cnt[i] = counts[i];
-    s_sky[i] = sky[i];
-    s_mask[i] = mask[i];
-  }
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + warp;
-  const int C = n_comp;
-  float* w_a = s_par + warp * 6 * C;
-  float* w_mx = w_a + C;
-  float* w_my = w_mx + C;
-  float* w_pa = w_my + C;
-  float* w_pb = w_pa + C;
-  float* w_pc = w_pb + C;
-  float* w_glam = s_glam + warp * n_pix;
-  if (b < n_chains) {
-    for (int c = lane; c < C; c += 32) {
-      const size_t i = static_cast<size_t>(b) * C + c;
-      w_a[c] = amp[i];
-      w_mx[c] = mx[i];
-      w_my[c] = my[i];
-      w_pa[c] = pa[i];
-      w_pb[c] = pb[i];
-      w_pc[c] = pc[i];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const Layout l = block_layout(cluster, cb, n_chains);
+  stage_components(amp, mx, my, pa, pb, pc, s_comp, l.b0, cb, n_chains, n_comp, n_pad);
+  for (int i = threadIdx.x; i < kWarps * n_pad * 6; i += kThreads) s_acc[i] = 0.0f;
+  const float4* w = s_comp + 2 * l.j * n_pad;
+  float* w_glam = s_glam + l.j * kChunk;
+  float* w_acc = s_acc + l.warp * n_pad * 6;
+  const float gb = l.valid ? g[l.b0 + l.j] : 0.0f;
+  const Chunk ch{s_xy, s_cnt, s_sky, s_mask, nullptr};
+  // after the halving sum this lane holds triple `mine`: entry mine / 2 of
+  // the pass, first moments if mine is even, second moments if odd
+  const int mine = l.lane >> (5 - kHalvings);
+  const bool writer = (l.lane & ((1 << (5 - kHalvings)) - 1)) == 0;
+  const Groups gr = rank_groups(n_pix, l.rank, l.t);
+  float unused = 0.0f;
+  for (int g0 = gr.lo; g0 < gr.hi; g0 += kChunkGroups) {
+    const int n_cg = min(kChunkGroups, gr.hi - g0);
+    if (g0 != gr.lo) __syncthreads();    // the last chunk is read
+    stage_chunk<false>(px, py, counts, sky, mask, s_xy, s_cnt, s_sky, s_mask, nullptr, 32 * g0,
+                       32 * n_cg, n_pix);
+    __syncthreads();                     // the chunk (and the zeroed sums) staged
+    if (!l.valid || l.sub >= n_cg) continue;
+    lam_chunk<false, true>(ch, w, n_comp, n_cg, l.sub, l.n_sub, l.lane, gb, w_glam, unused);
+    __syncwarp();
+    for (int k0 = 0; k0 < n_pad; k0 += kE) {
+      float cx[kE], cy[kE], qa[kE], qb[kE], qc[kE];
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const float4 c = w[2 * (k0 + e)];
+        const float4 q = w[2 * (k0 + e) + 1];
+        cx[e] = c.y;
+        cy[e] = c.z;
+        qa[e] = q.x;
+        qb[e] = q.y;
+        qc[e] = q.z;
+      }
+      float v[6 * kE];
+#pragma unroll
+      for (int i = 0; i < 6 * kE; ++i) v[i] = 0.0f;
+#pragma unroll 2
+      for (int gi = l.sub; gi < n_cg; gi += l.n_sub) {
+        const int p = gi * 32 + l.lane;
+        const float2 xy = s_xy[p];
+        const float gl = w_glam[p];
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          const float dx = xy.x - cx[e];
+          const float dy = xy.y - cy[e];
+          const float dxx = dx * dx, dxy = dx * dy, dyy = dy * dy;
+          const float ge = gl * ex2_approx(fmaf(qa[e], dxx, fmaf(qb[e], dxy, qc[e] * dyy)));
+          v[6 * e] += ge;
+          v[6 * e + 1] = fmaf(ge, dx, v[6 * e + 1]);
+          v[6 * e + 2] = fmaf(ge, dy, v[6 * e + 2]);
+          v[6 * e + 3] = fmaf(ge, dxx, v[6 * e + 3]);
+          v[6 * e + 4] = fmaf(ge, dxy, v[6 * e + 4]);
+          v[6 * e + 5] = fmaf(ge, dyy, v[6 * e + 5]);
+        }
+      }
+      warp_sum_halving(v, l.lane);
+      if (writer) {
+        float* row = w_acc + (k0 + mine / 2) * 6 + 3 * (mine & 1);
+        row[0] += v[0];
+        row[1] += v[1];
+        row[2] += v[2];
+      }
     }
   }
-  __syncthreads();
-  if (b >= n_chains) return;
+  finish_bwd(cluster, l, s_acc, n_pad, cb, amp, pa, pb, pc, d_amp, d_mx, d_my, d_pa, d_pb, d_pc,
+             n_chains, n_comp);
+}
 
-  // pass 1: lambda per pixel -> the pixel cotangent g_lam, kept in shared memory
-  const float gb = g[b];
-  for (int p = lane; p < n_pix; p += 32) {
-    const float x = s_px[p];
-    const float y = s_py[p];
-    float lam = s_sky[p];
-    for (int c = 0; c < C; ++c) {
-      const float dx = x - w_mx[c];
-      const float dy = y - w_my[c];
-      const float e = expf(-0.5f * w_pa[c] * dx * dx - w_pb[c] * dx * dy
-                           - 0.5f * w_pc[c] * dy * dy);
-      lam += w_a[c] * e;
-    }
-    const float active = lam > kLambdaMin ? 1.0f : 0.0f;
-    const float lam_c = clamp_min(lam, kLambdaMin);
-    w_glam[p] = (gb * s_mask[p]) * (s_cnt[p] / lam_c - 1.0f) * active;
-  }
-  __syncwarp();
+// K1 backward for C = kC <= 4 in one pass: the chain's components in
+// registers; per pixel the kC exponentials give lambda, g_lam and the 6 kC
+// moments, which each lane sums over all its pixels, then the warp once at
+// the end (entries padded to kE, a power of two, for the halving sum).
+template <int kC>
+__global__ void __launch_bounds__(kThreads, 3)
+loglik_bwd_small_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
+                        const float* __restrict__ my, const float* __restrict__ pa,
+                        const float* __restrict__ pb, const float* __restrict__ pc,
+                        const float* __restrict__ px, const float* __restrict__ py,
+                        const float* __restrict__ counts, const float* __restrict__ sky,
+                        const float* __restrict__ mask, const float* __restrict__ g,
+                        float* __restrict__ d_amp, float* __restrict__ d_mx,
+                        float* __restrict__ d_my, float* __restrict__ d_pa,
+                        float* __restrict__ d_pb, float* __restrict__ d_pc,
+                        int n_chains, int n_pix, int cb) {
+  constexpr int kE = kC == 1 ? 1 : kC == 2 ? 2 : 4;
+  constexpr int kLevels = halving_levels(kE);
+  extern __shared__ __align__(16) float k1_smem[];
+  float2* s_xy = reinterpret_cast<float2*>(k1_smem);                  // kChunk
+  float* s_cnt = reinterpret_cast<float*>(s_xy + kChunk);
+  float* s_sky = s_cnt + kChunk;
+  float* s_mask = s_sky + kChunk;
+  float* s_acc = s_mask + kChunk;        // kWarps x kE x 6
 
-  // pass 2: per component, the six parameter cotangents
-  for (int c = 0; c < C; ++c) {
-    const float a = w_a[c], cx = w_mx[c], cy = w_my[c];
-    const float qa = w_pa[c], qb = w_pb[c], qc = w_pc[c];
-    float s_a = 0.0f, s_mx = 0.0f, s_my = 0.0f, s_pa = 0.0f, s_pb = 0.0f, s_pc = 0.0f;
-    for (int p = lane; p < n_pix; p += 32) {
-      const float dx = s_px[p] - cx;
-      const float dy = s_py[p] - cy;
-      const float e = expf(-0.5f * qa * dx * dx - qb * dx * dy - 0.5f * qc * dy * dy);
-      const float ge = w_glam[p] * e;
-      const float dq = -0.5f * ge * a;
-      s_a += ge;
-      s_pa += dq * dx * dx;
-      s_pb += 2.0f * dq * dx * dy;
-      s_pc += dq * dy * dy;
-      s_mx += dq * -2.0f * (qa * dx + qb * dy);
-      s_my += dq * -2.0f * (qb * dx + qc * dy);
-    }
-    s_a = warp_sum(s_a);
-    s_mx = warp_sum(s_mx);
-    s_my = warp_sum(s_my);
-    s_pa = warp_sum(s_pa);
-    s_pb = warp_sum(s_pb);
-    s_pc = warp_sum(s_pc);
-    if (lane == 0) {
-      const size_t i = static_cast<size_t>(b) * C + c;
-      d_amp[i] = s_a;
-      d_mx[i] = s_mx;
-      d_my[i] = s_my;
-      d_pa[i] = s_pa;
-      d_pb[i] = s_pb;
-      d_pc[i] = s_pc;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const Layout l = block_layout(cluster, cb, n_chains);
+  for (int i = threadIdx.x; i < kWarps * kE * 6; i += kThreads) s_acc[i] = 0.0f;
+  float a[kC], cx[kC], cy[kC], qa[kC], qb[kC], qc[kC];
+  float gb = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    const size_t e = static_cast<size_t>(l.valid ? l.b0 + l.j : 0) * kC + c;
+    a[c] = amp[e];
+    cx[c] = mx[e];
+    cy[c] = my[e];
+    qa[c] = -0.5f * kLog2e * pa[e];
+    qb[c] = -kLog2e * pb[e];
+    qc[c] = -0.5f * kLog2e * pc[e];
+  }
+  if (l.valid) gb = g[l.b0 + l.j];
+  float v[6 * kE];
+#pragma unroll
+  for (int i = 0; i < 6 * kE; ++i) v[i] = 0.0f;
+  const Groups gr = rank_groups(n_pix, l.rank, l.t);
+  for (int g0 = gr.lo; g0 < gr.hi; g0 += kChunkGroups) {
+    const int n_cg = min(kChunkGroups, gr.hi - g0);
+    if (g0 != gr.lo) __syncthreads();    // the last chunk is read
+    stage_chunk<false>(px, py, counts, sky, mask, s_xy, s_cnt, s_sky, s_mask, nullptr, 32 * g0,
+                       32 * n_cg, n_pix);
+    __syncthreads();                     // the chunk (and the zeroed sums) staged
+    if (!l.valid) continue;
+#pragma unroll 2
+    for (int gi = l.sub; gi < n_cg; gi += l.n_sub) {
+      const int p = gi * 32 + l.lane;
+      const float2 xy = s_xy[p];
+      float dx[kC], dy[kC], e[kC];
+      float lam = s_sky[p];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        dx[c] = xy.x - cx[c];
+        dy[c] = xy.y - cy[c];
+        const float u = fmaf(qa[c], dx[c], qb[c] * dy[c]);
+        e[c] = ex2_approx(fmaf(u, dx[c], qc[c] * dy[c] * dy[c]));
+        lam = fmaf(a[c], e[c], lam);
+      }
+      const float active = lam > kLambdaMin ? 1.0f : 0.0f;
+      const float gl = (gb * s_mask[p])
+                       * (__fdividef(s_cnt[p], clamp_min(lam, kLambdaMin)) - 1.0f) * active;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const float ge = gl * e[c];
+        const float gx = ge * dx[c], gy = ge * dy[c];
+        v[6 * c] += ge;
+        v[6 * c + 1] += gx;
+        v[6 * c + 2] += gy;
+        v[6 * c + 3] = fmaf(gx, dx[c], v[6 * c + 3]);
+        v[6 * c + 4] = fmaf(gx, dy[c], v[6 * c + 4]);
+        v[6 * c + 5] = fmaf(gy, dy[c], v[6 * c + 5]);
+      }
     }
   }
+  if (l.valid) {
+    warp_sum_halving(v, l.lane);
+    const int mine = l.lane >> (5 - kLevels);
+    if ((l.lane & ((1 << (5 - kLevels)) - 1)) == 0) {
+      float* row = s_acc + (l.warp * kE + mine / 2) * 6 + 3 * (mine & 1);
+      row[0] = v[0];
+      row[1] = v[1];
+      row[2] = v[2];
+    }
+  }
+  finish_bwd(cluster, l, s_acc, kE, cb, amp, pa, pb, pc, d_amp, d_mx, d_my, d_pa, d_pb, d_pc,
+             n_chains, kC);
 }
 
 constexpr int kRenderTile = 1024;      // pixels per K7 block
@@ -308,68 +664,150 @@ render_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
   }
 }
 
-// Shared-memory bytes each kernel needs for C components and P pixels; a
-// size above the block's limit makes launch_prep fail, and the entry points
-// return that error.
-size_t fwd_smem_bytes(int n_comp, int n_pix) {
-  return (6 * static_cast<size_t>(n_pix) + kWarps * 6 * static_cast<size_t>(n_comp))
-         * sizeof(float);
+
+// Shared-memory bytes of each K1 kernel for cb chains per block and C
+// components (the one-pass backward's depend on neither); a size above the
+// block's limit makes launch_prep fail, and the entry points return that
+// error.
+constexpr size_t kChunkBytes = kChunk * (sizeof(float2) + 3 * sizeof(float));
+
+size_t fwd_smem_bytes(int cb, int n_comp) {
+  return 2 * static_cast<size_t>(cb) * n_comp * sizeof(float4) + kChunkBytes
+         + (kChunk + kWarps + cb) * sizeof(float);
 }
 
-size_t bwd_smem_bytes(int n_comp, int n_pix) {
-  return ((5 + kWarps) * static_cast<size_t>(n_pix)
-          + kWarps * 6 * static_cast<size_t>(n_comp)) * sizeof(float);
+size_t bwd_smem_bytes(int cb, int n_comp) {
+  const size_t n_pad = round_up(n_comp, kBwdEntries);
+  return 2 * cb * n_pad * sizeof(float4) + kChunkBytes
+         + (static_cast<size_t>(cb) * kChunk + kWarps * n_pad * 6) * sizeof(float);
 }
+
+constexpr size_t kBwdSmallSmem = kChunkBytes + kWarps * 4 * 6 * sizeof(float);
 
 size_t render_smem_bytes(int n_comp) {
   return (3 * static_cast<size_t>(kRenderTile) + kWarps * 6 * static_cast<size_t>(n_comp))
          * sizeof(float);
 }
 
+bool valid_geometry(int cb, int t) {
+  return (cb == 1 || cb == 2 || cb == 4 || cb == 8) && t >= 1 && t <= kMaxCluster;
+}
+
+// Whether a cluster of this kernel fits on the current device with cfg's
+// block, cluster and shared-memory sizes (cudaOccupancyMaxActiveClusters),
+// asked once per (device, kernel, shared memory, cluster size).
+template <typename Kernel>
+cudaError_t cluster_fits(Kernel kernel, const cudaLaunchConfig_t& cfg) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, size_t, unsigned>, cudaError_t> known;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(dev, reinterpret_cast<const void*>(kernel),
+                                   cfg.dynamicSmemBytes, cfg.attrs[0].val.clusterDim.x);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = known.find(key);
+  if (it != known.end()) return it->second;
+  int n_clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&n_clusters, kernel, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+  } else if (n_clusters < 1) {
+    err = cudaErrorLaunchOutOfResources;
+  }
+  known.emplace(key, err);
+  return err;
+}
+
+// One launch of a K1 kernel: ceil(B / cb) chain groups of t blocks each,
+// one cluster of t per chain group.
+template <typename... Params, typename... Args>
+cudaError_t launch_k1(void (*kernel)(Params...), int n_chains, int cb, int t, size_t smem,
+                      void* stream, Args... args) {
+  cudaError_t err = launch_prep(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = t;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_chains + cb - 1) / cb * t);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cluster_fits(kernel, cfg);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
 }  // namespace
 
 extern "C" {
 
+// K1 forward; chains_per_block (1, 2, 4 or 8) and cluster (1-8) are the
+// geometry kernels/mog_field.py k1_geometry picked.
 int mog_field_loglik_fwd(const float* amp, const float* mx, const float* my,
                          const float* pa, const float* pb, const float* pc,
                          const float* px, const float* py, const float* counts,
                          const float* sky, const float* mask, float* out,
                          int n_chains, int n_comp, int n_pix, int centered,
-                         void* stream) {
-  const size_t smem = fwd_smem_bytes(n_comp, n_pix);
-  const dim3 grid((n_chains + kWarps - 1) / kWarps);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (centered) {
-    err = launch_prep(loglik_fwd_kernel<true>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    loglik_fwd_kernel<true><<<grid, kThreads, smem, s>>>(
-        amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, out, n_chains, n_comp, n_pix);
-  } else {
-    err = launch_prep(loglik_fwd_kernel<false>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    loglik_fwd_kernel<false><<<grid, kThreads, smem, s>>>(
-        amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, out, n_chains, n_comp, n_pix);
-  }
-  return static_cast<int>(cudaGetLastError());
+                         int chains_per_block, int cluster, void* stream) {
+  const int cb = chains_per_block;
+  if (!valid_geometry(cb, cluster)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fwd_smem_bytes(cb, n_comp);
+  return static_cast<int>(centered
+      ? launch_k1(loglik_fwd_kernel<true>, n_chains, cb, cluster, smem, stream, amp, mx, my,
+                  pa, pb, pc, px, py, counts, sky, mask, out, n_chains, n_comp, n_pix, cb)
+      : launch_k1(loglik_fwd_kernel<false>, n_chains, cb, cluster, smem, stream, amp, mx, my,
+                  pa, pb, pc, px, py, counts, sky, mask, out, n_chains, n_comp, n_pix, cb));
 }
 
+// K1 backward: the six [B, C] plane cotangents; the one-pass kernel for
+// C <= 4, the two-pass kernel otherwise.
 int mog_field_loglik_bwd(const float* amp, const float* mx, const float* my,
                          const float* pa, const float* pb, const float* pc,
                          const float* px, const float* py, const float* counts,
                          const float* sky, const float* mask, const float* g,
                          float* d_amp, float* d_mx, float* d_my,
                          float* d_pa, float* d_pb, float* d_pc,
-                         int n_chains, int n_comp, int n_pix, void* stream) {
-  const size_t smem = bwd_smem_bytes(n_comp, n_pix);
-  const dim3 grid((n_chains + kWarps - 1) / kWarps);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_prep(loglik_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  loglik_bwd_kernel<<<grid, kThreads, smem, s>>>(
-      amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g,
-      d_amp, d_mx, d_my, d_pa, d_pb, d_pc, n_chains, n_comp, n_pix);
-  return static_cast<int>(cudaGetLastError());
+                         int n_chains, int n_comp, int n_pix, int chains_per_block,
+                         int cluster, void* stream) {
+  const int cb = chains_per_block;
+  const int t = cluster;
+  if (!valid_geometry(cb, t)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  switch (n_comp) {
+    case 1:
+      err = launch_k1(loglik_bwd_small_kernel<1>, n_chains, cb, t, kBwdSmallSmem, stream, amp,
+                      mx, my, pa, pb, pc, px, py, counts, sky, mask, g, d_amp, d_mx, d_my, d_pa,
+                      d_pb, d_pc, n_chains, n_pix, cb);
+      break;
+    case 2:
+      err = launch_k1(loglik_bwd_small_kernel<2>, n_chains, cb, t, kBwdSmallSmem, stream, amp,
+                      mx, my, pa, pb, pc, px, py, counts, sky, mask, g, d_amp, d_mx, d_my, d_pa,
+                      d_pb, d_pc, n_chains, n_pix, cb);
+      break;
+    case 3:
+      err = launch_k1(loglik_bwd_small_kernel<3>, n_chains, cb, t, kBwdSmallSmem, stream, amp,
+                      mx, my, pa, pb, pc, px, py, counts, sky, mask, g, d_amp, d_mx, d_my, d_pa,
+                      d_pb, d_pc, n_chains, n_pix, cb);
+      break;
+    case 4:
+      err = launch_k1(loglik_bwd_small_kernel<4>, n_chains, cb, t, kBwdSmallSmem, stream, amp,
+                      mx, my, pa, pb, pc, px, py, counts, sky, mask, g, d_amp, d_mx, d_my, d_pa,
+                      d_pb, d_pc, n_chains, n_pix, cb);
+      break;
+    default:
+      err = launch_k1(loglik_bwd_kernel, n_chains, cb, t, bwd_smem_bytes(cb, n_comp), stream,
+                      amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g, d_amp, d_mx, d_my,
+                      d_pa, d_pb, d_pc, n_chains, n_comp, n_pix, cb);
+  }
+  return static_cast<int>(err);
 }
 
 int mog_field_render(const float* amp, const float* mx, const float* my,

@@ -110,10 +110,12 @@ namespace {
 
 using celeste::clamp_min;
 using celeste::ex2_approx;
+using celeste::halving_levels;
 using celeste::kLambdaMin;
 using celeste::kLog2e;
 using celeste::launch_prep;
 using celeste::warp_sum;
+using celeste::warp_sum_halving;
 
 constexpr int kPix = 1024;              // parallel/tiles.py PIX_PER_TILE
 constexpr int kWarps = 8;               // chains per block
@@ -247,39 +249,8 @@ tiled_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
   }
 }
 
-// Sum N = 3 * 2^m values over the warp by halving.  At each of the first m
-// butterfly levels (offsets 16, 8, ...) a lane sends the half of its live
-// values that its partner keeps, keeps the other half (the upper half where
-// the lane's offset bit is set) and adds what it receives; the last 5 - m
-// levels sum the 3 values left.  Lane l ends with the warp's totals of
-// v[3i .. 3i + 2], i = l >> (5 - m), in v[0 .. 2].  The order of the adds is
-// fixed, so the sums repeat bitwise.
-template <int N>
-__device__ __forceinline__ void warp_sum_halving(float (&v)[N], int lane) {
-  int n = N;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    if (n > 3) {
-      n /= 2;
-      const bool upper = lane & off;
-#pragma unroll
-      for (int i = 0; i < N / 2; ++i) {
-        if (i < n) {
-          const float send = upper ? v[i] : v[i + n];
-          const float keep = upper ? v[i + n] : v[i];
-          v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 3; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
-    }
-  }
-}
-
-// log2 of 2 kBwdEntries: the halving levels of the backward's moment sum
-constexpr int kHalvings = kBwdEntries == 1 ? 1 : kBwdEntries == 2 ? 2 : kBwdEntries == 4 ? 3
-                          : kBwdEntries == 8 ? 4 : 5;
+// the halving levels of the backward's moment sum
+constexpr int kHalvings = halving_levels(kBwdEntries);
 
 // K4 (kRender = false) and K6 (kRender = true), part 1.  Grid (tiles, chain
 // blocks).  Each warp stages its chain's components and its pixel cotangent

@@ -35,6 +35,15 @@ from celeste_tpu_torch.likelihood._pixel import LAMBDA_MIN, pixel_loglik
 LANE = 128
 _SOURCES = ("mog_field.cu",)
 
+# K1's launch geometry (csrc/mog_field.cu): a block is WARPS warps, split
+# between CB chains and WARPS / CB warps per chain; a cluster of T <= 8
+# blocks splits the same chains' pixels; pixels go in groups of 32, a pixel
+# per lane, staged CHUNK_GROUPS groups at a time.
+WARPS = 8
+MAX_CLUSTER = 8
+N_SM = 132                  # the H100's streaming multiprocessors
+CHUNK_GROUPS = 32
+
 
 def stamp_pixel_data(stamp):
     """Flatten a Stamp's pixel grids into kernel-ready padded [1, PIX_PAD]
@@ -107,14 +116,62 @@ def _loglik_bwd_torch(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
 
 
 # ---------------------------------------------------------------------------
+# K1's launch geometry
+# ---------------------------------------------------------------------------
+
+def k1_geometry(n_chains: int, n_pix: int) -> tuple[int, int]:
+    """(CB, T) for K1: chains per block and blocks per cluster.
+
+    Starts from CB = 8, T = 1 (pixel arrays staged once serve 8 chains) and,
+    while the grid has fewer blocks than the card has SMs, first gives each
+    chain more warps (CB 8 -> 4 -> 2 -> 1), then more blocks (T 1 -> 2 ->
+    4 -> 8) while each block keeps at least one 32-pixel group.  So B = 65536
+    launches 8192 blocks of 8 chains, and B = 32 or 64 one chain per block
+    in clusters of 8 or 4: 256 blocks.  The component count does not enter:
+    it sets the shared memory, not the shape.
+    """
+    n_groups = -(-n_pix // 32)
+    cb, t = WARPS, 1
+    while -(-n_chains // cb) * t < N_SM:
+        if cb > 1:
+            cb //= 2
+        elif t < MAX_CLUSTER and 2 * t <= n_groups:
+            t *= 2
+        else:
+            break
+    return cb, t
+
+
+def k1_pixel_slices(n_pix: int, cb: int, t: int) -> list[list[int]]:
+    """The pixels each of a chain's T * (8 / CB) warps takes in K1, in the
+    order a lane meets them (the kernel's slicing, written out): rank r of
+    the cluster owns 32-pixel groups [r G / T, (r + 1) G / T) of the
+    G = ceil(P / 32), walked in chunks of CHUNK_GROUPS groups, of which the
+    chain's warp w takes w, w + 8 / CB, ...; lane l takes pixel 32 g + l of
+    group g, and pixels at or past P are padding.  Entry r * (8 / CB) + w."""
+    n_groups = -(-n_pix // 32)
+    n_sub = WARPS // cb
+    out = []
+    for r in range(t):
+        lo, hi = n_groups * r // t, n_groups * (r + 1) // t
+        for w in range(n_sub):
+            pix = []
+            for g0 in range(lo, hi, CHUNK_GROUPS):
+                for g in range(g0 + w, min(g0 + CHUNK_GROUPS, hi), n_sub):
+                    pix.extend(p for p in range(32 * g, 32 * g + 32) if p < n_pix)
+            out.append(pix)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels: ctypes wrappers
 # ---------------------------------------------------------------------------
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mog_field_loglik_fwd.argtypes = [p] * 12 + [i] * 4 + [p]
+    lib.mog_field_loglik_fwd.argtypes = [p] * 12 + [i] * 6 + [p]
     lib.mog_field_loglik_fwd.restype = i
-    lib.mog_field_loglik_bwd.argtypes = [p] * 18 + [i] * 3 + [p]
+    lib.mog_field_loglik_bwd.argtypes = [p] * 18 + [i] * 5 + [p]
     lib.mog_field_loglik_bwd.restype = i
     lib.mog_field_render.argtypes = [p] * 10 + [i] * 3 + [p]
     lib.mog_field_render.restype = i
@@ -182,7 +239,7 @@ def loglik_fwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mog_field_loglik_fwd(*_ptrs(planes), *_ptrs(pixels), out.data_ptr(),
-                                       b, c, p, int(bool(centered)), stream)
+                                       b, c, p, int(bool(centered)), *k1_geometry(b, p), stream)
     _raise_on_error(lib, err, "mog_field_loglik_fwd")
     loglik_fwd_cuda.launches += 1
     return out
@@ -203,7 +260,7 @@ def loglik_bwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mog_field_loglik_bwd(*_ptrs(planes), *_ptrs(pixels), g.data_ptr(),
-                                       *_ptrs(grads), b, c, p, stream)
+                                       *_ptrs(grads), b, c, p, *k1_geometry(b, p), stream)
     _raise_on_error(lib, err, "mog_field_loglik_bwd")
     loglik_bwd_cuda.launches += 1
     return grads

@@ -161,9 +161,9 @@ def make_crowded_logdensity(scene: CrowdedScene, stamps: Sequence, bands: Sequen
     saturated model (same posterior and gradients, ~1000x smaller fp32
     magnitude; ``likelihood/_pixel.py``).
 
-    On the card its gradient runs K1-bwd, whose shared memory caps a stamp
-    at about 4.4k pixels: on a larger field (config 5's is 6144) a gradient
-    raises, and the dense path serves values only.
+    On the card its gradient runs K1-bwd, which stages the pixels in chunks
+    and so takes any field; config 5's 48x128 field (6144 pixels, 126
+    components) takes its gradient there too.
     """
     priors = priors or SourcePriors()
     stamps = list(stamps)

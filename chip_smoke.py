@@ -9,10 +9,13 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
 2. build the CUDA libraries of ``celeste_tpu_torch/csrc`` with nvcc (sm_90a),
    one nvcc per source, all started together;
 3. hold the stamp kernels (K1-fwd, K1-bwd) against their plain PyTorch
-   versions: star (C=3) and galaxy (C=48) planes, B=1000 and 4096, centered
-   both ways, full and holed masks; values rtol 2e-6, atol 0.5 (galaxies
-   1.0), gradients rtol 5e-4, atol 5e-2, and finite gradients for a
-   zero-amplitude component;
+   versions: star (C=3) and galaxy (C=48) planes at B=1, 9, 32, 64, 1000
+   and 4096 (every launch geometry the wrapper picks) and the star at
+   B=65536, on 25x25 stamps and on 96x96 and 128x128 ones (9216 and 16384
+   pixels; the backward there at B <= 64), centered both ways, full
+   and holed masks; values rtol 2e-6, atol 0.5 (galaxies 1.0), gradients
+   against the plain backward rtol 5e-4, atol 5e-2, finite for a
+   zero-amplitude component; each kernel called twice, bitwise equal;
 4. hold the tiled kernels (K2, K3, K4) against theirs on config-5 planes at
    B=1000 and 4096, centered both ways, full and holed masks: K2 and K3's
    log-likelihood rtol 2e-6, atol 1.0; K3's lambda rtol 1e-5, atol 1e-3; K4
@@ -39,7 +42,10 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    for config 1 (25x25 stamp), config 2 (each of the five bands), config 3
    (31x31 galaxy) and config 5 (tiled, 48x128 field), and the config-5
    tiled-vs-dense parity gate (gap < 1 nat; a 0.05 radii cut trips it above
-   100);
+   100); config 5's dense reference takes its ``value_and_grad`` at B=64
+   on the card (one K1-bwd launch over 6144 pixels and 126 components), its
+   likelihood cotangents held against the plain backward at rtol 5e-4,
+   atol 5e-2;
 7. drive config 1 through its entry point, ``run_experiment`` of
    ``star_single`` (64 chains), MH as written and HMC, with the stamp
    kernels' counters set to 0 just before and read just after; fail on
@@ -86,8 +92,14 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    beside the single-device one; K8-fwd and K8-bwd at B=65536 on config 1's
    stamp in turns with K1-fwd and K1-bwd, plain, and the entry point's
    ``value_and_grad`` with each kernel; K7 at B=1024 on config 5's field
-   and on a 25x25 stamp, kernel and plain;
-12. print the kernels' JSON line (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd),
+   and on a 25x25 stamp, kernel and plain; K1-fwd and K1-bwd at each shape
+   where the paths call them (config 1 at 64 chains, config 2's bands and
+   config 3 at 32, config 5's dense probe at 8, config 1's stamp at 65536),
+   device time per call from a CUDA graph of 20 calls, with the bound and
+   this run's launches at that shape;
+12. print K1's rows by shape as a JSON line (``k1_shapes``, with the time
+    lost, launches x (ms - bound), summed per kernel in ``k1_lost_s``),
+    then the kernels' JSON line (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd),
     each kernel's ms per wrapper call (K2-K4: both buckets timed together,
     divided by their two launches) with its bound per call (the largest of
     its bytes over the card's memory rate, its float32 operations over the
@@ -138,6 +150,12 @@ UGRIZ_HMC = dict(n_warmup=300, n_steps=150)
 UGRIZ_SLICE = dict(n_steps=100)
 GALAXY_NUTS = dict(n_warmup=150, n_steps=150)
 SEP_TOL = (2e-6, 0.5)           # K8 against its plain version and against K1
+# phase 3: K1 at every geometry k1_geometry picks, on config 1's 25x25 stamp
+# size and on 96x96 and 128x128 stamps (the backward there at B <= 64)
+K1_CHAINS = (1, 9, 32, 64, 1000, 4096)
+K1_SIDES = (25, 96, 128)
+K1_BWD_MAX_CHAINS = 64
+DENSE_CHAINS = 64               # phase 6: config 5's dense gradient
 PPC_DRAWS = 32
 # the card's peaks (H100 SXM at 700 W, NVIDIA's data sheet: HBM3 rate, float32
 # outside the tensor cores; 67 TFLOP/s is 132 SMs x 128 lanes x 2 x 1.98 GHz)
@@ -153,8 +171,8 @@ SPECIAL_PER_S = 132 * 16 * 1.98e9
 # (pixel, component) term: the offsets dx, dy and the base-2 quadratic form
 # (qa dx + qb dy) dx + qc dy dy, 9; lambda's a * e summed, 2; the backward's
 # six pixel moments of ge = g_lam e (ge, its sum, ge dx and ge dy and their
-# sums, three multiply-adds for ge dx^2, ge dx dy, ge dy^2), 12, the least
-# algebra of every backward here (K1-bwd's kernel still sums JAX's).  Per entry
+# sums, three multiply-adds for ge dx^2, ge dx dy, ge dy^2), 12, the
+# algebra of every backward here (K1-bwd, K4, K6: the moment form).  Per entry
 # and chain, the moment form's epilogue (-a/2, three second-moment products,
 # pa Sx + pb Sy and pb Sx + pc Sy and their products by a), 12.  Per pixel,
 # the Poisson term (clamp, multiply, subtract, mask) 4 and its cotangent
@@ -215,14 +233,15 @@ def card_line():
 # config 1: the stamp kernels
 # ---------------------------------------------------------------------------
 
-def scenes(device):
+def stamp_scene(kind, side, device):
+    """Phase 3's one-source r-band scene: a star (seed 3) or a galaxy (seed 5)
+    on a side x side stamp."""
     from celeste_tpu_torch.data.synthetic import galaxy_source, make_synthetic_stamp, star_source
 
-    star = make_synthetic_stamp([star_source(u=(30.0001, 9.9999), flux_r=25.0)],
-                                shape=(25, 25), bands=(2,), seed=3, device=device)
-    gal = make_synthetic_stamp([galaxy_source(u=(30.0, 10.0), flux_r=60.0)],
-                               shape=(25, 25), bands=(2,), seed=5, device=device)
-    return {"star": star, "galaxy": gal}
+    src = (star_source(u=(30.0001, 9.9999), flux_r=25.0) if kind == "star"
+           else galaxy_source(u=(30.0, 10.0), flux_r=60.0))
+    return make_synthetic_stamp([src], shape=(side, side), bands=(2,),
+                                seed=3 if kind == "star" else 5, device=device)
 
 
 def source_vecs(scene, kind, n, seed):
@@ -238,44 +257,68 @@ def source_vecs(scene, kind, n, seed):
     return (base[None, :] + 0.05 * rng.normal(size=(n, base.size))).astype(np.float32)
 
 
+def plain_fwd(planes, pix, centered, chunk=256):
+    """K1's plain forward a chain chunk at a time (a 128x128 galaxy at
+    B=4096 is 13 GB per [B, C, P] intermediate unchunked)."""
+    from celeste_tpu_torch.kernels import mog_field as mf
+
+    return torch.cat([mf._loglik_torch(*(p[c0:c0 + chunk] for p in planes), *pix,
+                                       centered=centered)
+                      for c0 in range(0, planes[0].shape[0], chunk)])
+
+
 def stamp_kernel_checks(device):
-    """Phase 3: K1-fwd and K1-bwd against their plain versions."""
+    """Phase 3: K1-fwd and K1-bwd against their plain versions at every
+    geometry the chooser picks and on 96x96 and 128x128 stamps,
+    each kernel twice on the same inputs, bitwise equal."""
     from celeste_tpu_torch.kernels import mog_field as mf
 
     errs = {"fwd": 0.0, "bwd": 0.0}
-    for kind, scene in scenes(device).items():
-        stamp = scene.stamps[0]
-        pd = mf.stamp_pixel_data(stamp)
-        holed = pd[4].clone()
-        holed[0, ::7] = 0.0
-        masks = {"full": pd[4], "holed": holed}
+    for kind in ("star", "galaxy"):
         rtol, atol = FWD_TOL[kind]
-        for b in (1000, 4096):
-            vecs = torch.as_tensor(source_vecs(scene, kind, b, seed=b), device=device)
-            planes = [t.contiguous() for t in mf._field_planes(vecs, stamp, 2, kind, 5)]
-            for mname, mask in masks.items():
-                pix = (*pd[:4], mask)
-                for centered in (False, True):
-                    got = mf.loglik_fwd_cuda(*planes, *pix, centered=centered)
-                    want = mf._loglik_torch(*planes, *pix, centered=centered)
+        for side in K1_SIDES:
+            scene = stamp_scene(kind, side, device)
+            stamp = scene.stamps[0]
+            pd = mf.stamp_pixel_data(stamp)
+            holed = pd[4].clone()
+            holed[0, ::7] = 0.0
+            masks = {"full": pd[4], "holed": holed}
+            chains = K1_CHAINS + ((BENCH_CHAINS,) if (kind, side) == ("star", 25) else ())
+            for b in chains:
+                vecs = torch.as_tensor(source_vecs(scene, kind, b, seed=b), device=device)
+                planes = [t.contiguous() for t in mf._field_planes(vecs, stamp, 2, kind, 5)]
+                tag = f"{kind} {side}x{side} B={b} (CB, T)={mf.k1_geometry(b, pd[0].shape[1])}"
+                for mname, mask in masks.items():
+                    pix = (*pd[:4], mask)
+                    for centered in (False, True):
+                        got = mf.loglik_fwd_cuda(*planes, *pix, centered=centered)
+                        again = mf.loglik_fwd_cuda(*planes, *pix, centered=centered)
+                        want = plain_fwd(planes, pix, centered)
+                        torch.cuda.synchronize()
+                        what = f"K1-fwd {tag} mask={mname} centered={centered}"
+                        check(torch.equal(got, again), f"{what}: two calls differ")
+                        errs["fwd"] = max(errs["fwd"], max_abs_err(got, want, rtol, atol, what))
+                if side != 25 and b > K1_BWD_MAX_CHAINS:
+                    continue
+                g = torch.as_tensor(np.random.default_rng(b + 1).normal(size=b)
+                                    .astype(np.float32), device=device)
+                zero_amp = planes[0].clone()
+                zero_amp[::5, 0] = 0.0
+                for aname, amp in (("amp", planes[0]), ("zero-amp", zero_amp)):
+                    ps = [amp, *planes[1:]]
+                    pix = (*pd[:4], holed)
+                    got = mf.loglik_bwd_cuda(*ps, *pix, g)
+                    again = mf.loglik_bwd_cuda(*ps, *pix, g)
+                    want = mf._loglik_bwd_torch(*ps, *pix, g)
                     torch.cuda.synchronize()
-                    what = f"K1-fwd {kind} B={b} mask={mname} centered={centered}"
-                    errs["fwd"] = max(errs["fwd"], max_abs_err(got, want, rtol, atol, what))
-            g = torch.as_tensor(np.random.default_rng(b + 1).normal(size=b).astype(np.float32),
-                                device=device)
-            zero_amp = planes[0].clone()
-            zero_amp[::5, 0] = 0.0
-            for aname, amp in (("amp", planes[0]), ("zero-amp", zero_amp)):
-                ps = [amp, *planes[1:]]
-                pix = (*pd[:4], holed)
-                got = mf.loglik_bwd_cuda(*ps, *pix, g)
-                leaves = [t.detach().clone().requires_grad_(True) for t in ps]
-                want = torch.autograd.grad(mf._loglik_torch(*leaves, *pix), leaves, g)
-                torch.cuda.synchronize()
-                for name, a, w in zip(("amp", "mx", "my", "pa", "pb", "pc"), got, want):
-                    what = f"K1-bwd {kind} B={b} {aname} d_{name}"
-                    errs["bwd"] = max(errs["bwd"], max_abs_err(a, w, *BWD_TOL, what))
-        print(f"[kernels] K1 {kind}: forward and backward match the plain version", flush=True)
+                    for name, a, a2, w in zip(("amp", "mx", "my", "pa", "pb", "pc"), got, again,
+                                              want):
+                        what = f"K1-bwd {tag} {aname} d_{name}"
+                        check(torch.equal(a, a2), f"{what}: two calls differ")
+                        errs["bwd"] = max(errs["bwd"], max_abs_err(a, w, *BWD_TOL, what))
+            print(f"[kernels] K1 {kind} {side}x{side}: forward at B={chains}, backward at "
+                  f"B<={chains[-1] if side == 25 else K1_BWD_MAX_CHAINS} match the plain "
+                  f"versions; repeats bitwise equal", flush=True)
     return errs
 
 
@@ -497,7 +540,8 @@ def stamp_render_checks(device, config5):
     from celeste_tpu_torch.parallel.crowded import scene_field_planes
 
     err = 0.0
-    for kind, scene in (("star", scenes(device)["star"]), ("galaxy", galaxy_scene(device))):
+    for kind, scene in (("star", stamp_scene("star", 25, device)),
+                        ("galaxy", galaxy_scene(device))):
         stamp = scene.stamps[0]
         px, py, _, sky, _ = mf.stamp_pixel_data(stamp)
         for b in (32, 1000, 4096):
@@ -534,7 +578,7 @@ def sep_kernel_checks(device):
     from celeste_tpu_torch.kernels import mog_field_sep as ms
 
     errs = {"fwd": 0.0, "bwd": 0.0}
-    scene = scenes(device)["star"]
+    scene = stamp_scene("star", 25, device)
     stamp = scene.stamps[0]
     pd2 = ms.stamp_pixel_data_2d(stamp)
     pd1 = mf.stamp_pixel_data(stamp)
@@ -626,6 +670,39 @@ def oracle_checks(device, config5):
           f"radii x0.05: {gap_cut:.6g} nats", flush=True)
 
 
+def dense_gradient_check(device, config5):
+    """Phase 6: config 5's dense reference (48x128 field, 12 sources, C=126)
+    takes its ``value_and_grad`` on the card at B=64 through K1-bwd; its
+    likelihood cotangents are held against the plain backward at
+    BWD_TOL."""
+    from celeste_tpu_torch.inference.hmc import value_and_grad
+    from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.parallel.crowded import scene_field_planes
+
+    _, logd_dense, vec, info = config5
+    rng = np.random.default_rng(12)
+    vecs = vec[None] + torch.as_tensor(0.01 * rng.normal(size=(DENSE_CHAINS, vec.shape[0])),
+                                       dtype=torch.float32, device=device)
+    before = mf.launch_counts()["mog_field_loglik_bwd"]
+    val, grad = value_and_grad(logd_dense, vecs)
+    torch.cuda.synchronize()
+    check(mf.launch_counts()["mog_field_loglik_bwd"] == before + 1,
+          "the dense value_and_grad did not launch K1-bwd once")
+    check(bool(torch.isfinite(val).all() and torch.isfinite(grad).all()),
+          "config-5 dense value_and_grad: non-finite")
+    planes = [p.contiguous() for p in scene_field_planes(info["scene"], vecs, info["stamp"], 0)]
+    pd = mf.stamp_pixel_data(info["stamp"])
+    g = torch.ones(DENSE_CHAINS, dtype=torch.float32, device=device)
+    got = mf.loglik_bwd_cuda(*planes, *pd, g)
+    want = mf._loglik_bwd_torch(*planes, *pd, g)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(a, w, *BWD_TOL, f"config-5 dense K1-bwd d_{name}")
+              for name, a, w in zip(("amp", "mx", "my", "pa", "pb", "pc"), got, want))
+    print(f"[dense] config 5 dense value_and_grad at B={DENSE_CHAINS} ({planes[0].shape[1]} "
+          f"components, {pd[0].shape[1]} pixels) on the card: finite; K1-bwd vs plain max abs "
+          f"err {err:.4g}", flush=True)
+
+
 def oracle_checks_23(device):
     """The card's log-likelihoods at the truth against the fp64 oracle: config
     2 per band (five bands, K1) and config 3 (K1)."""
@@ -705,16 +782,19 @@ def report_config1(sampler, cfg, res, seconds, counts_after):
 
 
 def config5_path(device):
-    """Phase 7: config 5 at full width, then crowded_field through the entry point."""
+    """Phase 7: config 5 at full width, then crowded_field through the entry
+    point.  Returns the stamp kernels' counts after the dense parity probe."""
     from celeste_tpu_torch.bench.config5 import (
         build_config5, config5_parity_gap, config5_warmup_and_whiten, measure_chees_z,
         measure_nuts_z,
     )
     from celeste_tpu_torch.experiments import CONFIGS, run_experiment
+    from celeste_tpu_torch.kernels import mog_field as mf
 
     t0 = time.perf_counter()
     logd, logd_dense, vec, info = build_config5(device=device)
     gap, _ = config5_parity_gap(logd, logd_dense, vec)
+    dense_counts = mf.launch_counts()    # the dense probe's K1 calls (8 chains)
     check(gap < 1.0, f"config-5 parity gap {gap:.4g} nats >= 1")
     prep = config5_warmup_and_whiten(logd, vec, n_chains=C5_CHAINS)
     t_prep = time.perf_counter() - t0
@@ -753,7 +833,7 @@ def config5_path(device):
           f"divergence={res['divergence_rate']:.4f} eps={res['step_size']:.4f} "
           f"traj={res['trajectory_length']:.4f} max_rhat={float(np.max(res['rhat'])):.4f} "
           f"min_ess={float(np.min(res['ess'])):.1f}", flush=True)
-    return chees, nuts
+    return dense_counts
 
 
 def whitening_check(prep):
@@ -1010,7 +1090,7 @@ def sep_entry_path(device):
     """K8 through its entry point: ``batched_stamp_loglik(impl="sep")`` and
     its gradient at B=65536 on config 1's stamp, K8's counters set to 0 just
     before and read just after, held against the general kernel's value and
-    gradient."""
+    gradient.  Returns K8's counts and K1's (the general kernel's call)."""
     from celeste_tpu_torch.inference.hmc import value_and_grad
     from celeste_tpu_torch.kernels import mog_field as mf
     from celeste_tpu_torch.kernels import mog_field_sep as ms
@@ -1021,15 +1101,17 @@ def sep_entry_path(device):
         lambda v: mf.batched_stamp_loglik(v, stamp, band=0, n_bands=1, impl="sep"), vecs)
     torch.cuda.synchronize()
     counts = ms.launch_counts()
+    mf.reset_launch_counts()
     want, want_g = value_and_grad(
         lambda v: mf.batched_stamp_loglik(v, stamp, band=0, n_bands=1), vecs)
+    k1_counts = mf.launch_counts()
     ev = max_abs_err(val, want, *SEP_TOL, "impl=sep value vs K1 at B=65536")
     eg = max_abs_err(grad, want_g, *BWD_TOL, "impl=sep gradient vs K1 at B=65536")
     print(f"[entry] batched_stamp_loglik(impl='sep') value_and_grad at B={BENCH_CHAINS}: "
           f"launches {counts}; against K1: value {ev:.4g}, gradient {eg:.4g}", flush=True)
     for name, n in counts.items():
         check(n > 0, f"the impl='sep' entry point never launched {name}")
-    return counts
+    return counts, k1_counts
 
 
 # ---------------------------------------------------------------------------
@@ -1271,6 +1353,92 @@ def bound(flops, nbytes, special):
     return times[by] * 1e3, by
 
 
+def k1_bounds(b, c, pix, pix_pad):
+    """K1-fwd's and K1-bwd's bounds per call for b chains of c components
+    on pix real pixels (pix_pad staged): the terms and pixels this data
+    needs, the planes and pixel arrays read once, the outputs written
+    once."""
+    f4 = 4
+    planes, pixel_arrays, terms = 6 * b * c * f4, 5 * pix_pad * f4, b * pix * c
+    return {
+        "K1-fwd": bound(terms * (FLOPS_TERM_FORM + FLOPS_TERM_SUM) + b * pix * FLOPS_PIXEL_LOGLIK,
+                        planes + pixel_arrays + b * f4, terms + b * pix),
+        "K1-bwd": bound(terms * (FLOPS_TERM_FORM + FLOPS_TERM_SUM + FLOPS_TERM_MOMENTS)
+                        + b * pix * FLOPS_PIXEL_GLAM + b * c * FLOPS_ENTRY_EPILOGUE,
+                        2 * planes + pixel_arrays + b * f4, terms),
+    }
+
+
+def k1_shape_inputs(device, config5):
+    """K1's calls by the shape they have on each path: {name: (planes,
+    pixel data, real pixels)} -- config 1 (64 chains), config 2 (32 chains,
+    each band's call; the r band here), config 3 (32 chains, 31x31 galaxy),
+    config 5's dense parity probe (8 chains, 126 components, 48x128) and
+    config 1's stamp at the evals/s shape (65536 chains)."""
+    from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.parallel.crowded import scene_field_planes
+
+    stamp, vecs = config1_batch(device)
+
+    def star(n):
+        return [t.contiguous() for t in mf._field_planes(vecs[:n], stamp, 0, "star", 1)]
+
+    def five_band(scene, kind, band):
+        v = torch.as_tensor(source_vecs(scene, kind, 32, seed=32), device=device)
+        st = scene.stamps[band if len(scene.stamps) > 1 else 0]
+        return [t.contiguous() for t in mf._field_planes(v, st, band, kind, 5)], st
+
+    ug_planes, ug_stamp = five_band(ugriz_scene(device), "star", 2)
+    gal_planes, gal_stamp = five_band(galaxy_scene(device), "galaxy", 2)
+    _, _, vec, info = config5
+    rng = np.random.default_rng(13)
+    dense = vec[None] + torch.as_tensor(0.01 * rng.normal(size=(8, vec.shape[0])),
+                                        dtype=torch.float32, device=device)
+    pd1 = mf.stamp_pixel_data(stamp)
+    return {
+        "config 1": (star(64), pd1, 625),
+        "config 2": (ug_planes, mf.stamp_pixel_data(ug_stamp), 625),
+        "config 3": (gal_planes, mf.stamp_pixel_data(gal_stamp), 961),
+        "config 5 dense": ([p.contiguous() for p in scene_field_planes(info["scene"], dense,
+                                                                       info["stamp"], 0)],
+                           mf.stamp_pixel_data(info["stamp"]), 48 * 128),
+        "B=65536": (star(BENCH_CHAINS), pd1, 625),
+    }
+
+
+def k1_shape_timings(device, card, config5, launches):
+    """K1-fwd and K1-bwd at each shape where the paths call them: device
+    ms per call (a CUDA graph of 20 calls, best of 3 replays), the bound per
+    call, the launches of this run at that shape, and the time lost,
+    launches x (ms - bound).  ``launches``: {shape: {kernel: count}}."""
+    from celeste_tpu_torch.bench.timing import graph_ms
+    from celeste_tpu_torch.kernels import mog_field as mf
+
+    rows = []
+    for name, (planes, pd, pix) in k1_shape_inputs(device, config5).items():
+        b, c = planes[0].shape
+        g = torch.ones(b, dtype=torch.float32, device=device)
+        ms = {"K1-fwd": graph_ms(lambda: mf.loglik_fwd_cuda(*planes, *pd, centered=True)),
+              "K1-bwd": graph_ms(lambda: mf.loglik_bwd_cuda(*planes, *pd, g))}
+        bounds = k1_bounds(b, c, pix, pd[0].shape[1])
+        for kernel in ("K1-fwd", "K1-bwd"):
+            n = launches[name][kernel]
+            bound_ms, bound_by = bounds[kernel]
+            rows.append({"kernel": kernel, "shape": name, "chains": b, "components": c,
+                         "pixels": pix, "pixels_padded": pd[0].shape[1],
+                         "cb_t": list(mf.k1_geometry(b, pd[0].shape[1])), "launches": n,
+                         "ms": ms[kernel], "bound_ms": bound_ms, "bound_by": bound_by,
+                         "lost_s": n * (ms[kernel] - bound_ms) * 1e-3})
+    print(f"[timing] K1 by shape (device ms per call: a CUDA graph of 20 calls, best of 3), "
+          f"card: {card}", flush=True)
+    for r in rows:
+        print(f"    {r['kernel']} {r['shape']}: B={r['chains']} C={r['components']} "
+              f"P={r['pixels']} ({r['pixels_padded']}) (CB, T)={tuple(r['cb_t'])} "
+              f"ms={r['ms']:.6f} bound={r['bound_ms']:.6f} ({r['bound_by']}) "
+              f"launches={r['launches']} lost={r['lost_s']:.6f} s", flush=True)
+    return rows
+
+
 def kernel_bounds(config5, sharded5):
     """Each kernel's bound per wrapper call at the shapes it is timed at:
     config 1's 25x25 stamp at B=65536 (625 pixels, padded to 640), config
@@ -1281,17 +1449,7 @@ def kernel_bounds(config5, sharded5):
     from celeste_tpu_torch.model.galaxy import N_GAL
 
     f4 = 4
-    b, c = BENCH_CHAINS, 3
-    planes = 6 * b * c * f4
-    pix, pixel_arrays = 625, 5 * 640 * f4
-    terms = b * pix * c
-    out = {
-        "K1-fwd": bound(terms * (FLOPS_TERM_FORM + FLOPS_TERM_SUM) + b * pix * FLOPS_PIXEL_LOGLIK,
-                        planes + pixel_arrays + b * f4, terms + b * pix),
-        "K1-bwd": bound(terms * (FLOPS_TERM_FORM + FLOPS_TERM_SUM + FLOPS_TERM_MOMENTS)
-                        + b * pix * FLOPS_PIXEL_GLAM + b * c * FLOPS_ENTRY_EPILOGUE,
-                        2 * planes + pixel_arrays + b * f4, terms),
-    }
+    out = k1_bounds(BENCH_CHAINS, 3, 625, 640)
     b = TIMING_CHAINS[0]
     sentinel = config5[3]["scene"].n_sources * N_GAL
     width = (sentinel + 1) * 3
@@ -1385,6 +1543,7 @@ def main() -> int:
     k7_err = stamp_render_checks(device, config5)
     k8_errs = sep_kernel_checks(device)
     oracle_checks(device, config5)
+    dense_gradient_check(device, config5)
     oracle_checks_23(device)
 
     mf.reset_launch_counts()
@@ -1398,7 +1557,7 @@ def main() -> int:
 
     mf.reset_launch_counts()
     tf.reset_launch_counts()
-    config5_path(device)
+    dense_counts = config5_path(device)
     c5_counts = tf.launch_counts()
     print(f"[config 5] launches: {c5_counts} (stamp kernels: {mf.launch_counts()})", flush=True)
     for name in ("tiled_field_fwd", "tiled_field_fwd_lam", "tiled_field_bwd"):
@@ -1406,7 +1565,13 @@ def main() -> int:
 
     runs23 = configs23_path(device)
     k7_launches = ppc_path(device, runs23)
-    k8_counts = sep_entry_path(device)
+    k8_counts, k1_65536 = sep_entry_path(device)
+    k1_launches = {"config 1": k1_counts, "config 5 dense": dense_counts, "B=65536": k1_65536,
+                   "config 2": {k: runs23["ugriz hmc"][3][k] + runs23["ugriz slice"][3][k]
+                                for k in k1_counts},
+                   "config 3": runs23["galaxy nuts"][3]}
+    k1_launches = {shape: {"K1-fwd": c["mog_field_loglik_fwd"], "K1-bwd": c["mog_field_loglik_bwd"]}
+                   for shape, c in k1_launches.items()}
 
     with process_group("nccl"):
         mf.reset_launch_counts()
@@ -1424,6 +1589,7 @@ def main() -> int:
         tr = render_timings(card, sharded5, t5["vg_ms"])
         t8 = sep_timings(device, card)
         t7 = stamp_render_timings(device, card, config5)
+        k1_rows = k1_shape_timings(device, card, config5, k1_launches)
         bounds = kernel_bounds(config5, sharded5)
     tiled = "celeste_tpu/kernels/tiled_field.py"
     t5b, trb = t5[TIMING_CHAINS[0]], tr[TIMING_CHAINS[0]]
@@ -1462,6 +1628,8 @@ def main() -> int:
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
     print(f"[done] whole script {time.perf_counter() - t_start:.3f} s", flush=True)
+    lost = {k: sum(r["lost_s"] for r in k1_rows if r["kernel"] == k) for k in ("K1-fwd", "K1-bwd")}
+    print(json.dumps({"k1_shapes": k1_rows, "k1_lost_s": lost}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

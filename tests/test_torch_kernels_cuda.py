@@ -40,14 +40,14 @@ def cuda():
     return torch.device("cuda:0")
 
 
-def _planes(kind, n, device, seed=0):
+def _planes(kind, n, device, seed=0, shape=(25, 25)):
     if kind == "star":
         src = star_source(u=(30.0001, 9.9999), flux_r=25.0)
-        scene = make_synthetic_stamp([src], shape=(25, 25), bands=(2,), seed=3, device=device)
+        scene = make_synthetic_stamp([src], shape=shape, bands=(2,), seed=3, device=device)
         extra = []
     else:
         src = galaxy_source(u=(30.0, 10.0), flux_r=60.0)
-        scene = make_synthetic_stamp([src], shape=(25, 25), bands=(2,), seed=5, device=device)
+        scene = make_synthetic_stamp([src], shape=shape, bands=(2,), seed=5, device=device)
         t, ab = src["theta_dev"], src["ab"]
         extra = [[np.log(t / (1 - t)), np.log(src["sigma"]), np.log(ab / (1 - ab)), src["phi"]]]
     base = np.concatenate([scene.wcs.equa2duas(src["u"]), np.log(src["flux"]), *extra])
@@ -133,18 +133,84 @@ def test_wrapper_rejects_bad_inputs(cuda):
 
 
 def test_launch_error_raises_and_does_not_leak(cuda):
-    """A stamp too large for a block's shared memory is refused by the C
+    """More components than a block's shared memory can stage (K1 stages
+    the components, so C, not the stamp, has a limit) are refused by the C
     side; the wrapper raises, counts no launch, and the next launch works."""
     planes, pd, _, _ = _planes("star", 8, cuda)
-    big = [torch.ones(1, 65536, device=cuda) for _ in range(5)]
+    wide = [p[:, :1].repeat(1, 8000).contiguous() for p in planes]
     before = mf.launch_counts()
     with pytest.raises(RuntimeError, match="launch failed"):
-        mf.loglik_fwd_cuda(*planes, *big)
+        mf.loglik_fwd_cuda(*wide, *pd)
     with pytest.raises(RuntimeError, match="launch failed"):
-        mf.loglik_bwd_cuda(*planes, *big, torch.ones(8, device=cuda))
+        mf.loglik_bwd_cuda(*wide, *pd, torch.ones(8, device=cuda))
     assert mf.launch_counts() == before
     out = mf.loglik_fwd_cuda(*planes, *pd)
     torch.testing.assert_close(out, mf._loglik_torch(*planes, *pd), **TOL["star"])
+
+
+def _plain_fwd(planes, pix, centered, chunk=256):
+    """The plain forward a chain chunk at a time (a 128x128 galaxy at
+    B=4096 is 13 GB per [B, C, P] intermediate unchunked)."""
+    return torch.cat([mf._loglik_torch(*(p[c0:c0 + chunk] for p in planes), *pix,
+                                       centered=centered)
+                      for c0 in range(0, planes[0].shape[0], chunk)])
+
+
+def _check_k1(planes, pd, kind, bwd=True):
+    """K1-fwd (centered both ways, full and holed masks) and, if asked,
+    K1-bwd against the plain versions; each kernel twice, bitwise equal."""
+    b = planes[0].shape[0]
+    holed = pd[4].clone()
+    holed[0, ::7] = 0.0
+    for mask in (pd[4], holed):
+        pix = (*pd[:4], mask)
+        for centered in (False, True):
+            got = mf.loglik_fwd_cuda(*planes, *pix, centered=centered)
+            assert torch.equal(got, mf.loglik_fwd_cuda(*planes, *pix, centered=centered))
+            torch.testing.assert_close(got, _plain_fwd(planes, pix, centered), **TOL[kind])
+    if not bwd:
+        return
+    pix = (*pd[:4], holed)
+    g = torch.as_tensor(np.random.default_rng(b).normal(size=b).astype(np.float32),
+                        device=planes[0].device)
+    got = mf.loglik_bwd_cuda(*planes, *pix, g)
+    again = mf.loglik_bwd_cuda(*planes, *pix, g)
+    want = mf._loglik_bwd_torch(*planes, *pix, g)
+    for name, a, a2, w in zip("amp mx my pa pb pc".split(), got, again, want):
+        assert torch.equal(a, a2), name
+        torch.testing.assert_close(a, w, **GRAD_TOL, msg=name)
+
+
+@pytest.mark.parametrize("kind", ["star", "galaxy"])
+@pytest.mark.parametrize("b", [1, 9, 32, 64, 1000, 4096])
+def test_k1_any_batch_matches_plain_and_repeats(cuda, kind, b):
+    """Every geometry k1_geometry picks on a 25x25 stamp: one chain per
+    block in clusters of up to 8 (B <= 64), 4 chains per block (B=1000), 8
+    (B=4096)."""
+    planes, pd, _, _ = _planes(kind, b, cuda, seed=b)
+    _check_k1(planes, pd, kind)
+
+
+@pytest.mark.parametrize("kind", ["star", "galaxy"])
+@pytest.mark.parametrize("side", [96, 128])
+def test_k1_large_stamps_have_no_pixel_cap(cuda, kind, side):
+    """96x96 and 128x128 stamps (9216 and 16384 pixels, more than a block's
+    shared memory holds): the forward at every B, the backward at B <= 64."""
+    for b in (1, 9, 32, 64, 1000, 4096):
+        planes, pd, _, _ = _planes(kind, b, cuda, seed=b, shape=(side, side))
+        _check_k1(planes, pd, kind, bwd=b <= 64)
+
+
+def test_k1_geometry_as_launched(cuda):
+    """One launch per call, at the geometry the chooser gives."""
+    planes, pd, _, _ = _planes("galaxy", 32, cuda)
+    assert mf.k1_geometry(32, pd[0].shape[1]) == (1, 8)
+    before = mf.launch_counts()
+    mf.loglik_fwd_cuda(*planes, *pd)
+    mf.loglik_bwd_cuda(*planes, *pd, torch.ones(32, device=cuda))
+    after = mf.launch_counts()
+    assert after["mog_field_loglik_fwd"] == before["mog_field_loglik_fwd"] + 1
+    assert after["mog_field_loglik_bwd"] == before["mog_field_loglik_bwd"] + 1
 
 
 # ---------------------------------------------------------------------------
@@ -664,6 +730,27 @@ def test_sep_backward_kernel_matches_plain_autograd_and_repeats(cuda):
         assert torch.equal(a, a2)
 
 
+def test_sep_kernels_on_a_128x128_stamp(cuda):
+    """K8 walks a stamp in bands of rows: a 128x128 stamp (16384 pixels,
+    more than the backward's shared memory holds at once) against the plain
+    versions, both ways centered, and two backward calls bitwise equal."""
+    from celeste_tpu_torch.kernels import mog_field_sep as ms
+
+    _, _, vecs, stamp = _planes("star", 64, cuda, shape=(128, 128))
+    planes = [t.contiguous() for t in ms.star_planes_isotropic(vecs, stamp, 2, 5)]
+    pd = ms.stamp_pixel_data_2d(stamp)
+    for centered in (False, True):
+        torch.testing.assert_close(ms.sep_fwd_cuda(*planes, *pd, centered=centered),
+                                   ms._sep_loglik_torch(*planes, *pd, centered=centered),
+                                   **SEP_TOL)
+    g = torch.as_tensor(np.random.default_rng(4).normal(size=64).astype(np.float32), device=cuda)
+    got = ms.sep_bwd_cuda(*planes, *pd, g)
+    again = ms.sep_bwd_cuda(*planes, *pd, g)
+    for a, a2, w in zip(got, again, ms._sep_loglik_bwd_torch(*planes, *pd, g)):
+        assert torch.equal(a, a2)
+        torch.testing.assert_close(a, w, **GRAD_TOL)
+
+
 def test_sep_entry_point_launches_both_kernels(cuda):
     from celeste_tpu_torch.kernels import mog_field_sep as ms
 
@@ -694,8 +781,10 @@ def test_sep_and_render_wrappers_reject_bad_inputs(cuda):
         ms.sep_fwd_cuda(*planes, pd[0].cpu(), *pd[1:])
     with pytest.raises(ValueError, match="g has"):
         ms.sep_bwd_cuda(*planes, *pd, torch.ones(7, device=cuda))
-    big = [torch.ones(1, 200, device=cuda), torch.ones(1, 200, device=cuda)] + [
-        torch.ones(200, 200, device=cuda) for _ in range(3)]
+    # the stamp is staged in bands of rows, so only the row and column
+    # factors, kWarps C (3 W + H + 2) floats, can outgrow shared memory
+    big = [torch.ones(1, 2000, device=cuda), torch.ones(1, 2000, device=cuda)] + [
+        torch.ones(2000, 2000, device=cuda) for _ in range(3)]
     before = ms.launch_counts()
     with pytest.raises(RuntimeError, match="launch failed"):
         ms.sep_bwd_cuda(*planes, *big, torch.ones(8, device=cuda))

@@ -153,3 +153,95 @@ def test_no_silent_fallback(scenes):
     meta = [torch.empty(t.shape, device="meta") for t in planes]
     with pytest.raises(ValueError, match="no implementation"):
         tmf.mog_field_loglik(*meta, pd)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _moment_cotangents_k1(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
+    """K1-bwd of ``csrc/mog_field.cu`` in moment form, in torch: lambda and
+    g_lam from the base-2 form the kernel stages, the six pixel moments of
+    ge = g_lam e per (chain, component), and the kernel's epilogue."""
+    dx = px[:, None, :] - mx[..., None]                                  # [B, C, P]
+    dy = py[:, None, :] - my[..., None]
+    dxx, dxy, dyy = dx * dx, dx * dy, dy * dy
+    e = torch.exp2((-0.5 * LOG2E * pa[..., None]) * dxx + (-LOG2E * pb[..., None]) * dxy
+                   + (-0.5 * LOG2E * pc[..., None]) * dyy)
+    lam = sky + torch.sum(amp[..., None] * e, dim=1)
+    active = (lam > tmf.LAMBDA_MIN).to(lam.dtype)
+    g_lam = (g[:, None] * mask) * (counts / torch.clamp(lam, min=tmf.LAMBDA_MIN) - 1.0) * active
+    ge = g_lam[:, None, :] * e
+    s0, sx, sy, sxx, sxy, syy = (torch.sum(ge * m, -1) for m in (1.0, dx, dy, dxx, dxy, dyy))
+    return (s0, amp * (pa * sx + pb * sy), amp * (pb * sx + pc * sy),
+            -0.5 * amp * sxx, -amp * sxy, -0.5 * amp * syy)
+
+
+@pytest.mark.parametrize("kind", ["star", "galaxy"])
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_moment_form_backward_matches_plain_k1(scenes, kind, seed):
+    """K1-bwd's algebra (base-2 exponent, moments, epilogue) against the
+    plain backward at the gradient tolerance, rtol 5e-4, atol 5e-2, on a
+    holed mask with one zero-amplitude component in five chains."""
+    _, tstamp, _ = _inputs(scenes, kind)
+    vecs = source_vecs(scenes[kind], kind, N_CHAINS[kind], 0.05, seed=seed)
+    planes = [t.contiguous() for t in tmf._field_planes(torch.as_tensor(vecs), tstamp, 2,
+                                                         kind, 5)]
+    planes[0][::5, 0] = 0.0
+    px, py, counts, sky, mask = tmf.stamp_pixel_data(tstamp)
+    mask = mask.clone()
+    mask[0, ::7] = 0.0
+    g = torch.as_tensor(np.random.default_rng(seed).normal(size=N_CHAINS[kind]),
+                        dtype=torch.float32)
+    pix = (px, py, counts, sky, mask)
+    got = _moment_cotangents_k1(*planes, *pix, g)
+    want = tmf._loglik_bwd_torch(*planes, *pix, g)
+    for name, a, w in zip("amp mx my pa pb pc".split(), got, want):
+        torch.testing.assert_close(a, w, **GRAD_TOL, msg=name)
+
+
+@pytest.mark.parametrize("b", [1, 9, 32, 64, 65536])
+@pytest.mark.parametrize("n_pix", [640, 1024, 6144, 16384])
+def test_k1_geometry_covers_every_pixel_once(b, n_pix):
+    """K1's (CB, T): the cluster stays within the portable 8 blocks, 32
+    chains fill at least one block per SM of the H100, and the chain's
+    T * 8 / CB warps take every pixel exactly once."""
+    cb, t = tmf.k1_geometry(b, n_pix)
+    assert cb in (1, 2, 4, 8) and 1 <= t <= tmf.MAX_CLUSTER
+    n_blocks = -(-b // cb) * t
+    if b >= 32:
+        assert n_blocks >= tmf.N_SM
+    if b == 65536:
+        assert (cb, t) == (8, 1)
+    slices = tmf.k1_pixel_slices(n_pix, cb, t)
+    assert len(slices) == t * tmf.WARPS // cb
+    covered = np.sort(np.concatenate([np.asarray(s, dtype=np.int64) for s in slices]))
+    assert np.array_equal(covered, np.arange(n_pix))
+
+
+@pytest.fixture(scope="module")
+def galaxy_96():
+    return make_synthetic_stamp([galaxy_source(u=(30.0, 10.0), flux_r=60.0)],
+                                shape=(96, 96), bands=(2,), seed=5)
+
+
+@pytest.mark.parametrize("centered", [False, True])
+def test_plain_loglik_and_gradient_on_a_96x96_galaxy_match_jax(galaxy_96, centered):
+    """A 96x96 stamp (9216 pixels, beyond a block's shared memory): the plain
+    ``mog_field_loglik`` and its autograd gradient against JAX's dense
+    ``_loglik_jnp`` and ``jax.grad`` of it, at the galaxy tolerances."""
+    jstamp = galaxy_96.stamps[0]
+    vecs = source_vecs(galaxy_96, "galaxy", 4, 0.05, seed=4)
+    jplanes = jax.vmap(lambda v: jmf._field_planes(v, jstamp, 2, "galaxy", 5))(jnp.asarray(vecs))
+    jpd = jmf.stamp_pixel_data(jstamp)
+    planes = [torch.as_tensor(np.array(p)).requires_grad_(True) for p in jplanes]
+    pd = tuple(torch.as_tensor(np.array(p)) for p in jpd)
+    assert pd[0].shape == (1, 9216)
+    got = tmf.mog_field_loglik(*planes, pd, centered=centered)
+    want = jmf._loglik_jnp(*jplanes, *jpd, centered=centered)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL["galaxy"])
+    g = np.random.default_rng(6).normal(size=4).astype(np.float32)
+    got_g = torch.autograd.grad(got, planes, torch.as_tensor(g))
+    want_g = jax.grad(lambda ps: jnp.sum(jmf._loglik_jnp(*ps, *jpd, centered=centered)
+                                         * jnp.asarray(g)))(tuple(jplanes))
+    for name, a, w in zip("amp mx my pa pb pc".split(), got_g, want_g):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **GRAD_TOL, err_msg=name)
