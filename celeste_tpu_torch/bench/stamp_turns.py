@@ -7,20 +7,22 @@ built and timed in turns in one process on one card.
 ``DIR`` holds the earlier ``mog_field.cu`` and ``mog_common.cuh`` (for
 example ``git show <rev>:celeste_tpu_torch/csrc/mog_field.cu``), whose K1
 entries take no launch geometry: ``(..., n_chains, n_comp, n_pix[,
-centered], stream)``; and, to compare K8 too, the earlier
-``mog_field_sep.cu``.  The script
+centered], stream)``, or also the geometry (CB, T) with
+``--parent-takes-geometry`` (K1 since its cluster launch); and, to
+compare K8 too, the earlier ``mog_field_sep.cu``.  The script
 
-1. builds both K1 sources with the package's nvcc flags plus ``-Xptxas -v``
+1. builds both sources with the package's nvcc flags plus ``-Xptxas -v``
    and prints each kernel's registers and spills;
-2. counts the SASS of every K1 kernel of both (``cuobjdump -sass``): the
-   instructions of each innermost loop (a backward branch and its body) by
-   opcode;
+2. counts the SASS of every K1 and K8 kernel of both (``cuobjdump -sass``):
+   the instructions of each innermost loop (a backward branch and its body)
+   by opcode;
 3. times K1-fwd and K1-bwd of both at the shapes where the samplers call
-   K1, and K8-fwd and K8-bwd at config 1's stamp, in turns (parent, new,
-   new, parent), each turn the best of 3 replays of a CUDA graph of 20
-   calls (``bench/timing.py``), so that a few-microsecond kernel is timed
-   on the card, not at the host's launch rate; the new kernels' outputs are
-   held against the parent's on the way.
+   K1, and K8-fwd and K8-bwd at config 1's stamp (B=4096 and 65536) and at
+   B=64 on a 128x128 stamp, in turns (parent, new, new, parent), each turn
+   the best of 3 replays of a CUDA graph of 20 calls (``bench/timing.py``),
+   so that a few-microsecond kernel is timed on the card, not at the host's
+   launch rate; the new kernels' outputs are held against the parent's on
+   the way.
 
 ``--out`` takes the SASS listings and a JSON of the numbers.
 """
@@ -52,8 +54,9 @@ SHAPES = (("config 1", "star", 25, 64), ("config 2", "star", 25, 32),
           ("B=65536", "star", 25, 65536))
 
 
-# K8's shapes: config 1's 25x25 stamp at the evals/s chain count and at 4096
-K8_CHAINS = (4096, 65536)
+# K8's shapes (stamp side, chains): config 1's 25x25 stamp at 4096 chains and
+# at the evals/s chain count, and a 128x128 stamp at 64 chains
+K8_SHAPES = ((25, 4096), (25, 65536), (128, 64))
 
 
 def build(src: Path, out: Path) -> str:
@@ -70,9 +73,10 @@ def registers(report: str) -> dict:
     out, name = {}, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d+((?:loglik|render|sep)\w*?_kernel)"
-                      r"(?:IL[ib](\d)E)?", line)
+                      r"(?:I((?:L[ib]\d+E)+)E)?", line)
         if m:
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+            name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes spill stores", line)
         if name and m:
             out.setdefault(name, {})["spill_bytes"] = int(m.group(1))
@@ -83,8 +87,9 @@ def registers(report: str) -> dict:
 
 
 def sass_loops(lib: Path, listing: Path) -> dict:
-    """{kernel: [innermost loops as {opcode: count}]} of the K1 kernels,
-    from ``cuobjdump -sass``; the listing is written to ``listing``."""
+    """{kernel: [innermost loops as {opcode: count}]} of the K1 and K8
+    kernels, from ``cuobjdump -sass``; the listing is written to
+    ``listing``."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -92,7 +97,7 @@ def sass_loops(lib: Path, listing: Path) -> dict:
     out = {}
     for block in text.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
-        if "loglik" not in name:
+        if "loglik" not in name and "sep_" not in name:
             continue
         instrs = []
         for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
@@ -276,17 +281,23 @@ def main() -> int:
         for tag, src in (("parent", args.parent), ("new", _build.CSRC_DIR)):
             so = work / f"sep_{tag}.so"
             report["registers"][f"K8 {tag}"] = registers(build(src / "mog_field_sep.cu", so))
+            report["sass_inner_loops"][f"K8 {tag}"] = sass_loops(
+                so, args.out.with_name(f"sass_sep_{tag}.txt"))
             sep[tag] = ctypes.CDLL(str(so))
             ms._declare(sep[tag])
         print(json.dumps({"K8 registers": {t: report["registers"][f"K8 {t}"] for t in sep}}),
               flush=True)
-        for b in K8_CHAINS:
-            _, _, g, vecs, stamp = shape_inputs("star", 25, b, device)
+        for tag in sep:
+            for name, loops in report["sass_inner_loops"][f"K8 {tag}"].items():
+                print(f"[sass] K8 {tag} {name}: inner loops {loops}", flush=True)
+        for side, b in K8_SHAPES:
+            _, _, g, vecs, stamp = shape_inputs("star", side, b, device)
             sp = [t.contiguous() for t in ms.star_planes_isotropic(vecs, stamp, 0, 1)]
             pix = ms.stamp_pixel_data_2d(stamp)
             fns = {tag: sep_calls(lib, sp, pix, g) for tag, lib in sep.items()}
-            report_row(report, f"K8 B={b}", f"K8 star 25x25 B={b}",
-                       {"kernel": "K8", "chains": b, "stamp": "25x25"}, *in_turns(fns))
+            stamp_name = f"{side}x{side}"
+            report_row(report, f"K8 {stamp_name} B={b}", f"K8 star {stamp_name} B={b}",
+                       {"kernel": "K8", "chains": b, "stamp": stamp_name}, *in_turns(fns))
     args.out.write_text(json.dumps(report, indent=1))
     print(f"[stamp_turns] card: {card}; wrote {args.out}", flush=True)
     return 0

@@ -67,7 +67,7 @@
 // 0.  A lane keeps up to 8 of its pixels in registers (x, y, lambda) and
 // walks the components with two broadcast 16-byte loads each; each pixel
 // adds its components in index order, then its Poisson term with a
-// logarithm of one MUFU.LG2 and one Newton step (log_newton): at a star's
+// logarithm of one MUFU.LG2 and one Newton step (mog_common.cuh log_newton): at a star's
 // 3 components the accurate logf would be half of a pixel's instructions.  The
 // forward is held to 64 registers, 4 blocks per SM: blocks are short (a
 // chunk or less per warp), and with 2 blocks per SM their staging loads
@@ -119,6 +119,7 @@ using celeste::halving_levels;
 using celeste::kLambdaMin;
 using celeste::kLog2e;
 using celeste::launch_prep;
+using celeste::log_newton;
 using celeste::warp_sum;
 using celeste::warp_sum_halving;
 
@@ -133,18 +134,6 @@ constexpr int kHalvings = halving_levels(kBwdEntries);
 static_assert(kChunkGroups % kFwdGroups == 0, "a warp's chunk splits into register blocks");
 
 __host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
-
-// ln x for the forward's Poisson term: l = lg2.approx(x) (one MUFU.LG2,
-// relative error ~2^-22, which on its own costs a 128x128 centered stamp
-// ~0.6 nats), then one Newton step through ex2.approx: t = x 2^-l = 1 + d
-// and ln x = l ln 2 + ln t ~ l ln 2 + (t - 1), whose error is ex2.approx's
-// relative error of t ~ 1, ~1e-7 absolute, about the accurate logf's, in 5
-// instructions where logf takes ~30.
-__device__ __forceinline__ float log_newton(float x) {
-  float l;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l) : "f"(x));
-  return fmaf(l, 0.6931471805599453f, x * ex2_approx(-l) - 1.0f);
-}
 
 // Groups [lo, hi) of the ceil(P / 32) 32-pixel groups of the stamp.
 struct Groups {
@@ -271,10 +260,8 @@ __device__ __forceinline__ void lam_groups(const Chunk& ch, const float4* w, int
                 * (__fdividef(ch.cnt[p], clamp_min(lam[r], kLambdaMin)) - 1.0f) * active;
     } else {
       const float l = clamp_min(lam[r], kLambdaMin);
-      const float cnt = ch.cnt[p];
-      const float ll = kCentered ? cnt * (log_newton(l) - ch.lxt[p]) + (cnt - l)
-                                 : cnt * log_newton(l) - l;
-      acc += ll * ch.mask[p];
+      acc += celeste::pixel_loglik<kCentered>(l, log_newton(l), ch.cnt[p],
+                                              kCentered ? ch.lxt[p] : 0.0f) * ch.mask[p];
     }
   }
 }

@@ -238,8 +238,8 @@ tiled_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
       if (kStoreLam) lam_row[p] = lam[r];
       if (kReduce) {
         const float l = clamp_min(lam[r], kLambdaMin);
-        acc += celeste::pixel_loglik<kCentered>(l, s_cnt[p], kCentered ? s_lxt[p] : 0.0f)
-               * s_mask[p];
+        acc += celeste::pixel_loglik<kCentered>(l, logf(l), s_cnt[p],
+                                                kCentered ? s_lxt[p] : 0.0f) * s_mask[p];
       }
     }
   }

@@ -22,7 +22,9 @@ tensors launch ``csrc/mog_field_sep.cu`` (``mog_field_sep_fwd`` forward and,
 under autograd, ``mog_field_sep_bwd`` backward); CPU tensors take the plain
 :func:`_sep_loglik_torch`, whose gradient is torch autograd.
 :func:`_sep_loglik_torch` and :func:`_sep_loglik_bwd_torch` are the
-kernels' plain versions.
+kernels' plain versions; :func:`_sep_loglik_bwd_moments_torch` writes the
+backward kernel's moment form out and :func:`k8_lane_walk` its walk over
+the pixels (both for the tests).
 """
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ import torch
 from celeste_tpu_torch.likelihood._pixel import LAMBDA_MIN, pixel_loglik
 
 _SOURCES = ("mog_field_sep.cu",)
+# the kernels' walk (csrc/mog_field_sep.cu kBandPix, kMaxBandRows): bands of
+# whole rows, as many as fit BAND_PIX pixels, at most MAX_BAND_ROWS
+BAND_PIX = 2048
+MAX_BAND_ROWS = 32
 
 
 def stamp_pixel_data_2d(stamp):
@@ -91,6 +97,93 @@ def _sep_loglik_bwd_torch(amp, cx, cy, iv, xs, ys, counts, sky, mask, g):
             iv * (rr * dx).sum(-1),
             iv * (ss * dy).sum(-1),
             -0.5 * ((rr * dx * dx).sum(-1) + (ss * dy * dy).sum(-1)))
+
+
+def _sep_loglik_bwd_moments_torch(amp, cx, cy, iv, xs, ys, counts, sky, mask, g):
+    """The backward kernel's moment form, dense: each column w sums over the
+    rows R_c[w] = sum_h g_lam col_c[h], Y1_c[w] = sum_h g_lam col_c[h] dy and
+    Y2_c[w] = sum_h g_lam col_c[h] dy^2, and the four cotangents are sums over
+    the columns, d a = sum_w R_c ex_c, d cx = iv sum_w R_c row_c dx,
+    d cy = iv sum_w row_c Y1_c, d iv = -(sum_w R_c row_c dx^2 + row_c Y2_c) / 2.
+    Equal in exact arithmetic to :func:`_sep_loglik_bwd_torch`."""
+    dx, dy, ex, rows, cols = _sep_factors(amp, cx, cy, iv, xs, ys)
+    lam = _sep_lam(rows, cols, sky)
+    active = (lam > LAMBDA_MIN).to(lam.dtype)
+    g_lam = (g[:, None, None] * mask) * (counts / torch.clamp(lam, min=LAMBDA_MIN) - 1.0) * active
+    gc = g_lam[:, None] * cols[..., :, None]                       # [B, C, H, W]
+    r = gc.sum(2)                                                  # [B, C, W]
+    y1 = (gc * dy[..., :, None]).sum(2)
+    y2 = (gc * (dy * dy)[..., :, None]).sum(2)
+    rr = r * rows
+    return ((r * ex).sum(-1),
+            iv * (rr * dx).sum(-1),
+            iv * (rows * y1).sum(-1),
+            -0.5 * (rr * dx * dx + rows * y2).sum(-1))
+
+
+def k8_band_rows(h: int, w: int) -> int:
+    """Rows per band of an h x w stamp in K8 (csrc/mog_field_sep.cu
+    band_rows): as many as fit BAND_PIX pixels, at most MAX_BAND_ROWS and h,
+    and at least one."""
+    rows = BAND_PIX // w if w > 0 else MAX_BAND_ROWS
+    return max(min(rows, MAX_BAND_ROWS, h), 1)
+
+
+def k8_lane_walk(h: int, w: int) -> list[list[int]]:
+    """The flat pixels (h_i * w + w_i) each of a chain's 32 lanes takes in
+    K8, in the order it meets them (the kernels' walk, written out): bands of
+    :func:`k8_band_rows` rows in row order; in each band, blocks of 32
+    columns in order, lane l taking column w0 + l (none past w) and walking
+    the band's rows."""
+    nr = k8_band_rows(h, w)
+    out = [[] for _ in range(32)]
+    for h0 in range(0, h, nr):
+        for w0 in range(0, w, 32):
+            for lane in range(32):
+                x = w0 + lane
+                if x < w:
+                    out[lane].extend(r * w + x for r in range(h0, min(h0 + nr, h)))
+    return out
+
+
+def random_sep_problem(b: int, c: int, h: int, w: int, seed: int = 0):
+    """A random separable problem as float32 NumPy arrays, for checks of the
+    kernels away from a star's stamp: star-like planes (amp, cx, cy, iv)
+    [b, c] of c components around the stamp's centre, every 5th chain's
+    first component at zero amplitude; xs [1, w], ys [1, h]; counts drawn
+    from the planes' mean chain over a sky of ~100, a mask with every 7th
+    column and one row masked; and a cotangent g [b]."""
+    rng = np.random.default_rng(seed)
+    var = rng.uniform(1.0, 6.0, (b, c))
+    iv = 1.0 / var
+    flux = rng.uniform(2e3, 2e4, (b, 1)) * rng.dirichlet(np.ones(c), b)
+    amp = flux * iv / (2 * math.pi)
+    amp[::5, 0] = 0.0
+    cx = (w - 1) / 2 + rng.normal(0.0, 1.5, (b, 1)) + rng.normal(0.0, 0.5, (b, c))
+    cy = (h - 1) / 2 + rng.normal(0.0, 1.5, (b, 1)) + rng.normal(0.0, 0.5, (b, c))
+    xs, ys = np.arange(w, dtype=np.float64)[None], np.arange(h, dtype=np.float64)[None]
+    sky = rng.uniform(90.0, 110.0, (h, w))
+    rows = amp.mean(0)[:, None] * np.exp(-0.5 * iv.mean(0)[:, None]
+                                         * (xs - cx.mean(0)[:, None]) ** 2)
+    cols = np.exp(-0.5 * iv.mean(0)[:, None] * (ys - cy.mean(0)[:, None]) ** 2)
+    counts = rng.poisson(sky + cols.T @ rows)
+    mask = np.ones((h, w))
+    mask[:, ::7] = 0.0
+    mask[h // 2] = 0.0
+    f32 = [np.ascontiguousarray(a, dtype=np.float32)
+           for a in (amp, cx, cy, iv, xs, ys, counts, sky, mask, rng.normal(size=b))]
+    return tuple(f32[:4]), tuple(f32[4:9]), f32[9]
+
+
+def sep_as_k1(amp, cx, cy, iv, xs, ys, counts, sky, mask):
+    """The same problem in K1's form: precision planes (amp, mx, my, pa, pb,
+    pc) with pa = pc = iv, pb = 0, and the [1, H W] pixel arrays of the
+    stamp's row-major pixels, so that K1 and K8 compute one likelihood."""
+    h, w = counts.shape
+    px = xs.expand(h, w).reshape(1, -1).contiguous()
+    py = ys.reshape(h, 1).expand(h, w).reshape(1, -1).contiguous()
+    return ((amp, cx, cy, iv, torch.zeros_like(iv), iv),
+            (px, py, *(t.reshape(1, -1).contiguous() for t in (counts, sky, mask))))
 
 
 # ---------------------------------------------------------------------------

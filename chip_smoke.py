@@ -34,10 +34,13 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    on config 5's dense planes over the 48x128 field at B=1024, rtol 1e-5,
    atol 1e-3, zero-amplitude rows exactly the sky; the separable kernels
    (K8-fwd, K8-bwd) against theirs and K8-fwd against K1 on the same
-   isotropic star planes, B=1000 and 4096, centered both ways, full and
-   holed masks, values rtol 2e-6, atol 0.5, cotangents against the plain
-   backward and torch autograd rtol 5e-4, atol 5e-2, finite for
-   zero-amplitude components, two calls bitwise equal;
+   isotropic star planes, B=1000 and 4096, and on random problems
+   (``random_sep_problem``) at W = 25, 31, 32, 33, 64, 100 with H != W,
+   C = 1, 3, 4, 5 and B = 1, 7, 4096 (and B=65536 at three of them),
+   centered both ways, full and holed masks, values rtol 2e-6, atol 0.5,
+   cotangents against the plain backward and torch autograd rtol 5e-4,
+   atol 5e-2, finite for zero-amplitude components, two calls bitwise
+   equal;
 6. the card's log-likelihood at the truth against the fp64 NumPy oracle,
    for config 1 (25x25 stamp), config 2 (each of the five bands), config 3
    (31x31 galaxy) and config 5 (tiled, 48x128 field), and the config-5
@@ -90,21 +93,25 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    ``value_and_grad`` at B=1024, kernel and plain; K5 and K6 over the sharded tables at B=1024
    and 4096, kernel and plain, and one sharded ``value_and_grad`` at B=1024
    beside the single-device one; K8-fwd and K8-bwd at B=65536 on config 1's
-   stamp in turns with K1-fwd and K1-bwd, plain, and the entry point's
-   ``value_and_grad`` with each kernel; K7 at B=1024 on config 5's field
-   and on a 25x25 stamp, kernel and plain; K1-fwd and K1-bwd at each shape
+   stamp in turns with K1-fwd and K1-bwd (device time from CUDA graphs of
+   20 calls), plain, and the entry point's ``value_and_grad`` with each
+   kernel; K7 at B=1024 on config 5's field and on a 25x25 stamp, kernel
+   and plain, and at the PPC's two launch shapes (32 draws: config 2's
+   star, C=3, 640 pixels; config 3's galaxy, C=48, 1024) from CUDA graphs,
+   with bound, launches and loss; K1-fwd and K1-bwd at each shape
    where the paths call them (config 1 at 64 chains, config 2's bands and
    config 3 at 32, config 5's dense probe at 8, config 1's stamp at 65536),
    device time per call from a CUDA graph of 20 calls, with the bound and
    this run's launches at that shape;
 12. print K1's rows by shape as a JSON line (``k1_shapes``, with the time
-    lost, launches x (ms - bound), summed per kernel in ``k1_lost_s``),
-    then the kernels' JSON line (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd),
-    each kernel's ms per wrapper call (K2-K4: both buckets timed together,
-    divided by their two launches) with its bound per call (the largest of
-    its bytes over the card's memory rate, its float32 operations over the
-    card's float32 rate, and its exponentials and logarithms over the
-    special-function unit's rate), failing on a kernel faster than its
+    lost, launches x (ms - bound), summed per kernel in ``k1_lost_s``), K7's
+    likewise (``k7_shapes``, ``k7_lost_s``), then the kernels' JSON line
+    (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd), each kernel's ms per wrapper
+    call (K2-K4: both buckets timed together, divided by their two
+    launches) with its bound per call (the largest of its bytes over the
+    card's memory rate, its float32 operations over the card's float32
+    rate, and its exponentials and logarithms over the special-function
+    unit's rate), failing on a kernel faster than its
     bound, then the card line and the result line.
 
 Config 5's flow runs the bench's step counts (the defaults of
@@ -150,6 +157,13 @@ UGRIZ_HMC = dict(n_warmup=300, n_steps=150)
 UGRIZ_SLICE = dict(n_steps=100)
 GALAXY_NUTS = dict(n_warmup=150, n_steps=150)
 SEP_TOL = (2e-6, 0.5)           # K8 against its plain version and against K1
+# phase 5: K8 on random problems at widths below, at and above a warp's 32
+# columns and over several column blocks (H != W), C on both sides of the
+# C <= 4 template, B = 1, 7 and 4096 at each, and B = 65536 at three
+SEP_GRID = tuple((b, c, h, w) for w, h in ((25, 21), (31, 26), (32, 27), (33, 40), (64, 57),
+                                           (100, 90))
+                 for c in (1, 3, 4, 5) for b in (1, 7, 4096)) + (
+    (65536, 3, 25, 25), (65536, 1, 40, 33), (65536, 5, 40, 33))
 # phase 3: K1 at every geometry k1_geometry picks, on config 1's 25x25 stamp
 # size and on 96x96 and 128x128 stamps (the backward there at B <= 64)
 K1_CHAINS = (1, 9, 32, 64, 1000, 4096)
@@ -618,9 +632,58 @@ def sep_kernel_checks(device):
                 max_abs_err(a, h, *BWD_TOL, what + " vs plain K8-bwd")
                 errs["bwd"] = max(errs["bwd"], max_abs_err(a, w, *BWD_TOL, what + " vs autograd"))
                 check(torch.equal(a, a2), f"{what}: two calls differ")
-    print(f"[kernels] K8 matches the plain versions and K1 (max abs err {errs}); K8-bwd is "
-          f"bitwise deterministic", flush=True)
+    for b, c, h, w in SEP_GRID:
+        sep_shape_check(device, b, c, h, w, errs)
+    print(f"[kernels] K8 matches the plain versions and K1 on config 1's stamp and at the "
+          f"{len(SEP_GRID)} (B, C, H, W) of the grid (max abs err {errs}); K8 is bitwise "
+          f"deterministic", flush=True)
     return errs
+
+
+def sep_shape_check(device, b, c, h, w, errs, chunk=4096):
+    """K8 on ``random_sep_problem(b, c, h, w)`` (every 5th chain's first
+    component at zero amplitude, holed mask): K8-fwd against its plain
+    version and K1, full and holed masks, centered both ways; K8-bwd
+    against its plain version and torch autograd through the plain forward
+    (the plain versions a chunk of chains at a time); both twice, bitwise
+    equal."""
+    from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.kernels import mog_field_sep as ms
+
+    planes, pix, g = ms.random_sep_problem(b, c, h, w, seed=b + c + w)
+    planes = [torch.as_tensor(a, device=device) for a in planes]
+    pix = [torch.as_tensor(a, device=device) for a in pix]
+    g = torch.as_tensor(g, device=device)
+    parts = [slice(i, i + chunk) for i in range(0, b, chunk)]
+    shape = f"B={b} C={c} {h}x{w}"
+    for mname, px in (("holed", pix), ("full", (*pix[:4], torch.ones_like(pix[4])))):
+        k1_planes, k1_pix = ms.sep_as_k1(*planes, *px)
+        for centered in (False, True):
+            what = f"{shape} mask={mname} centered={centered}"
+            got = ms.sep_fwd_cuda(*planes, *px, centered=centered)
+            again = ms.sep_fwd_cuda(*planes, *px, centered=centered)
+            want = torch.cat([ms._sep_loglik_torch(*(t[sl] for t in planes), *px,
+                                                   centered=centered) for sl in parts])
+            k1 = mf.loglik_fwd_cuda(*k1_planes, *k1_pix, centered=centered)
+            torch.cuda.synchronize()
+            errs["fwd"] = max(errs["fwd"], max_abs_err(got, want, *SEP_TOL, "K8-fwd " + what))
+            max_abs_err(got, k1, *SEP_TOL, "K8-fwd vs K1-fwd " + what)
+            check(torch.equal(got, again), f"K8-fwd {what}: two calls differ")
+    got = ms.sep_bwd_cuda(*planes, *pix, g)
+    again = ms.sep_bwd_cuda(*planes, *pix, g)
+    hand, auto = [], []
+    for sl in parts:
+        ps = [t[sl] for t in planes]
+        hand.append(ms._sep_loglik_bwd_torch(*ps, *pix, g[sl]))
+        leaves = [t.detach().clone().requires_grad_(True) for t in ps]
+        auto.append(torch.autograd.grad(ms._sep_loglik_torch(*leaves, *pix), leaves, g[sl]))
+    torch.cuda.synchronize()
+    for i, name in enumerate(("amp", "cx", "cy", "iv")):
+        what = f"K8-bwd {shape} d_{name}"
+        max_abs_err(got[i], torch.cat([x[i] for x in hand]), *BWD_TOL, what + " vs plain")
+        errs["bwd"] = max(errs["bwd"], max_abs_err(got[i], torch.cat([x[i] for x in auto]),
+                                                   *BWD_TOL, what + " vs autograd"))
+        check(torch.equal(got[i], again[i]), f"{what}: two calls differ")
 
 
 # ---------------------------------------------------------------------------
@@ -1061,11 +1124,12 @@ def ppc_path(device, runs):
               runs["galaxy nuts"][1]))
     mf.reset_launch_counts()
     t0 = time.perf_counter()
-    out = []
+    shapes = {}
     for tag, scene, band, cs, flux_slot, res in cases:
         stamp = scene.stamps[band]
         counts, mask = stamp.counts.cpu().numpy(), stamp.mask.cpu().numpy()
         kept = res["samples"][:, res["samples"].shape[1] // 4:]
+        before = mf.launch_counts()["mog_field_render"]
         lam = ppc_lambda_draws(cs, kept, stamp, band=band, n_draws=PPC_DRAWS)
         check(lam.shape == (PPC_DRAWS,) + tuple(counts.shape) and bool(np.isfinite(lam).all()),
               f"PPC {tag}: lambda draws {lam.shape}")
@@ -1079,11 +1143,12 @@ def ppc_path(device, runs):
               f"max |z| {np.abs(z).max():.3f}; source flux removed: p={p_w:.4f}", flush=True)
         check(0.02 < p < 0.98, f"PPC {tag}: p={p:.4f} outside (0.02, 0.98)")
         check(p_w < 0.02, f"PPC {tag}: the missing source gives p={p_w:.4f} >= 0.02")
-        out.append(p)
+        shapes[tag] = (cs, kept, stamp, band,
+                       mf.launch_counts()["mog_field_render"] - before)
     counts_k7 = mf.launch_counts()["mog_field_render"]
     print(f"[ppc] {time.perf_counter() - t0:.3f}s; K7 launches {counts_k7}", flush=True)
     check(counts_k7 > 0, "the PPC path never launched K7")
-    return counts_k7
+    return counts_k7, shapes
 
 
 def sep_entry_path(device):
@@ -1280,9 +1345,10 @@ def render_timings(card, sharded5, vg_single_ms):
 
 def sep_timings(device, card):
     """K8-fwd and K8-bwd at B=65536 on config 1's stamp, kernel and plain,
-    timed in turns with K1-fwd and K1-bwd on the same chains; and the
-    entry point's value_and_grad with impl="sep" and with the general
-    kernel."""
+    timed in turns with K1-fwd and K1-bwd on the same chains (device ms per
+    call: a CUDA graph of 20 calls, best of 3); and the entry point's
+    value_and_grad with impl="sep" and with the general kernel."""
+    from celeste_tpu_torch.bench.timing import graph_ms
     from celeste_tpu_torch.inference.hmc import value_and_grad
     from celeste_tpu_torch.kernels import mog_field as mf
     from celeste_tpu_torch.kernels import mog_field_sep as ms
@@ -1297,11 +1363,11 @@ def sep_timings(device, card):
         order = ("K1", "K8") if turn == "a" else ("K8", "K1")
         for k in order:
             if k == "K1":
-                fwd = time_ms(lambda: mf.loglik_fwd_cuda(*k1_planes, *pd1), 20)
-                bwd = time_ms(lambda: mf.loglik_bwd_cuda(*k1_planes, *pd1, g), 20)
+                fwd = graph_ms(lambda: mf.loglik_fwd_cuda(*k1_planes, *pd1))
+                bwd = graph_ms(lambda: mf.loglik_bwd_cuda(*k1_planes, *pd1, g))
             else:
-                fwd = time_ms(lambda: ms.sep_fwd_cuda(*planes, *pd2), 20)
-                bwd = time_ms(lambda: ms.sep_bwd_cuda(*planes, *pd2, g), 20)
+                fwd = graph_ms(lambda: ms.sep_fwd_cuda(*planes, *pd2))
+                bwd = graph_ms(lambda: ms.sep_bwd_cuda(*planes, *pd2, g))
             t[f"{k}_fwd_ms"] = min(t.get(f"{k}_fwd_ms", fwd), fwd)
             t[f"{k}_bwd_ms"] = min(t.get(f"{k}_bwd_ms", bwd), bwd)
     t["K8_fwd_plain_ms"] = time_ms(lambda: ms._sep_loglik_torch(*planes, *pd2), 5)
@@ -1341,6 +1407,54 @@ def stamp_render_timings(device, card, config5):
     for k, v in t.items():
         print(f"    {k} = {v:.6f} ms", flush=True)
     return t
+
+
+def k7_shape_timings(card, shapes):
+    """K7 at the shapes where the PPC launches it (config 2's r band, C=3,
+    and config 3's galaxy, C=48, both at PPC_DRAWS chains): the planes of
+    the draws ``ppc_lambda_draws`` renders, device ms per call (a CUDA
+    graph of 20 calls, best of 3) and the plain version's (CUDA events),
+    the bound per call, this run's launches at that shape and the time
+    lost, launches x (ms - bound).  ``shapes``:
+    {tag: (scene, kept samples, stamp, band, launches)} from ``ppc_path``."""
+    from celeste_tpu_torch.bench.timing import graph_ms
+    from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.parallel.crowded import scene_field_planes
+
+    rows = []
+    for tag, (cs, kept, stamp, band, n) in shapes.items():
+        flat = kept.reshape(-1, kept.shape[-1])
+        idx = np.random.default_rng(0).choice(flat.shape[0], size=PPC_DRAWS, replace=False)
+        vecs = torch.as_tensor(flat[idx], dtype=torch.float32, device=stamp.device)
+        planes = [p.contiguous() for p in scene_field_planes(cs, vecs, stamp, band)]
+        px, py, _, sky, _ = mf.stamp_pixel_data(stamp)
+        ms = graph_ms(lambda: mf.render_cuda(*planes, px, py, sky))
+        plain_ms = time_ms(lambda: mf._render_torch(*planes, px, py, sky), 5)
+        b, c = planes[0].shape
+        pix, pix_pad = stamp.counts.numel(), px.shape[1]
+        bound_ms, bound_by = k7_bound(b, c, pix, pix_pad)
+        rows.append({"kernel": "K7", "shape": tag, "chains": b, "components": c,
+                     "pixels": pix, "pixels_padded": pix_pad, "launches": n, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "lost_s": n * (ms - bound_ms) * 1e-3})
+    print(f"[timing] K7 where the PPC launches it (device ms per call: a CUDA graph of 20 "
+          f"calls, best of 3), card: {card}", flush=True)
+    for r in rows:
+        print(f"    K7 {r['shape']}: B={r['chains']} C={r['components']} P={r['pixels']} "
+              f"({r['pixels_padded']}) ms={r['ms']:.6f} plain={r['plain_ms']:.6f} "
+              f"bound={r['bound_ms']:.6f} ({r['bound_by']}) launches={r['launches']} "
+              f"lost={r['lost_s']:.6f} s", flush=True)
+    return rows
+
+
+def k7_bound(b, c, pix, pix_pad):
+    """K7's bound per call for b chains of c components over pix real
+    pixels (pix_pad rendered): a term's form and sum and its exponential per
+    (chain, pixel, component); the planes and the pixel arrays read once,
+    the [B, P] images written once."""
+    f4 = 4
+    return bound(b * pix * c * (FLOPS_TERM_FORM + FLOPS_TERM_SUM),
+                 6 * b * c * f4 + 3 * pix_pad * f4 + b * pix_pad * f4, b * pix * c)
 
 
 def bound(flops, nbytes, special):
@@ -1491,9 +1605,7 @@ def kernel_bounds(config5, sharded5):
     # K7 on config 5's field with the dense planes (12 sources: 10 stars of
     # 3 components, 2 galaxies of 48) at B=1024: a term's form and sum, and
     # the [B, P] store
-    c, pix = 10 * 3 + 2 * 48, 48 * 128
-    out["K7"] = bound(b * pix * c * (FLOPS_TERM_FORM + FLOPS_TERM_SUM),
-                      6 * b * c * f4 + 3 * pix * f4 + b * pix * f4, b * pix * c)
+    out["K7"] = k7_bound(b, 10 * 3 + 2 * 48, 48 * 128, 48 * 128)
     # K8 on config 1's 25x25 stamp at B=65536: the C (H + W) factors, then per
     # pixel C multiply-adds and the Poisson term (forward) or its cotangent
     # and the two contractions (backward), then the factors' cotangent sums
@@ -1564,7 +1676,7 @@ def main() -> int:
         check(c5_counts[name] > 0, f"the config-5 path never launched {name}")
 
     runs23 = configs23_path(device)
-    k7_launches = ppc_path(device, runs23)
+    k7_launches, k7_shapes = ppc_path(device, runs23)
     k8_counts, k1_65536 = sep_entry_path(device)
     k1_launches = {"config 1": k1_counts, "config 5 dense": dense_counts, "B=65536": k1_65536,
                    "config 2": {k: runs23["ugriz hmc"][3][k] + runs23["ugriz slice"][3][k]
@@ -1589,6 +1701,7 @@ def main() -> int:
         tr = render_timings(card, sharded5, t5["vg_ms"])
         t8 = sep_timings(device, card)
         t7 = stamp_render_timings(device, card, config5)
+        k7_rows = k7_shape_timings(card, k7_shapes)
         k1_rows = k1_shape_timings(device, card, config5, k1_launches)
         bounds = kernel_bounds(config5, sharded5)
     tiled = "celeste_tpu/kernels/tiled_field.py"
@@ -1630,6 +1743,8 @@ def main() -> int:
     print(f"[done] whole script {time.perf_counter() - t_start:.3f} s", flush=True)
     lost = {k: sum(r["lost_s"] for r in k1_rows if r["kernel"] == k) for k in ("K1-fwd", "K1-bwd")}
     print(json.dumps({"k1_shapes": k1_rows, "k1_lost_s": lost}), flush=True)
+    print(json.dumps({"k7_shapes": k7_rows, "k7_lost_s": sum(r["lost_s"] for r in k7_rows)}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -751,6 +751,77 @@ def test_sep_kernels_on_a_128x128_stamp(cuda):
         torch.testing.assert_close(a, w, **GRAD_TOL)
 
 
+SEP_SHAPES = [(c, h, w) for w, h in ((25, 21), (31, 26), (32, 27), (33, 40), (64, 57), (100, 90))
+              for c in (1, 3, 4, 5)]
+
+
+def _sep_problem(b, c, h, w, device, seed=0):
+    from celeste_tpu_torch.kernels import mog_field_sep as ms
+
+    planes, pix, g = ms.random_sep_problem(b, c, h, w, seed=seed)
+    return ([torch.as_tensor(a, device=device) for a in planes],
+            [torch.as_tensor(a, device=device) for a in pix], torch.as_tensor(g, device=device))
+
+
+@pytest.mark.parametrize("c,h,w", SEP_SHAPES)
+@pytest.mark.parametrize("b", [1, 7, 4096])
+def test_sep_kernels_at_any_shape(cuda, b, c, h, w):
+    """K8 at widths below, at and above a warp's 32 columns and over several
+    column blocks, H != W, C on both sides of the C <= 4 template: K8-fwd
+    against its plain version (centered both ways, full and holed masks)
+    and against K1 on the same problem; K8-bwd against its plain version and
+    torch autograd, finite at zero-amplitude components, two calls bitwise
+    equal."""
+    from celeste_tpu_torch.kernels import mog_field_sep as ms
+
+    planes, pix, g = _sep_problem(b, c, h, w, cuda, seed=b + c + w)
+    full = (*pix[:4], torch.ones_like(pix[4]))
+    for mask_name, px in (("holed", pix), ("full", full)):
+        for centered in (False, True):
+            got = ms.sep_fwd_cuda(*planes, *px, centered=centered)
+            assert torch.equal(got, ms.sep_fwd_cuda(*planes, *px, centered=centered))
+            torch.testing.assert_close(
+                got, ms._sep_loglik_torch(*planes, *px, centered=centered), **SEP_TOL,
+                msg=f"{mask_name} centered={centered}")
+            k1_planes, k1_pix = ms.sep_as_k1(*planes, *px)
+            torch.testing.assert_close(got, mf.loglik_fwd_cuda(*k1_planes, *k1_pix,
+                                                               centered=centered), **SEP_TOL)
+    got = ms.sep_bwd_cuda(*planes, *pix, g)
+    again = ms.sep_bwd_cuda(*planes, *pix, g)
+    hand = ms._sep_loglik_bwd_torch(*planes, *pix, g)
+    leaves = [t.clone().requires_grad_(True) for t in planes]
+    auto = torch.autograd.grad(ms._sep_loglik_torch(*leaves, *pix), leaves, g)
+    for name, a, a2, hd, au in zip(("amp", "cx", "cy", "iv"), got, again, hand, auto):
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, a2), name
+        torch.testing.assert_close(a, hd, **GRAD_TOL, msg=name)
+        torch.testing.assert_close(a, au, **GRAD_TOL, msg=name)
+
+
+@pytest.mark.parametrize("c,h,w", [(3, 25, 25), (1, 40, 33), (5, 40, 33)])
+def test_sep_kernels_at_65536_chains(cuda, c, h, w):
+    """K8 at the evals/s chain count, against the plain versions taken in
+    chunks of chains, and K8-fwd against K1."""
+    from celeste_tpu_torch.kernels import mog_field_sep as ms
+
+    planes, pix, g = _sep_problem(65536, c, h, w, cuda, seed=c)
+    for centered in (False, True):
+        got = ms.sep_fwd_cuda(*planes, *pix, centered=centered)
+        want = torch.cat([ms._sep_loglik_torch(*(p[i:i + 4096] for p in planes), *pix,
+                                               centered=centered)
+                          for i in range(0, 65536, 4096)])
+        torch.testing.assert_close(got, want, **SEP_TOL)
+        k1_planes, k1_pix = ms.sep_as_k1(*planes, *pix)
+        torch.testing.assert_close(got, mf.loglik_fwd_cuda(*k1_planes, *k1_pix,
+                                                           centered=centered), **SEP_TOL)
+    got = ms.sep_bwd_cuda(*planes, *pix, g)
+    hand = [torch.cat(t) for t in zip(*(ms._sep_loglik_bwd_torch(
+        *(p[i:i + 4096] for p in planes), *pix, g[i:i + 4096]) for i in range(0, 65536, 4096)))]
+    for a, a2, hd in zip(got, ms.sep_bwd_cuda(*planes, *pix, g), hand):
+        assert torch.equal(a, a2)
+        torch.testing.assert_close(a, hd, **GRAD_TOL)
+
+
 def test_sep_entry_point_launches_both_kernels(cuda):
     from celeste_tpu_torch.kernels import mog_field_sep as ms
 
@@ -781,10 +852,10 @@ def test_sep_and_render_wrappers_reject_bad_inputs(cuda):
         ms.sep_fwd_cuda(*planes, pd[0].cpu(), *pd[1:])
     with pytest.raises(ValueError, match="g has"):
         ms.sep_bwd_cuda(*planes, *pd, torch.ones(7, device=cuda))
-    # the stamp is staged in bands of rows, so only the row and column
-    # factors, kWarps C (3 W + H + 2) floats, can outgrow shared memory
-    big = [torch.ones(1, 2000, device=cuda), torch.ones(1, 2000, device=cuda)] + [
-        torch.ones(2000, 2000, device=cuda) for _ in range(3)]
+    # the stamp is staged in bands of whole rows, 16 bytes a pixel, so only a
+    # row wider than shared memory holds (about 14000 pixels) fails
+    big = [torch.ones(1, 16384, device=cuda), torch.ones(1, 2, device=cuda)] + [
+        torch.ones(2, 16384, device=cuda) for _ in range(3)]
     before = ms.launch_counts()
     with pytest.raises(RuntimeError, match="launch failed"):
         ms.sep_bwd_cuda(*planes, *big, torch.ones(8, device=cuda))

@@ -205,3 +205,69 @@ def test_cpu_tensors_take_the_plain_version_and_nothing_falls_back(scene):
     _, tstamp, vecs = _inputs(scene)
     with pytest.raises(ValueError, match="impl must be one of"):
         tmf.batched_stamp_loglik(torch.as_tensor(vecs), tstamp, band=2, impl="pallas_sep")
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's moment form and its walk over the pixels, away from
+# the star's 25x25 stamp: W below, at and above a warp's 32 columns and
+# beyond three column blocks, H != W, C on both sides of the kernels' C <= 4
+# template, holed masks and a zero-amplitude component (random_sep_problem)
+# ---------------------------------------------------------------------------
+
+SEP_SHAPES = [(c, h, w) for w, h in ((25, 21), (32, 27), (33, 40), (100, 90))
+              for c in (1, 3, 5)]
+
+
+@pytest.mark.parametrize("c,h,w", SEP_SHAPES)
+def test_moment_form_backward_matches_plain_and_jax(c, h, w):
+    """The column sums R, Y1, Y2 and the four cotangents built from them
+    (the backward kernel's algebra) against the plain backward and against
+    JAX's autodiff of ``_sep_loglik_jnp``, at the gradient tolerance."""
+    planes, pix, g = tsep.random_sep_problem(7, c, h, w, seed=c * 1000 + w)
+    assert (planes[0] == 0).any() and (pix[4] == 0).any()
+    tp = [torch.as_tensor(a) for a in planes]
+    tx = [torch.as_tensor(a) for a in pix]
+    got = tsep._sep_loglik_bwd_moments_torch(*tp, *tx, torch.as_tensor(g))
+    plain = tsep._sep_loglik_bwd_torch(*tp, *tx, torch.as_tensor(g))
+    _, vjp = jax.vjp(lambda *p: jsep._sep_loglik_jnp(*p, *map(jnp.asarray, pix)),
+                     *map(jnp.asarray, planes))
+    want = vjp(jnp.asarray(g))
+    for name, a, p, j in zip(("amp", "cx", "cy", "iv"), got, plain, want):
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, p, **GRAD_TOL, msg=name)
+        np.testing.assert_allclose(a.numpy(), np.asarray(j), **GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("h,w", [(25, 25), (27, 32), (40, 33), (90, 100), (128, 128),
+                                 (2000, 1), (3, 5000), (0, 25)])
+def test_k8_lane_walk_covers_every_pixel_once(h, w):
+    """K8's walk: every pixel of the stamp exactly once, lane l only in the
+    columns l, l + 32, ..., each lane's rows in order within a column, and
+    bands of at most MAX_BAND_ROWS rows and BAND_PIX pixels (one row at
+    least)."""
+    walk = tsep.k8_lane_walk(h, w)
+    assert len(walk) == 32
+    covered = np.sort(np.concatenate([np.asarray(s, dtype=np.int64) for s in walk]))
+    assert np.array_equal(covered, np.arange(h * w))
+    for lane, pix in enumerate(walk):
+        assert all(p % w % 32 == lane for p in pix)
+        cols = {}
+        for p in pix:
+            cols.setdefault(p % w, []).append(p // w)
+        assert all(rows == sorted(rows) for rows in cols.values())
+    nr = tsep.k8_band_rows(h, w)
+    assert 1 <= nr <= tsep.MAX_BAND_ROWS
+    assert nr == 1 or nr * w <= tsep.BAND_PIX
+
+
+@pytest.mark.parametrize("centered", [False, True])
+def test_sep_problem_in_k1_form_is_the_same_likelihood(centered):
+    """``sep_as_k1`` (how the card checks hold K8-fwd against K1 away from a
+    star's stamp): K1's plain forward on it equals K8's plain forward."""
+    planes, pix, _ = tsep.random_sep_problem(9, 3, 27, 33, seed=2)
+    tp = [torch.as_tensor(a) for a in planes]
+    tx = [torch.as_tensor(a) for a in pix]
+    k1_planes, k1_pix = tsep.sep_as_k1(*tp, *tx)
+    assert tuple(k1_pix[0].shape) == (1, 27 * 33)
+    torch.testing.assert_close(tmf._loglik_torch(*k1_planes, *k1_pix, centered=centered),
+                               tsep._sep_loglik_torch(*tp, *tx, centered=centered), **TOL)
