@@ -8,9 +8,10 @@ the counts are bitwise the JAX package's), the tiled-vs-dense parity gap,
 the shared preparation flow (diagonal HMC warmup, a NUTS probe, the pooled
 dense metric, z-space warmup) and the two whitened-space arms (ChEES and
 NUTS).  Everything is batch-major; time is a Python loop.
-:func:`build_config5_sharded` gives the same scene's rectangular posterior
-sharded over a mesh of ranks.  The warm-start artifact variants
-(``*_cached``) are not ported.
+:func:`build_config5_multiband` gives the same scene observed jointly in
+several bands (g, r, i by default), :func:`build_config5_sharded` its
+rectangular posterior sharded over a mesh of ranks.  The warm-start
+artifact variants (``*_cached``) are not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ N_SOURCES = 12
 SHAPE = (48, 128)
 GALAXIES = (3, 8)
 N_BUCKETS = 2           # tile occupancy buckets of the tiled likelihood
+MULTIBAND = (1, 2, 3)   # the joint field's bands: g, r, i
 # the flow's fixed settings (the JAX bench's): HMC warmup windows, the first
 # step size, ChEES adaptation windows and trajectory cap, the NUTS arm's
 # depth, and one seed per phase
@@ -47,23 +49,11 @@ def _gen(seed, device):
     return gen
 
 
-def build_config5(radii_scale: float = 1.0, device="cuda"):
-    """Returns ``(logd_tiled, logd_dense, vec, info)``: both joint
-    log-densities ``[B, D] -> [B]`` (centered), the ground-truth
-    unconstrained state ``vec`` [D] (float32, on ``device``) and ``info``
-    with the pieces probes need (scene, stamp, positions, tile data, WCS,
-    sources, oracle stamp, per-block radii).  ``radii_scale`` scales the
-    live support radii (the parity gate's regression hook).  Runs on the
-    card unless ``device="cpu"``; a CUDA device where CUDA is absent
-    raises."""
+def _scene(bands, device):
+    """The config-5 scene observed in ``bands``: (kinds, sources, the
+    synthetic scene with one stamp per band)."""
     from celeste_tpu_torch.data.synthetic import galaxy_source, make_synthetic_stamp, star_source
-    from celeste_tpu_torch.experiments import resolve_device
-    from celeste_tpu_torch.model.galaxy import block_support_radii
-    from celeste_tpu_torch.parallel.crowded import (
-        CrowdedScene, make_crowded_logdensity, make_tiled_crowded_logdensity,
-    )
 
-    device = resolve_device(str(device))
     rng = np.random.default_rng(11)
     cosd = np.cos(np.deg2rad(10.0))
     h, w = SHAPE
@@ -78,39 +68,105 @@ def build_config5(radii_scale: float = 1.0, device="cuda"):
             srcs.append(star_source(u=u, flux_r=20 + 10 * rng.random()))
         else:
             srcs.append(galaxy_source(u=u, flux_r=60.0, sigma=0.8, ab=0.6))
-    sd = make_synthetic_stamp(srcs, shape=(h, w), bands=(2,), seed=55, device=device)
-    cs = CrowdedScene(kinds=kinds, n_bands=1)
-    stamp = sd.stamps[0]
+    return kinds, srcs, make_synthetic_stamp(srcs, shape=(h, w), bands=bands, seed=55,
+                                             device=device)
+
+
+def _positions_and_radii(kinds, srcs, sd, stamp, radii_scale):
+    """Source pixel positions [S, 2] on ``stamp`` and per-block support
+    radii: each galaxy component block truncated at its own scale and
+    amplitude (sigma upper bound = 1.5x the truth); ``radii_scale`` scales
+    the live radii (the parity gate's regression hook; negative entries
+    mark dead blocks and stay put)."""
+    from celeste_tpu_torch.model.galaxy import block_support_radii
+
     du = torch.as_tensor(np.stack([sd.wcs.equa2duas(s["u"]) for s in srcs]),
-                         dtype=torch.float32, device=device)
+                         dtype=torch.float32, device=stamp.counts.device)
     pos_px = stamp.duas2pixel(du).cpu().numpy()
-    # per-block support radii: each galaxy component block truncated at its
-    # own scale and amplitude (sigma upper bound = 1.5x the truth)
     psf_sig = float(np.sqrt(np.max(np.linalg.eigvalsh(stamp.psf.cov.cpu().numpy()))))
     radii = block_support_radii(kinds, psf_sigma_px=psf_sig, gal_sigma_px=1.5 * 0.8 / 0.396)
     if radii_scale != 1.0:
-        # negative entries mark dead blocks and stay put
         radii = np.where(radii > 0, radii * radii_scale, radii)
+    return pos_px, radii
+
+
+def _truth(srcs, kinds, wcs, bands, device):
+    """The ground-truth unconstrained state [D] (float32): per source its
+    offsets, a log-flux per band and (galaxies) the shape slots."""
+    parts = []
+    for s, kind in zip(srcs, kinds):
+        head = [wcs.equa2duas(s["u"]), np.log([s["flux"][b] for b in bands])]
+        if kind == "galaxy":
+            th, ab = s["theta_dev"], s["ab"]
+            head.append([np.log(th / (1 - th)), np.log(s["sigma"]), np.log(ab / (1 - ab)),
+                         s["phi"]])
+        parts.append(np.concatenate(head))
+    return torch.as_tensor(np.concatenate(parts), dtype=torch.float32, device=device)
+
+
+def build_config5(radii_scale: float = 1.0, device="cuda"):
+    """Returns ``(logd_tiled, logd_dense, vec, info)``: both joint
+    log-densities ``[B, D] -> [B]`` (centered), the ground-truth
+    unconstrained state ``vec`` [D] (float32, on ``device``) and ``info``
+    with the pieces probes need (scene, stamp, positions, tile data, WCS,
+    sources, oracle stamp, per-block radii).  ``radii_scale`` scales the
+    live support radii (the parity gate's regression hook).  Runs on the
+    card unless ``device="cpu"``; a CUDA device where CUDA is absent
+    raises."""
+    from celeste_tpu_torch.experiments import resolve_device
+    from celeste_tpu_torch.parallel.crowded import (
+        CrowdedScene, make_crowded_logdensity, make_tiled_crowded_logdensity,
+    )
+
+    device = resolve_device(str(device))
+    kinds, srcs, sd = _scene((2,), device)
+    cs = CrowdedScene(kinds=kinds, n_bands=1)
+    stamp = sd.stamps[0]
+    pos_px, radii = _positions_and_radii(kinds, srcs, sd, stamp, radii_scale)
     # centered: the summed log-posterior stays at O(chi^2 / 2) ~ 1e4, where
     # fp32 resolves ~1e-3 nats (uncentered it is ~5.6e6)
     logd, data = make_tiled_crowded_logdensity(cs, stamp, band=0, positions_px=pos_px,
                                                radii_px=radii, n_buckets=N_BUCKETS,
                                                centered=True)
     logd_dense = make_crowded_logdensity(cs, [stamp], bands=[0], centered=True)
-
-    parts = []
-    for s, kind in zip(srcs, kinds):
-        du_s = sd.wcs.equa2duas(s["u"])
-        if kind == "star":
-            parts.append(np.concatenate([du_s, [np.log(s["flux"][2])]]))
-        else:
-            th, ab = s["theta_dev"], s["ab"]
-            parts.append(np.concatenate(
-                [du_s, [np.log(s["flux"][2]), np.log(th / (1 - th)), np.log(s["sigma"]),
-                        np.log(ab / (1 - ab)), s["phi"]]]))
-    vec = torch.as_tensor(np.concatenate(parts), dtype=torch.float32, device=device)
+    vec = _truth(srcs, kinds, sd.wcs, (2,), device)
     info = {"scene": cs, "stamp": stamp, "positions_px": pos_px, "tiled_data": data,
             "wcs": sd.wcs, "sources": srcs, "oracle_stamp": sd.oracle_stamps[0],
+            "radii": radii, "vec": vec}
+    return logd, logd_dense, vec, info
+
+
+def build_config5_multiband(bands=MULTIBAND, radii_scale: float = 1.0, device="cuda"):
+    """Config 5 observed jointly in several bands: the same 12 sources,
+    one 48x128 stamp and one tile map per band, a log-flux per band and
+    source, so D = 10 (2 + nb) + 2 (6 + nb), 68 in three bands.  Stamp i
+    takes flux slot i.  Returns ``(logd_tiled, logd_dense, vec, info)`` as
+    :func:`build_config5` does, both log-densities centered (uncentered the
+    three-band posterior is ~1.65e7, where fp32 resolves ~2 nats); ``info``
+    has the scene, ``stamps``, positions, ``tiled_data`` (one per band),
+    WCS, sources, ``bands``, ``oracle_stamps``, radii and ``vec``.
+    ``radii_scale`` as in :func:`build_config5`.  Runs on the card unless
+    ``device="cpu"``; a CUDA device where CUDA is absent raises."""
+    from celeste_tpu_torch.experiments import resolve_device
+    from celeste_tpu_torch.parallel.crowded import (
+        CrowdedScene, make_crowded_logdensity, make_tiled_crowded_logdensity,
+    )
+
+    device = resolve_device(str(device))
+    bands = tuple(bands)
+    kinds, srcs, sd = _scene(bands, device)
+    nb = len(bands)
+    cs = CrowdedScene(kinds=kinds, n_bands=nb)
+    stamps = list(sd.stamps)
+    pos_px, radii = _positions_and_radii(kinds, srcs, sd, stamps[0], radii_scale)
+    band_idx = list(range(nb))
+    logd, datas = make_tiled_crowded_logdensity(cs, stamps, band=band_idx, positions_px=pos_px,
+                                                radii_px=radii, n_buckets=N_BUCKETS,
+                                                centered=True)
+    logd_dense = make_crowded_logdensity(cs, stamps, bands=band_idx, centered=True)
+    vec = _truth(srcs, kinds, sd.wcs, bands, device)
+    info = {"scene": cs, "stamps": stamps, "positions_px": pos_px, "tiled_data": datas,
+            "wcs": sd.wcs, "sources": srcs, "bands": bands, "oracle_stamps": sd.oracle_stamps,
             "radii": radii, "vec": vec}
     return logd, logd_dense, vec, info
 
@@ -161,7 +217,8 @@ def config5_parity_gap(logd_tiled, logd_dense, vec, n_probe=8, spread=0.01, seed
 
 
 def config5_warmup_and_whiten(logd, vec, n_chains=1024, n_warmup=150, n_zwarm=30,
-                              probe_steps=16):
+                              probe_steps=16, warmup_window=WARMUP_WINDOW,
+                              init_step_size=INIT_STEP_SIZE):
     """The shared config-5 preparation flow: windowed diagonal HMC warmup ->
     a short NUTS probe -> pooled ensemble covariance -> whitened space ->
     a short z-space warmup.  Every arm starts from its output.
@@ -170,6 +227,9 @@ def config5_warmup_and_whiten(logd, vec, n_chains=1024, n_warmup=150, n_zwarm=30
     ``to_x``/``to_z``, the z-space chain states ``states_z`` and step size
     ``step_z``, the x-space ``states_x``, ``step_size`` and ``inv_mass``, and
     the moments ``whiten_moments`` the maps were built from.
+    ``warmup_window``: HMC warmup iterations per window; ``init_step_size``:
+    the first step size (the three-band field starts at 0.03: from 0.1 its
+    short warmup spends its first iterations recovering from divergences).
     """
     from celeste_tpu_torch.inference import (
         dense_metric_from_probe, hmc_warmup_finish, hmc_warmup_init, hmc_warmup_window,
@@ -181,9 +241,9 @@ def config5_warmup_and_whiten(logd, vec, n_chains=1024, n_warmup=150, n_zwarm=30
     x0 = vec[None, :] + 0.01 * torch.randn((n_chains, d), generator=gen, device=device)
     t = time.perf_counter()
     with torch.no_grad():
-        carry = hmc_warmup_init(x0, logd, init_step_size=INIT_STEP_SIZE)
-        for off in range(0, n_warmup, WARMUP_WINDOW):
-            carry = hmc_warmup_window(gen, logd, carry, min(WARMUP_WINDOW, n_warmup - off),
+        carry = hmc_warmup_init(x0, logd, init_step_size=init_step_size)
+        for off in range(0, n_warmup, warmup_window):
+            carry = hmc_warmup_window(gen, logd, carry, min(warmup_window, n_warmup - off),
                                       n_warmup=n_warmup, n_leapfrog=8)
         states, ss, im = hmc_warmup_finish(carry)
         step_size = float(torch.quantile(ss, 0.5))
@@ -219,9 +279,10 @@ def _arm_diagnostics(to_x, seg_samples, drop_frac: int = 4):
     return ess(kept).cpu().numpy(), split_rhat(kept).cpu().numpy()
 
 
-def _chees_warm(prep, warmup_iters):
-    """Windowed ChEES (eps, T) adaptation on the prepared ensemble.
-    Returns ``(ChEESState, eps, traj)``."""
+def _chees_warm(prep, warmup_iters, warmup_window):
+    """Windowed ChEES (eps, T) adaptation on the prepared ensemble, in
+    windows of ``warmup_window`` iterations.  Returns ``(ChEESState, eps,
+    traj)``."""
     from celeste_tpu_torch.inference import (
         chees_warmup_finish, chees_warmup_init, chees_warmup_window,
     )
@@ -231,9 +292,9 @@ def _chees_warm(prep, warmup_iters):
     gen = _gen(SEED_CHEES_WARM, device)
     t = time.perf_counter()
     carry = chees_warmup_init(prep["states_z"].x, logd_z, init_step_size=prep["step_z"])
-    for off in range(0, warmup_iters, CHEES_WINDOW):
+    for off in range(0, warmup_iters, warmup_window):
         carry = chees_warmup_window(gen, logd_z, carry,
-                                    n_iters=min(CHEES_WINDOW, warmup_iters - off),
+                                    n_iters=min(warmup_window, warmup_iters - off),
                                     init_step_size=prep["step_z"], max_leapfrog=MAX_LEAPFROG)
     st, eps, traj = chees_warmup_finish(carry)
     eps, traj = float(eps), float(traj)
@@ -244,10 +305,11 @@ def _chees_warm(prep, warmup_iters):
     return st, eps, traj
 
 
-def measure_chees_z(prep, n_steps=240, run_segment=48, warmup_iters=60):
+def measure_chees_z(prep, n_steps=240, run_segment=48, warmup_iters=60,
+                    warmup_window=CHEES_WINDOW):
     """Whitened-space ChEES-HMC arm: windowed ensemble warmup adapts
-    (eps, T), then frozen-parameter jittered-HMC segments of
-    ``run_segment`` steps.  Returns a dict: ``min_ess_per_s`` (min ESS over
+    (eps, T) in windows of ``warmup_window`` iterations, then
+    frozen-parameter jittered-HMC segments of ``run_segment`` steps.  Returns a dict: ``min_ess_per_s`` (min ESS over
     the run's wall, the warmup excluded), ``accept``, ``n_leapfrog`` (mean
     per step), ``divergence``, ``max_rhat``, ``wall_s``, ``eps``, ``traj``
     and the x-space ``ess`` / ``rhat`` arrays."""
@@ -256,7 +318,7 @@ def measure_chees_z(prep, n_steps=240, run_segment=48, warmup_iters=60):
     logd_z = prep["logd_z"]
     device = prep["states_z"].x.device
     with torch.no_grad():
-        st, eps, traj = _chees_warm(prep, warmup_iters)
+        st, eps, traj = _chees_warm(prep, warmup_iters, warmup_window)
         gen = _gen(SEED_CHEES, device)
         t = time.perf_counter()
         seg_samples, infos = [], []

@@ -1,28 +1,33 @@
-"""The stamp kernels K1 (``csrc/mog_field.cu``) and K8
+"""The stamp kernels K1 and K7 (``csrc/mog_field.cu``) and K8
 (``csrc/mog_field_sep.cu``) against an earlier version of their sources,
 built and timed in turns in one process on one card.
 
-    python -m celeste_tpu_torch.bench.stamp_turns --parent DIR [--out FILE]
+    python -m celeste_tpu_torch.bench.stamp_turns --parent DIR
+        [--parent-geometry none|k1|all] [--out FILE]
 
 ``DIR`` holds the earlier ``mog_field.cu`` and ``mog_common.cuh`` (for
-example ``git show <rev>:celeste_tpu_torch/csrc/mog_field.cu``), whose K1
-entries take no launch geometry: ``(..., n_chains, n_comp, n_pix[,
-centered], stream)``, or also the geometry (CB, T) with
-``--parent-takes-geometry`` (K1 since its cluster launch); and, to
-compare K8 too, the earlier ``mog_field_sep.cu``.  The script
+example ``git show <rev>:celeste_tpu_torch/csrc/mog_field.cu``) and, to
+compare K8 too, the earlier ``mog_field_sep.cu``.  ``--parent-geometry``
+says which of the parent's entries take their launch geometry (CB, T) as
+this tree's do: ``none`` (before K1's cluster launch), ``k1`` (K1 but not
+K7: the sources before K7's redesign) or ``all`` (the default: this tree's
+interface, for a variant of it).  The script
 
 1. builds both sources with the package's nvcc flags plus ``-Xptxas -v``
    and prints each kernel's registers and spills;
-2. counts the SASS of every K1 and K8 kernel of both (``cuobjdump -sass``):
-   the instructions of each innermost loop (a backward branch and its body)
-   by opcode;
+2. counts the SASS of every K1, K7 and K8 kernel of both (``cuobjdump
+   -sass``): the instructions of each innermost loop (a backward branch and
+   its body) by opcode;
 3. times K1-fwd and K1-bwd of both at the shapes where the samplers call
-   K1, and K8-fwd and K8-bwd at config 1's stamp (B=4096 and 65536) and at
-   B=64 on a 128x128 stamp, in turns (parent, new, new, parent), each turn
-   the best of 3 replays of a CUDA graph of 20 calls (``bench/timing.py``),
-   so that a few-microsecond kernel is timed on the card, not at the host's
-   launch rate; the new kernels' outputs are held against the parent's on
-   the way.
+   K1, K7 at the PPC's two launch shapes and over config 5's 48x128 field
+   at B=1024, and K8-fwd and K8-bwd at config 1's stamp (B=4096 and 65536)
+   and at B=64 on a 128x128 stamp, in turns (parent, new, new, parent),
+   each turn the best of 3 replays of a CUDA graph of 20 calls
+   (``bench/timing.py``), so that a few-microsecond kernel is timed on the
+   card, not at the host's launch rate; the new kernels' outputs are held
+   against the parent's on the way;
+4. times the new K7 at every geometry (CB, T) that fits each K7 shape, once
+   each, its output bitwise equal to the chosen geometry's.
 
 ``--out`` takes the SASS listings and a JSON of the numbers.
 """
@@ -57,6 +62,12 @@ SHAPES = (("config 1", "star", 25, 64), ("config 2", "star", 25, 32),
 # K8's shapes (stamp side, chains): config 1's 25x25 stamp at 4096 chains and
 # at the evals/s chain count, and a 128x128 stamp at 64 chains
 K8_SHAPES = ((25, 4096), (25, 65536), (128, 64))
+
+# K7's shapes (name, kind, stamp side, chains): the PPC's 32 draws of config
+# 2's star (C=3, 25x25) and config 3's galaxy (C=48, 31x31), and config 5's
+# 48x128 field with its dense planes (C=126) at 1024 chains
+K7_SHAPES = (("star [32, 640]", "star", 25, 32), ("galaxy [32, 1024]", "galaxy", 31, 32),
+             ("config-5 field B=1024", "field", None, 1024))
 
 
 def build(src: Path, out: Path) -> str:
@@ -97,7 +108,7 @@ def sass_loops(lib: Path, listing: Path) -> dict:
     out = {}
     for block in text.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
-        if "loglik" not in name and "sep_" not in name:
+        if not any(k in name for k in ("loglik", "render", "sep_")):
             continue
         instrs = []
         for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
@@ -117,11 +128,17 @@ def sass_loops(lib: Path, listing: Path) -> dict:
     return out
 
 
-def declare_parent(lib):
+def declare_parent(lib, geometry):
+    """Declare the parent's entries: this tree's (``geometry="all"``), or
+    without the geometry arguments of K7 (``"k1"``) or of K1 and K7
+    (``"none"``)."""
+    mf._declare(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mog_field_loglik_fwd.argtypes = [p] * 12 + [i] * 4 + [p]
-    lib.mog_field_loglik_bwd.argtypes = [p] * 18 + [i] * 3 + [p]
-    lib.mog_field_loglik_fwd.restype = lib.mog_field_loglik_bwd.restype = i
+    if geometry == "none":
+        lib.mog_field_loglik_fwd.argtypes = [p] * 12 + [i] * 4 + [p]
+        lib.mog_field_loglik_bwd.argtypes = [p] * 18 + [i] * 3 + [p]
+    if geometry != "all":
+        lib.mog_field_render.argtypes = [p] * 10 + [i] * 3 + [p]
 
 
 def shape_inputs(kind, side, b, device):
@@ -172,6 +189,86 @@ def calls(lib, planes, pixels, g, geometry):
         return grads
 
     return fwd, bwd
+
+
+def render_call(lib, planes, pixels, geometry):
+    """A K7 closure over a preallocated output; ``geometry`` (CB, T), or
+    None for a parent's interface without it."""
+    b, c = planes[0].shape
+    px, py, _, sky, _ = pixels
+    p = px.shape[1]
+    out = torch.empty(b, p, device=px.device)
+    ptrs = [t.data_ptr() for t in (*planes, px, py, sky)]
+    extra = list(geometry) if geometry else []
+
+    def fn():
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mog_field_render(*ptrs, out.data_ptr(), b, c, p, *extra, stream)
+        assert err == 0, err
+        return out
+
+    return fn
+
+
+def k7_inputs(kind, side, b, device):
+    """K7's planes and pixel data at one of K7_SHAPES: one-band planes of
+    ``b`` chains around a stamp's truth, or config 5's dense planes."""
+    if kind != "field":
+        planes, pixels, _, _, _ = shape_inputs(kind, side, b, device)
+        return planes, pixels
+    from celeste_tpu_torch.bench.config5 import build_config5
+    from celeste_tpu_torch.parallel.crowded import scene_field_planes
+
+    _, _, vec, info = build_config5(device=device)
+    rng = np.random.default_rng(b)
+    vecs = vec[None] + torch.as_tensor(0.01 * rng.normal(size=(b, vec.shape[0])),
+                                       dtype=torch.float32, device=device)
+    planes = [p.contiguous() for p in scene_field_planes(info["scene"], vecs, info["stamp"], 0)]
+    return planes, mf.stamp_pixel_data(info["stamp"])
+
+
+def k7_turns(report, libs, parent_geometry, device):
+    """K7 at K7_SHAPES in turns with the parent, then the new kernel at
+    every geometry that fits each shape."""
+    for name, kind, side, b in K7_SHAPES:
+        planes, pixels = k7_inputs(kind, side, b, device)
+        p = pixels[0].shape[1]
+        chosen = mf.k7_geometry(b, p)
+        fns = {"parent": render_call(libs["parent"], planes, pixels,
+                                     chosen if parent_geometry == "all" else None),
+               "new": render_call(libs["new"], planes, pixels, chosen)}
+        want = fns["parent"]().clone()
+        got = fns["new"]().clone()
+        plain = mf._render_torch(*planes, pixels[0], pixels[1], pixels[3])
+        torch.cuda.synchronize()
+        times = {"parent": [], "new": []}
+        for tag in ("parent", "new", "new", "parent"):
+            times[tag].append(graph_ms(fns[tag]))
+        sweep = {}
+        for cb in (1, 2, 4, 8):
+            for t in (1, 2, 4, 8, 16, 32):
+                if t > -(-p // 32):
+                    continue
+                fn = render_call(libs["new"], planes, pixels, (cb, t))
+                ms = graph_ms(fn)
+                if not torch.equal(fn(), got):
+                    raise RuntimeError(f"K7 {name}: geometry {(cb, t)} differs from {chosen}")
+                sweep[f"{cb},{t}"] = ms
+        row = {"kernel": "K7", "chains": b, "n_comp": planes[0].shape[1], "n_pix": p,
+               "geometry (CB, T)": chosen, "parent_ms": min(times["parent"]),
+               "new_ms": min(times["new"]), "turns_ms": times,
+               "new vs parent max abs": float((got - want).abs().max()),
+               "new vs plain max abs": float((got - plain).abs().max()),
+               "parent vs plain max abs": float((want - plain).abs().max()),
+               "new by geometry (CB,T) ms": sweep}
+        report["shapes"][f"K7 {name}"] = row
+        best = min(sweep, key=sweep.get)
+        print(f"[turns] K7 {name}: B={b} C={row['n_comp']} P={p} (CB, T)={chosen}: parent "
+              f"{row['parent_ms']:.6f} -> new {row['new_ms']:.6f} ms (turns {times['parent']} / "
+              f"{times['new']}); max abs vs parent {row['new vs parent max abs']:.4g}, vs plain "
+              f"{row['new vs plain max abs']:.4g} (parent vs plain "
+              f"{row['parent vs plain max abs']:.4g}); fastest geometry {best}: "
+              f"{sweep[best]:.6f} ms; sweep {sweep}", flush=True)
 
 
 def sep_calls(lib, planes, pixels, g):
@@ -233,9 +330,10 @@ def report_row(report, name, what, row, diff, times):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
-    ap.add_argument("--parent-takes-geometry", action="store_true",
-                    help="the parent's K1 entries take (CB, T) as this tree's do (a variant of "
-                         "this tree, not an earlier version)")
+    ap.add_argument("--parent-geometry", choices=("none", "k1", "all"), default="all",
+                    help="which of the parent's entries take (CB, T) as this tree's do: none, "
+                         "K1 only (the sources before K7's redesign), or all (a variant of "
+                         "this tree)")
     ap.add_argument("--out", type=Path,
                     default=_build.BUILD_DIR / "stamp_turns" / "stamp_turns.json")
     args = ap.parse_args()
@@ -254,7 +352,7 @@ def main() -> int:
         report["registers"][tag] = registers(build(src / "mog_field.cu", so))
         report["sass_inner_loops"][tag] = sass_loops(so, args.out.with_name(f"sass_{tag}.txt"))
         libs[tag] = ctypes.CDLL(str(so))
-    (mf._declare if args.parent_takes_geometry else declare_parent)(libs["parent"])
+    declare_parent(libs["parent"], args.parent_geometry)
     mf._declare(libs["new"])
     print(f"[stamp_turns] card: {card}", flush=True)
     print(json.dumps({"registers": report["registers"]}), flush=True)
@@ -266,13 +364,14 @@ def main() -> int:
         planes, pixels, g, _, _ = shape_inputs(kind, side, b, device)
         geometry = mf.k1_geometry(b, pixels[0].shape[1])
         fns = {"parent": calls(libs["parent"], planes, pixels, g,
-                               geometry if args.parent_takes_geometry else None),
+                               None if args.parent_geometry == "none" else geometry),
                "new": calls(libs["new"], planes, pixels, g, geometry)}
         row = {"kernel": "K1", "kind": kind, "stamp": f"{side}x{side}", "chains": b,
                "n_comp": planes[0].shape[1], "n_pix": pixels[0].shape[1],
                "geometry (CB, T)": geometry}
         report_row(report, name, f"K1 {kind} {side}x{side} B={b} (CB, T)={geometry}", row,
                    *in_turns(fns))
+    k7_turns(report, libs, args.parent_geometry, device)
 
     if (args.parent / "mog_field_sep.cu").exists():
         from celeste_tpu_torch.kernels import mog_field_sep as ms

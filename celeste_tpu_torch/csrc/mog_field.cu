@@ -87,16 +87,24 @@
 // in rank order; no atomics on values, so two calls on the same inputs are
 // bitwise equal, forward and backward.
 //
-// K7 is bound by the same units: ~13 FP32 operations and one exponential per
-// (pixel, component) against 4 bytes of lambda stored per pixel.  A block is
-// 8 chains (a warp each) by one tile of kRenderTile pixels, so any stamp or
-// field renders with no pixel cap; the tile's px, py and sky and the chains'
-// components are staged in shared memory, and each warp's lanes store
-// consecutive pixels of its chain's row (coalesced).  As the TPU body does,
-// it multiplies a * exp(-q / 2) with the 2 pb cross term, so a
-// zero-amplitude component adds exactly 0 and a zero-amplitude row renders
-// exactly the sky.  It returns every one of the P (lane-padded) pixels.
-//
+// K7 is bound by the same units: ~11 FP32 operations and one exponential per
+// (pixel, component) against 4 bytes of lambda stored per pixel.  It runs
+// K1's forward loop itself (lam_groups in its third mode, LamOut::kStore):
+// the same staged components (two float4 each, the base-2 form), R pixels
+// per lane in registers, one ex2.approx per term; where K1 adds a Poisson
+// term, K7 stores lambda, a warp 32 consecutive pixels of one chain per
+// store (coalesced).  With no sum over pixels it needs no cluster: the grid
+// is ceil(B / CB) chain groups times T pixel tiles, from
+// kernels/mog_field.py k7_geometry (CB = 8, T = 1 at B = 65536, where a
+// staged chunk serves 8 chains; CB = 1 and T = 4-8 at the PPC's 32 draws,
+// 256 blocks, where the old kernel launched 4), and tile r of T takes the
+// 32-pixel groups [r G / T, (r + 1) G / T), staged in chunks of 1024 as K1
+// stages them, so there is no pixel cap; components are capped by the
+// staging as in K1's forward (~800 at CB = 8), above which the launch fails
+// and the wrapper raises.  A zero-amplitude component adds exactly 0, so a
+// zero-amplitude row renders exactly the sky.  It returns every one of the
+// P (lane-padded) pixels, padding included, as the TPU body does.
+
 // Interface: plain C, bound with ctypes.  Each entry launches on the given
 // stream, allocates nothing and returns cudaGetLastError() after the launch.
 
@@ -146,33 +154,45 @@ __device__ __forceinline__ Groups rank_groups(int n_pix, int rank, int t) {
   return {static_cast<int>(g * rank / t), static_cast<int>(g * (rank + 1) / t)};
 }
 
-// The block's chains, warps and cluster rank.  Grid: ceil(B / cb) chain
-// groups of t blocks each, one cluster per chain group.
+// The block's chains, warps and pixel tile.  Grid: ceil(B / cb) chain
+// groups of t blocks each, block `rank` of its group taking pixel tile
+// `rank` (K1: one cluster per chain group, rank its rank in the cluster).
 struct Layout {
   int t, rank, n_sub, warp, lane, j, sub, b0;
   bool valid;
 };
 
-__device__ __forceinline__ Layout block_layout(const cg::cluster_group& cluster, int cb,
-                                               int n_chains) {
+__device__ __forceinline__ Layout block_layout(int t, int rank, int cb, int n_chains) {
   Layout l;
-  l.t = static_cast<int>(cluster.num_blocks());
-  l.rank = static_cast<int>(cluster.block_rank());
+  l.t = t;
+  l.rank = rank;
   l.n_sub = kWarps / cb;                 // warps per chain
   l.warp = threadIdx.x >> 5;
   l.lane = threadIdx.x & 31;
   l.j = l.warp / l.n_sub;                // the warp's chain in the block
   l.sub = l.warp - l.j * l.n_sub;        // the warp's place among its chain's
-  l.b0 = (blockIdx.x / l.t) * cb;
+  l.b0 = (blockIdx.x / t) * cb;
   l.valid = l.b0 + l.j < n_chains;
   return l;
 }
 
+__device__ __forceinline__ Layout cluster_layout(const cg::cluster_group& cluster, int cb,
+                                                 int n_chains) {
+  return block_layout(static_cast<int>(cluster.num_blocks()),
+                      static_cast<int>(cluster.block_rank()), cb, n_chains);
+}
+
+// What lam_groups does with each pixel's lambda: add its Poisson term to a
+// sum (K1's forward), store its cotangent g_lam (K1's backward, pass 1), or
+// store lambda itself (K7).
+enum class LamOut { kLoglik, kGlam, kStore };
+
 // Stage pixels p0 .. p0 + n - 1 in shared memory; pixels at or past n_pix
 // read as padding (x = y = 0, counts 0, sky 1, mask 0), which adds exactly 0
 // to the log-likelihood and has g_lam = 0.  kLxt also stages
-// log max(counts, eps) for the centered forward.
-template <bool kLxt>
+// log max(counts, eps) for the centered forward; kPoisson = false (K7)
+// stages x, y and sky alone.
+template <bool kLxt, bool kPoisson = true>
 __device__ __forceinline__ void stage_chunk(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ counts, const float* __restrict__ sky,
@@ -181,12 +201,14 @@ __device__ __forceinline__ void stage_chunk(
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const int p = p0 + i;
     const bool in = p < n_pix;
-    const float cnt = in ? counts[p] : 0.0f;
     s_xy[i] = in ? make_float2(px[p], py[p]) : make_float2(0.0f, 0.0f);
-    s_cnt[i] = cnt;
     s_sky[i] = in ? sky[p] : 1.0f;
-    s_mask[i] = in ? mask[p] : 0.0f;
-    if (kLxt) s_lxt[i] = logf(clamp_min(cnt, kLambdaMin));
+    if (kPoisson) {
+      const float cnt = in ? counts[p] : 0.0f;
+      s_cnt[i] = cnt;
+      s_mask[i] = in ? mask[p] : 0.0f;
+      if (kLxt) s_lxt[i] = logf(clamp_min(cnt, kLambdaMin));
+    }
   }
 }
 
@@ -216,19 +238,22 @@ __device__ __forceinline__ void stage_components(
 // The staged chunk.
 struct Chunk {
   const float2* xy;
-  const float* cnt;
+  const float* cnt;                      // K1 only
   const float* sky;
-  const float* mask;
+  const float* mask;                     // K1 only
   const float* lxt;                      // centered forward only
+  int n_in;                              // K7: pixels of the chunk inside the stamp
 };
 
 // This lane's pixels of the R groups g0, g0 + step, ... of the chunk:
-// lambda over the n_comp staged components in index order; then kGlam =
-// false adds each pixel's Poisson term to acc in group order, kGlam = true
-// stores its cotangent g_lam (gb = g of the chain) to glam.
-template <int R, bool kCentered, bool kGlam>
+// lambda over the n_comp staged components in index order; then, by kOut,
+// each pixel's Poisson term is added to acc in group order (kLoglik), its
+// cotangent g_lam (gb = g of the chain) stored to dst (kGlam, shared
+// memory), or lambda stored to dst (kStore, the chain's row of the output
+// from the chunk's first pixel on; pixels past the stamp are not stored).
+template <int R, bool kCentered, LamOut kOut>
 __device__ __forceinline__ void lam_groups(const Chunk& ch, const float4* w, int n_comp, int g0,
-                                           int step, int lane, float gb, float* glam,
+                                           int step, int lane, float gb, float* dst,
                                            float& acc) {
   float x[R], y[R], lam[R];
 #pragma unroll
@@ -254,10 +279,12 @@ __device__ __forceinline__ void lam_groups(const Chunk& ch, const float4* w, int
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int p = (g0 + step * r) * 32 + lane;
-    if (kGlam) {
+    if (kOut == LamOut::kStore) {
+      if (p < ch.n_in) dst[p] = lam[r];
+    } else if (kOut == LamOut::kGlam) {
       const float active = lam[r] > kLambdaMin ? 1.0f : 0.0f;
-      glam[p] = (gb * ch.mask[p])
-                * (__fdividef(ch.cnt[p], clamp_min(lam[r], kLambdaMin)) - 1.0f) * active;
+      dst[p] = (gb * ch.mask[p])
+               * (__fdividef(ch.cnt[p], clamp_min(lam[r], kLambdaMin)) - 1.0f) * active;
     } else {
       const float l = clamp_min(lam[r], kLambdaMin);
       acc += celeste::pixel_loglik<kCentered>(l, log_newton(l), ch.cnt[p],
@@ -269,26 +296,26 @@ __device__ __forceinline__ void lam_groups(const Chunk& ch, const float4* w, int
 // Every group of the chunk's n_cg that warp `sub` of its chain's n_sub
 // takes (sub, sub + n_sub, ...): kFwdGroups at a time, the rest in blocks
 // of 4, 2 and 1.
-template <bool kCentered, bool kGlam>
+template <bool kCentered, LamOut kOut>
 __device__ __forceinline__ void lam_chunk(const Chunk& ch, const float4* w, int n_comp, int n_cg,
-                                          int sub, int n_sub, int lane, float gb, float* glam,
+                                          int sub, int n_sub, int lane, float gb, float* dst,
                                           float& acc) {
   const int n_mine = sub < n_cg ? (n_cg - sub + n_sub - 1) / n_sub : 0;
   int k = 0;
   for (; k + kFwdGroups <= n_mine; k += kFwdGroups) {
-    lam_groups<kFwdGroups, kCentered, kGlam>(ch, w, n_comp, sub + n_sub * k, n_sub, lane, gb,
-                                             glam, acc);
+    lam_groups<kFwdGroups, kCentered, kOut>(ch, w, n_comp, sub + n_sub * k, n_sub, lane, gb, dst,
+                                            acc);
   }
   if (k + 4 <= n_mine) {
-    lam_groups<4, kCentered, kGlam>(ch, w, n_comp, sub + n_sub * k, n_sub, lane, gb, glam, acc);
+    lam_groups<4, kCentered, kOut>(ch, w, n_comp, sub + n_sub * k, n_sub, lane, gb, dst, acc);
     k += 4;
   }
   if (k + 2 <= n_mine) {
-    lam_groups<2, kCentered, kGlam>(ch, w, n_comp, sub + n_sub * k, n_sub, lane, gb, glam, acc);
+    lam_groups<2, kCentered, kOut>(ch, w, n_comp, sub + n_sub * k, n_sub, lane, gb, dst, acc);
     k += 2;
   }
   if (k < n_mine) {
-    lam_groups<1, kCentered, kGlam>(ch, w, n_comp, sub + n_sub * k, n_sub, lane, gb, glam, acc);
+    lam_groups<1, kCentered, kOut>(ch, w, n_comp, sub + n_sub * k, n_sub, lane, gb, dst, acc);
   }
 }
 
@@ -313,10 +340,10 @@ loglik_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
   float* s_chain = s_warp + kWarps;      // cb: each chain's sum over the block's pixels
 
   const cg::cluster_group cluster = cg::this_cluster();
-  const Layout l = block_layout(cluster, cb, n_chains);
+  const Layout l = cluster_layout(cluster, cb, n_chains);
   stage_components(amp, mx, my, pa, pb, pc, s_comp, l.b0, cb, n_chains, n_comp, n_comp);
   const float4* w = s_comp + 2 * l.j * n_comp;
-  const Chunk ch{s_xy, s_cnt, s_sky, s_mask, s_lxt};
+  const Chunk ch{s_xy, s_cnt, s_sky, s_mask, s_lxt, 0};
   const Groups gr = rank_groups(n_pix, l.rank, l.t);
   float acc = 0.0f;
   for (int g0 = gr.lo; g0 < gr.hi; g0 += kChunkGroups) {
@@ -326,8 +353,8 @@ loglik_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
                            32 * g0, 32 * n_cg, n_pix);
     __syncthreads();                     // the chunk (and the components) staged
     if (l.valid) {
-      lam_chunk<kCentered, false>(ch, w, n_comp, n_cg, l.sub, l.n_sub, l.lane, 0.0f, nullptr,
-                                  acc);
+      lam_chunk<kCentered, LamOut::kLoglik>(ch, w, n_comp, n_cg, l.sub, l.n_sub, l.lane, 0.0f,
+                                            nullptr, acc);
     }
   }
   acc = warp_sum(acc);
@@ -423,14 +450,14 @@ loglik_bwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
   float* s_acc = s_glam + cb * kChunk;   // kWarps x n_pad x 6
 
   const cg::cluster_group cluster = cg::this_cluster();
-  const Layout l = block_layout(cluster, cb, n_chains);
+  const Layout l = cluster_layout(cluster, cb, n_chains);
   stage_components(amp, mx, my, pa, pb, pc, s_comp, l.b0, cb, n_chains, n_comp, n_pad);
   for (int i = threadIdx.x; i < kWarps * n_pad * 6; i += kThreads) s_acc[i] = 0.0f;
   const float4* w = s_comp + 2 * l.j * n_pad;
   float* w_glam = s_glam + l.j * kChunk;
   float* w_acc = s_acc + l.warp * n_pad * 6;
   const float gb = l.valid ? g[l.b0 + l.j] : 0.0f;
-  const Chunk ch{s_xy, s_cnt, s_sky, s_mask, nullptr};
+  const Chunk ch{s_xy, s_cnt, s_sky, s_mask, nullptr, 0};
   // after the halving sum this lane holds triple `mine`: entry mine / 2 of
   // the pass, first moments if mine is even, second moments if odd
   const int mine = l.lane >> (5 - kHalvings);
@@ -444,7 +471,8 @@ loglik_bwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
                        32 * n_cg, n_pix);
     __syncthreads();                     // the chunk (and the zeroed sums) staged
     if (!l.valid || l.sub >= n_cg) continue;
-    lam_chunk<false, true>(ch, w, n_comp, n_cg, l.sub, l.n_sub, l.lane, gb, w_glam, unused);
+    lam_chunk<false, LamOut::kGlam>(ch, w, n_comp, n_cg, l.sub, l.n_sub, l.lane, gb, w_glam,
+                                    unused);
     __syncwarp();
     for (int k0 = 0; k0 < n_pad; k0 += kE) {
       float cx[kE], cy[kE], qa[kE], qb[kE], qc[kE];
@@ -519,7 +547,7 @@ loglik_bwd_small_kernel(const float* __restrict__ amp, const float* __restrict__
   float* s_acc = s_mask + kChunk;        // kWarps x kE x 6
 
   const cg::cluster_group cluster = cg::this_cluster();
-  const Layout l = block_layout(cluster, cb, n_chains);
+  const Layout l = cluster_layout(cluster, cb, n_chains);
   for (int i = threadIdx.x; i < kWarps * kE * 6; i += kThreads) s_acc[i] = 0.0f;
   float a[kC], cx[kC], cy[kC], qa[kC], qb[kC], qc[kC];
   float gb = 0.0f;
@@ -589,68 +617,39 @@ loglik_bwd_small_kernel(const float* __restrict__ amp, const float* __restrict__
              n_chains, kC);
 }
 
-constexpr int kRenderTile = 1024;      // pixels per K7 block
-
-__global__ void __launch_bounds__(kThreads)
+// K7: lambda [B, P] of chains b0 .. b0 + cb - 1 over the block's pixel tile,
+// through K1's forward loop in its store mode.
+__global__ void __launch_bounds__(kThreads, 4)
 render_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
               const float* __restrict__ my, const float* __restrict__ pa,
               const float* __restrict__ pb, const float* __restrict__ pc,
               const float* __restrict__ px, const float* __restrict__ py,
               const float* __restrict__ sky, float* __restrict__ out,
-              int n_chains, int n_comp, int n_pix) {
-  extern __shared__ float smem[];
-  float* s_px = smem;
-  float* s_py = s_px + kRenderTile;
-  float* s_sky = s_py + kRenderTile;
-  float* s_par = s_sky + kRenderTile;    // kWarps x 6 x C
+              int n_chains, int n_comp, int n_pix, int cb, int t) {
+  extern __shared__ __align__(16) float k7_smem[];
+  float4* s_comp = reinterpret_cast<float4*>(k7_smem);                // cb x 2 C
+  float2* s_xy = reinterpret_cast<float2*>(s_comp + 2 * cb * n_comp);  // kChunk
+  float* s_sky = reinterpret_cast<float*>(s_xy + kChunk);
 
-  const int p0 = blockIdx.y * kRenderTile;
-  const int n_tile = min(kRenderTile, n_pix - p0);
-  for (int i = threadIdx.x; i < n_tile; i += kThreads) {
-    s_px[i] = px[p0 + i];
-    s_py[i] = py[p0 + i];
-    s_sky[i] = sky[p0 + i];
-  }
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + warp;
-  const int C = n_comp;
-  float* w_a = s_par + warp * 6 * C;
-  float* w_mx = w_a + C;
-  float* w_my = w_mx + C;
-  float* w_pa = w_my + C;
-  float* w_pb = w_pa + C;
-  float* w_pc = w_pb + C;
-  if (b < n_chains) {
-    for (int c = lane; c < C; c += 32) {
-      const size_t i = static_cast<size_t>(b) * C + c;
-      w_a[c] = amp[i];
-      w_mx[c] = mx[i];
-      w_my[c] = my[i];
-      w_pa[c] = pa[i];
-      w_pb[c] = pb[i];
-      w_pc[c] = pc[i];
+  const Layout l = block_layout(t, static_cast<int>(blockIdx.x % t), cb, n_chains);
+  stage_components(amp, mx, my, pa, pb, pc, s_comp, l.b0, cb, n_chains, n_comp, n_comp);
+  const float4* w = s_comp + 2 * l.j * n_comp;
+  float* row = out + static_cast<size_t>(l.b0 + l.j) * n_pix;
+  const Groups gr = rank_groups(n_pix, l.rank, l.t);
+  float unused = 0.0f;
+  for (int g0 = gr.lo; g0 < gr.hi; g0 += kChunkGroups) {
+    const int n_cg = min(kChunkGroups, gr.hi - g0);
+    if (g0 != gr.lo) __syncthreads();    // the last chunk is read
+    stage_chunk<false, false>(px, py, nullptr, sky, nullptr, s_xy, nullptr, s_sky, nullptr,
+                              nullptr, 32 * g0, 32 * n_cg, n_pix);
+    __syncthreads();                     // the chunk (and the components) staged
+    if (l.valid) {
+      const Chunk ch{s_xy, nullptr, s_sky, nullptr, nullptr, n_pix - 32 * g0};
+      lam_chunk<false, LamOut::kStore>(ch, w, n_comp, n_cg, l.sub, l.n_sub, l.lane, 0.0f,
+                                       row + 32 * g0, unused);
     }
-  }
-  __syncthreads();
-  if (b >= n_chains) return;
-
-  float* row = out + static_cast<size_t>(b) * n_pix + p0;
-  for (int p = lane; p < n_tile; p += 32) {
-    const float x = s_px[p];
-    const float y = s_py[p];
-    float lam = s_sky[p];
-    for (int c = 0; c < C; ++c) {
-      const float dx = x - w_mx[c];
-      const float dy = y - w_my[c];
-      const float q = w_pa[c] * dx * dx + 2.0f * w_pb[c] * dx * dy + w_pc[c] * dy * dy;
-      lam += w_a[c] * expf(-0.5f * q);
-    }
-    row[p] = lam;
   }
 }
-
 
 // Shared-memory bytes of each K1 kernel for cb chains per block and C
 // components (the one-pass backward's depend on neither); a size above the
@@ -671,9 +670,9 @@ size_t bwd_smem_bytes(int cb, int n_comp) {
 
 constexpr size_t kBwdSmallSmem = kChunkBytes + kWarps * 4 * 6 * sizeof(float);
 
-size_t render_smem_bytes(int n_comp) {
-  return (3 * static_cast<size_t>(kRenderTile) + kWarps * 6 * static_cast<size_t>(n_comp))
-         * sizeof(float);
+size_t render_smem_bytes(int cb, int n_comp) {
+  return 2 * static_cast<size_t>(cb) * n_comp * sizeof(float4)
+         + kChunk * (sizeof(float2) + sizeof(float));
 }
 
 bool valid_geometry(int cb, int t) {
@@ -797,16 +796,24 @@ int mog_field_loglik_bwd(const float* amp, const float* mx, const float* my,
   return static_cast<int>(err);
 }
 
+// K7; chains_per_block (1, 2, 4 or 8) and tiles (pixel tiles per chain,
+// at least 1) are the geometry kernels/mog_field.py k7_geometry picked.
 int mog_field_render(const float* amp, const float* mx, const float* my,
                      const float* pa, const float* pb, const float* pc,
                      const float* px, const float* py, const float* sky, float* out,
-                     int n_chains, int n_comp, int n_pix, void* stream) {
-  const size_t smem = render_smem_bytes(n_comp);
-  const dim3 grid((n_chains + kWarps - 1) / kWarps, (n_pix + kRenderTile - 1) / kRenderTile);
+                     int n_chains, int n_comp, int n_pix, int chains_per_block, int tiles,
+                     void* stream) {
+  const int cb = chains_per_block;
+  const long long blocks = static_cast<long long>((n_chains + cb - 1) / cb) * tiles;
+  if (!valid_geometry(cb, 1) || tiles < 1 || blocks > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = render_smem_bytes(cb, n_comp);
   cudaError_t err = launch_prep(render_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  render_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      amp, mx, my, pa, pb, pc, px, py, sky, out, n_chains, n_comp, n_pix);
+  render_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      amp, mx, my, pa, pb, pc, px, py, sky, out, n_chains, n_comp, n_pix, cb, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

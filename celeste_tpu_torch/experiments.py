@@ -13,7 +13,9 @@ Ported so far:
                    sampled by a chain ensemble, ChEES in the whitened space
                    of a pooled dense metric by default; ``tiled=true`` takes
                    the block-sparse tiled likelihood, ``n_galaxies`` mixes
-                   galaxies into the scene.
+                   galaxies into the scene.  With several bands, as in the
+                   JAX package, every band is rendered and the first
+                   band's stamp is sampled with one flux per source.
 
 Samplers: mh, slice, hmc, nuts and chees; the gradient samplers after an
 adaptive HMC warmup; ``metric=dense`` samples in the whitened space.  The
@@ -230,9 +232,10 @@ def _check_ported(cfg: ExperimentConfig):
         raise ValueError(f"metric must be diag or dense, got {cfg.metric!r}")
     if cfg.color_prior not in ("gaussian", "gmm"):
         raise ValueError(f"color_prior must be gaussian or gmm, got {cfg.color_prior!r}")
-    if cfg.name == "crowded_field" and (len(cfg.bands) != 1 or cfg.color_prior != "gaussian"):
-        raise NotImplementedError("crowded_field takes one band and color_prior=gaussian "
-                                  "(the multi-band crowded field is not yet ported)")
+    if cfg.name == "crowded_field" and cfg.color_prior != "gaussian":
+        raise NotImplementedError("color_prior=gmm is wired for the star and galaxy problems "
+                                  "only; the crowded-field priors would need per-kind flux "
+                                  "priors: rerun with color_prior=gaussian")
     if cfg.checkpoint_every or cfg.resume:
         raise NotImplementedError("checkpoint/resume is not yet ported")
     if cfg.sampler == "chees" and cfg.thin != 1:

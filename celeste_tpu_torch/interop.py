@@ -9,6 +9,7 @@ both packages.
 from __future__ import annotations
 
 import json
+import re
 
 import numpy as np
 import torch
@@ -66,35 +67,62 @@ def chees_state_from_numpy(xs, logps, grads, device="cpu") -> ChEESState:
     return ChEESState(xs=_t(xs, device), logps=_t(logps, device), grads=_t(grads, device))
 
 
-# leaves of a config-5 preparation artifact, in the pytree order the JAX
-# package's checkpoint writes them (dict keys sorted; HMCState as x, logp, grad)
-_PREP_LEAVES = ("cov_hat", "inv_mass", "m_hat", "states_x.x", "states_x.logp", "states_x.grad",
-                "states_z.x", "states_z.logp", "states_z.grad", "step_size", "step_z")
+# the namedtuples in the JAX package's config-5 artifacts: this package's
+# class and the fields in pytree order
+_NAMEDTUPLES = {"HMCState": (HMCState, ("x", "logp", "grad")),
+                "ChEESState": (ChEESState, ("xs", "logps", "grads"))}
+# the top-level keys of the two kinds of artifact: the shared preparation
+# flow's output and the ChEES arm's adapted ensemble
+_PREP_KEYS = {"cov_hat", "inv_mass", "m_hat", "states_x", "states_z", "step_size", "step_z"}
+_CHEES_KEYS = {"eps", "st", "traj"}
+
+
+def _leaf_order(treedef: str):
+    """[(key, namedtuple name or None)] of a checkpoint's flat dict of
+    arrays and namedtuples of arrays, in leaf order, from the ``treedef``
+    string its ``__meta__`` records."""
+    out = []
+    for m in re.finditer(r"'(\w+)': (?:\*|CustomNode\(namedtuple\[(\w+)\], \[([*, ]*)\]\))",
+                         treedef):
+        key, name, stars = m.groups()
+        if name is not None and (name not in _NAMEDTUPLES
+                                 or stars.count("*") != len(_NAMEDTUPLES[name][1])):
+            raise ValueError(f"unknown namedtuple {name}[{stars}] in {treedef}")
+        out.append((key, name))
+    return out
 
 
 def load_config5_prep(path, device="cpu"):
-    """Load a config-5 warm-start artifact of the JAX package
-    (``celeste_tpu/bench/artifacts/config5_prep.npz``): plain arrays
-    ``leaf_0..leaf_10`` whose pytree order ``__meta__`` records.
+    """Load a config-5 warm-start artifact of the JAX package: plain arrays
+    ``leaf_0..leaf_N`` whose pytree order the file's own ``__meta__``
+    records (its keys sorted, a namedtuple's fields in order).
 
-    Returns a dict: ``m_hat`` [D] and ``cov_hat`` [D, D] (the whitening
-    moments), ``inv_mass`` [D], ``states_x`` and ``states_z`` (HMCStates of
-    the warmed x-space and z-space ensembles), ``step_size`` and ``step_z``
-    (floats) and ``meta`` (the artifact's own metadata).  The saved ``logp``
-    fields are whatever the code of the day computed; compare them with a
-    live evaluation before trusting them.
+    Two kinds (``celeste_tpu/bench/artifacts/``): the preparation flow's
+    output (``config5_prep.npz``, ``config5_multiband_prep.npz``) gives
+    ``m_hat`` [D] and ``cov_hat`` [D, D] (the whitening moments),
+    ``inv_mass`` [D], ``states_x`` and ``states_z`` (HMCStates of the warmed
+    x-space and z-space ensembles) and ``step_size`` and ``step_z``; the
+    ChEES arm's adaptation (``config5_multiband_chees_prep.npz``) gives
+    ``st`` (a ChEESState of z-space chains), ``eps`` and ``traj``.  Scalars
+    come back as floats, arrays as tensors on ``device``; ``meta`` is the
+    artifact's own metadata.  The saved ``logp`` / ``logps`` fields are
+    whatever the code of the day computed; compare them with a live
+    evaluation before trusting them.
     """
     with np.load(path, allow_pickle=False) as f:
         meta = json.loads(str(f["__meta__"]))
-        if meta.get("n_leaves") != len(_PREP_LEAVES) or "states_z" not in meta["treedef"]:
-            raise ValueError(f"{path} is not a config-5 preparation artifact: {meta}")
-        leaves = {name: np.asarray(f[f"leaf_{i}"]) for i, name in enumerate(_PREP_LEAVES)}
-    out = {"meta": meta, "step_size": float(leaves["step_size"]),
-           "step_z": float(leaves["step_z"])}
-    for name in ("m_hat", "cov_hat", "inv_mass"):
-        out[name] = _t(leaves[name], device)
-    for name in ("states_x", "states_z"):
-        out[name] = HMCState(x=_t(leaves[f"{name}.x"], device),
-                             logp=_t(leaves[f"{name}.logp"], device),
-                             grad=_t(leaves[f"{name}.grad"], device))
+        order = _leaf_order(meta.get("treedef", ""))
+        keys = {k for k, _ in order}
+        n = sum(len(_NAMEDTUPLES[name][1]) if name else 1 for _, name in order)
+        if keys not in (_PREP_KEYS, _CHEES_KEYS) or meta.get("n_leaves") != n:
+            raise ValueError(f"{path} is not a config-5 warm-start artifact: {meta}")
+        leaves = iter(np.asarray(f[f"leaf_{i}"]) for i in range(n))
+        out = {"meta": meta}
+        for key, name in order:
+            if name is None:
+                a = next(leaves)
+                out[key] = float(a) if a.ndim == 0 else _t(a, device)
+            else:
+                cls, fields = _NAMEDTUPLES[name]
+                out[key] = cls(**{fld: _t(next(leaves), device) for fld in fields})
     return out

@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -94,6 +95,36 @@ def _render_torch(amp, mx, my, pa, pb, pc, px, py, sky):
     return torch.cat(out) if out else sky.new_empty(0, sky.shape[1])
 
 
+def random_render_problem(b: int, c: int, h: int, w: int, seed: int = 0):
+    """A random render problem as float32 NumPy arrays, for checks of K7
+    away from a source model: planes (amp, mx, my, pa, pb, pc) [b, c] of c
+    rotated Gaussians (widths 0.5-6 pixels) spread over an h x w stamp, with
+    every 9th chain at zero amplitude (it must render exactly the sky); and
+    the stamp's lane-padded pixel arrays px, py, sky [1, PIX_PAD] as
+    :func:`stamp_pixel_data` lays them out (padding x = y = 0, sky = 1)."""
+    rng = np.random.default_rng(seed)
+    sig = rng.uniform(0.5, 6.0, (2, b, c))
+    th = rng.uniform(0.0, np.pi, (b, c))
+    cs, sn = np.cos(th), np.sin(th)
+    # the precision R diag(1 / sig^2) R^T of the covariance R diag(sig^2) R^T
+    ix, iy = sig[0] ** -2, sig[1] ** -2
+    pa, pb, pc = cs * cs * ix + sn * sn * iy, cs * sn * (ix - iy), sn * sn * ix + cs * cs * iy
+    flux = rng.uniform(2e3, 2e4, (b, 1)) * rng.dirichlet(np.ones(c), b)
+    amp = flux / (2 * np.pi * sig[0] * sig[1])
+    amp[::9] = 0.0
+    mx = rng.uniform(0.0, w - 1.0, (1, c)) + rng.normal(0.0, 0.5, (b, c))
+    my = rng.uniform(0.0, h - 1.0, (1, c)) + rng.normal(0.0, 0.5, (b, c))
+    pix = h * w
+    pad = -(-pix // LANE) * LANE
+    px, py, sky = np.zeros((1, pad)), np.zeros((1, pad)), np.ones((1, pad))
+    px[0, :pix] = np.tile(np.arange(w), h)
+    py[0, :pix] = np.repeat(np.arange(h), w)
+    sky[0, :pix] = rng.uniform(90.0, 110.0, pix)
+    f32 = [np.ascontiguousarray(a, dtype=np.float32) for a in (amp, mx, my, pa, pb, pc, px, py,
+                                                               sky)]
+    return tuple(f32[:6]), tuple(f32[6:])
+
+
 def _loglik_bwd_torch(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
     """The backward kernel's algebra, dense: the cotangents of the six
     planes, given the cotangent ``g`` [B] of the output.  Independent of
@@ -116,39 +147,53 @@ def _loglik_bwd_torch(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
 
 
 # ---------------------------------------------------------------------------
-# K1's launch geometry
+# K1's and K7's launch geometry
 # ---------------------------------------------------------------------------
 
-def k1_geometry(n_chains: int, n_pix: int) -> tuple[int, int]:
-    """(CB, T) for K1: chains per block and blocks per cluster.
-
-    Starts from CB = 8, T = 1 (pixel arrays staged once serve 8 chains) and,
-    while the grid has fewer blocks than the card has SMs, first gives each
-    chain more warps (CB 8 -> 4 -> 2 -> 1), then more blocks (T 1 -> 2 ->
-    4 -> 8) while each block keeps at least one 32-pixel group.  So B = 65536
-    launches 8192 blocks of 8 chains, and B = 32 or 64 one chain per block
-    in clusters of 8 or 4: 256 blocks.  The component count does not enter:
-    it sets the shared memory, not the shape.
-    """
+def _split(n_chains: int, n_pix: int, max_t: int) -> tuple[int, int]:
+    """(CB, T): from CB = 8, T = 1 (pixel arrays staged once serve 8
+    chains), while the grid of ceil(B / CB) * T blocks is smaller than the
+    card's SM count, first give each chain more warps (CB 8 -> 4 -> 2 -> 1),
+    then more blocks (T doubling up to ``max_t``) while each block keeps at
+    least one 32-pixel group."""
     n_groups = -(-n_pix // 32)
     cb, t = WARPS, 1
     while -(-n_chains // cb) * t < N_SM:
         if cb > 1:
             cb //= 2
-        elif t < MAX_CLUSTER and 2 * t <= n_groups:
+        elif 2 * t <= min(max_t, n_groups):
             t *= 2
         else:
             break
     return cb, t
 
 
+def k1_geometry(n_chains: int, n_pix: int) -> tuple[int, int]:
+    """(CB, T) for K1: chains per block and blocks per cluster (T <= 8, the
+    portable cluster size).  B = 65536 launches 8192 blocks of 8 chains, and
+    B = 32 or 64 one chain per block in clusters of 8 or 4: 256 blocks.  The
+    component count does not enter: it sets the shared memory, not the
+    shape."""
+    return _split(n_chains, n_pix, MAX_CLUSTER)
+
+
+def k7_geometry(n_chains: int, n_pix: int) -> tuple[int, int]:
+    """(CB, T) for K7: chains per block and pixel tiles per chain.  K7 sums
+    nothing over pixels, so its tiles are independent blocks with no cluster
+    and no cap on T but the pixel groups.  B = 65536 launches 8192 blocks of
+    8 chains; the PPC's B = 32 one chain per block in 8 tiles (256 blocks),
+    B = 64 in 4; config 5's field at B = 1024 4 chains per block (256)."""
+    return _split(n_chains, n_pix, n_pix)
+
+
 def k1_pixel_slices(n_pix: int, cb: int, t: int) -> list[list[int]]:
-    """The pixels each of a chain's T * (8 / CB) warps takes in K1, in the
-    order a lane meets them (the kernel's slicing, written out): rank r of
-    the cluster owns 32-pixel groups [r G / T, (r + 1) G / T) of the
-    G = ceil(P / 32), walked in chunks of CHUNK_GROUPS groups, of which the
-    chain's warp w takes w, w + 8 / CB, ...; lane l takes pixel 32 g + l of
-    group g, and pixels at or past P are padding.  Entry r * (8 / CB) + w."""
+    """The pixels each of a chain's T * (8 / CB) warps takes in K1 and K7,
+    in the order a lane meets them (the kernels' slicing, written out): rank
+    r of the cluster (K7: tile r) owns 32-pixel groups [r G / T, (r + 1) G /
+    T) of the G = ceil(P / 32), walked in chunks of CHUNK_GROUPS groups, of
+    which the chain's warp w takes w, w + 8 / CB, ...; lane l takes pixel
+    32 g + l of group g, and pixels at or past P are padding.  Entry
+    r * (8 / CB) + w."""
     n_groups = -(-n_pix // 32)
     n_sub = WARPS // cb
     out = []
@@ -173,7 +218,7 @@ def _declare(lib):
     lib.mog_field_loglik_fwd.restype = i
     lib.mog_field_loglik_bwd.argtypes = [p] * 18 + [i] * 5 + [p]
     lib.mog_field_loglik_bwd.restype = i
-    lib.mog_field_render.argtypes = [p] * 10 + [i] * 3 + [p]
+    lib.mog_field_render.argtypes = [p] * 10 + [i] * 5 + [p]
     lib.mog_field_render.restype = i
     lib.mog_field_error_string.argtypes = [i]
     lib.mog_field_error_string.restype = ctypes.c_char_p
@@ -281,7 +326,7 @@ def render_cuda(amp, mx, my, pa, pb, pc, px, py, sky):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mog_field_render(*_ptrs(planes), *_ptrs(pixels), out.data_ptr(),
-                                   b, planes[0].shape[1], p, stream)
+                                   b, planes[0].shape[1], p, *k7_geometry(b, p), stream)
     _raise_on_error(lib, err, "mog_field_render")
     render_cuda.launches += 1
     return out

@@ -10,7 +10,7 @@ The joint state packs every source's unconstrained vector in scene order
   one MoG field through the stamp kernel (K1 on the card).
 - :func:`make_tiled_crowded_logdensity` is the production path on one
   device: block-sparse tiles through the tiled kernels (K2 for values,
-  K3 + K4 for gradients).
+  K3 + K4 for gradients), in one band or jointly in several.
 
 The sharded paths split the sources over the mesh's ``sources`` dimension
 and the chains over ``chains``.  The expected image is additive, lambda =
@@ -187,14 +187,21 @@ def make_tiled_crowded_logdensity(scene: CrowdedScene, stamp, band, positions_px
     """Block-sparse tiled joint log density ``[B, D_total] -> [B]``.
 
     ``positions_px`` [S, 2]: approximate source pixel positions (catalog or
-    detection), used only to build the static tile map; the sampled
+    detection), used only to build the static tile maps; the sampled
     positions move freely within the support radii ``radii_px`` (a scalar,
     [S], or [S, N_GAL] per block from ``model.galaxy.block_support_radii``).
     Mixed-kind scenes use the component-block layout (slots K wide; a star
     owns one block, a galaxy N_GAL), so per-tile work tracks the true
-    component count.  Returns ``(logdensity, TiledStampData)``.
+    component count.
 
-    One band: a list of stamps (multi-band joint fields) is not yet ported.
+    ``stamp`` and ``band`` may be lists, one entry per band, for a joint
+    multi-band field: one tile map and one ``TiledStampData`` per band, and
+    the log-likelihood summed over the bands (one K2, or K3 and K4, launch
+    per band and occupancy bucket).  The bands share one PSF component
+    count.  ``positions_px`` is then one [S, 2] array shared by the bands
+    (co-registered cutouts) or a list of per-band [S, 2] arrays; a stacked
+    [n_bands, S, 2] array is ambiguous and raises.  Returns ``(logdensity,
+    data)``: the ``TiledStampData``, or their list when ``stamp`` is a list.
     """
     from celeste_tpu_torch.kernels.tiled_field import (
         TiledStampData,
@@ -205,31 +212,46 @@ def make_tiled_crowded_logdensity(scene: CrowdedScene, stamp, band, positions_px
     from celeste_tpu_torch.model.galaxy import N_GAL
     from celeste_tpu_torch.parallel.tiles import build_block_tile_map, build_tile_map
 
-    if isinstance(stamp, (list, tuple)) or isinstance(band, (list, tuple)):
-        raise NotImplementedError("multi-band tiled crowded fields are not yet ported to "
-                                  "celeste_tpu_torch (see ROADMAP.md)")
     priors = priors or SourcePriors()
     mixed = len(set(scene.kinds)) > 1
-    k_psf = stamp.psf.n_components
+    is_multi = isinstance(stamp, (list, tuple))
+    stamps = list(stamp) if is_multi else [stamp]
+    bands = list(band) if isinstance(band, (list, tuple)) else [band]
+    if len(stamps) != len(bands):
+        raise ValueError(f"{len(stamps)} stamps but {len(bands)} bands")
+    k_psf = stamps[0].psf.n_components
+    if any(s.psf.n_components != k_psf for s in stamps):
+        raise ValueError("all bands must share the PSF component count (the per-chain planes "
+                         "are reshaped with one n_comp)")
     n_comp = k_psf if mixed or scene.kinds[0] == "star" else N_GAL * k_psf
-    pos = np.asarray(positions_px)
-    if pos.shape != (scene.n_sources, 2):
-        raise ValueError(f"positions must be [{scene.n_sources}, 2], got {pos.shape}")
-    shape = tuple(stamp.counts.shape)
-    if mixed:
-        tm = build_block_tile_map(pos, radii_px, scene.kinds, shape, n_blocks_gal=N_GAL,
-                                  s_max=s_max)
-    else:
-        tm = build_tile_map(pos, radii_px, shape, s_max=s_max)
-    data = TiledStampData(tm, stamp, n_buckets=n_buckets)
+    per_band = (isinstance(positions_px, (list, tuple)) and len(positions_px) == len(stamps)
+                and np.asarray(positions_px[0]).ndim == 2)
+    positions = ([np.asarray(p) for p in positions_px] if per_band
+                 else [np.asarray(positions_px)] * len(stamps))
+    for pos in positions:
+        if pos.shape != (scene.n_sources, 2):
+            raise ValueError(f"positions must be [{scene.n_sources}, 2] per band; got "
+                             f"{pos.shape} (a stacked [n_bands, S, 2] array is ambiguous: "
+                             f"pass a list of per-band [S, 2] arrays)")
+    datas = []
+    for st, pos in zip(stamps, positions):
+        shape = tuple(st.counts.shape)
+        if mixed:
+            tm = build_block_tile_map(pos, radii_px, scene.kinds, shape, n_blocks_gal=N_GAL,
+                                      s_max=s_max)
+        else:
+            tm = build_tile_map(pos, radii_px, shape, s_max=s_max)
+        datas.append(TiledStampData(tm, st, n_buckets=n_buckets))
     planes_fn = scene_planes_blocked if mixed else scene_planes_padded
 
     def logdensity(vecs):
-        planes = planes_fn(scene, vecs, stamp, band)
-        ll = tiled_field_loglik(planes, data, n_comp=n_comp, centered=centered)
+        ll = 0.0
+        for st, b, data in zip(stamps, bands, datas):
+            planes = planes_fn(scene, vecs, st, b)
+            ll = ll + tiled_field_loglik(planes, data, n_comp=n_comp, centered=centered)
         return ll + _crowded_logprior(scene, priors, vecs)
 
-    return logdensity, data
+    return logdensity, (datas if is_multi else datas[0])
 
 
 def crowded_rect_logprior(scene: CrowdedScene, vecs, priors: SourcePriors | None = None):

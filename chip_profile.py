@@ -14,8 +14,9 @@ B=64.  Configs 2 and 3: the five-band star and the 31x31 galaxy, each
 log-density and ``value_and_grad`` at their 32 sampling chains.  Config 5
 (12 sources, 48x128, tiled): the log-density and its
 ``value_and_grad`` at B=1024, one whitened ChEES ensemble step of
-``CHEES_LEAPFROGS`` leapfrog steps at B=1024, and the ``value_and_grad`` of
+``CHEES_LEAPFROGS`` leapfrog steps at B=1024, the ``value_and_grad`` of
 the source-sharded rectangular posterior on one rank (K5 and K6) at
+B=1024, and the ``value_and_grad`` of the three-band field (g, r, i) at
 B=1024.  For each it prints
 
     wall ms/call (unprofiled), device busy ms/call (sum of the device
@@ -68,7 +69,9 @@ def breakdown(fn, iters, activities):
 
 def config5_calls(device):
     """The config-5 calls to profile, as (name, zero-argument function)."""
-    from celeste_tpu_torch.bench.config5 import build_config5, build_config5_sharded
+    from celeste_tpu_torch.bench.config5 import (
+        build_config5, build_config5_multiband, build_config5_sharded,
+    )
     from celeste_tpu_torch.inference import ensemble_covariance, whiten_logdensity
     from celeste_tpu_torch.inference.chees import _ensemble_step, chees_init
     from celeste_tpu_torch.inference.hmc import value_and_grad
@@ -85,6 +88,9 @@ def config5_calls(device):
     state = [chees_init(to_z(vecs), logd_z)]
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
+    logd3, _, vec3, _ = build_config5_multiband(device=device)
+    vecs3 = vec3[None] + torch.as_tensor(0.01 * rng.normal(size=(CONFIG5_CHAINS, vec3.shape[0])),
+                                         dtype=torch.float32, device=device)
 
     def chees_step():
         with torch.no_grad():
@@ -100,6 +106,8 @@ def config5_calls(device):
         (f"config-5 ChEES step ({CHEES_LEAPFROGS} leapfrog) B={CONFIG5_CHAINS}", chees_step),
         (f"sharded config-5 value_and_grad, one rank, B={CONFIG5_CHAINS}",
          lambda: value_and_grad(sharded["logpost"], rect)),
+        (f"three-band config-5 value_and_grad B={CONFIG5_CHAINS}",
+         lambda: value_and_grad(logd3, vecs3)),
     ]
 
 

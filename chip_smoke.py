@@ -30,9 +30,12 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    rtol 2e-4, atol 5e-3; K6 twice, bitwise equal; sentinels render exactly
    0 with finite cotangents;
 5. hold the stamp render kernel (K7) against its plain version on star
-   (C=3, 25x25) and galaxy (C=48, 31x31) planes at B=32, 1000 and 4096 and
-   on config 5's dense planes over the 48x128 field at B=1024, rtol 1e-5,
-   atol 1e-3, zero-amplitude rows exactly the sky; the separable kernels
+   (C=3, 25x25) and galaxy (C=48, 31x31) planes at B=32, 1000 and 4096, on
+   config 5's dense planes over the 48x128 field at B=1024, and on random
+   problems (``random_render_problem``) at every geometry ``k7_geometry``
+   picks (B = 1, 9, 32, 64, 1000, 4096), C = 3, 48, 126, on 25x25, 31x31,
+   48x128 and 128x128 pixel sets, rtol 1e-5, atol 1e-3, zero-amplitude
+   rows exactly the sky, two calls bitwise equal; the separable kernels
    (K8-fwd, K8-bwd) against theirs and K8-fwd against K1 on the same
    isotropic star planes, B=1000 and 4096, and on random problems
    (``random_sep_problem``) at W = 25, 31, 32, 33, 64, 100 with H != W,
@@ -62,7 +65,18 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    divergence <= 0.05 in both arms, max split-R-hat <= 1.1 on the ChEES
    arm; check the whitening maps on the card against float64 on the host;
    fail on a tiled kernel the run never launched;
-9. drive configs 2 and 3 through ``run_experiment``, the stamp kernels'
+9. drive config 5 in three bands (g, r, i) at full width (12 sources,
+   48x128, 1024 chains) with every counter set to 0 just before and read
+   just after: ``build_config5_multiband`` -> the parity gate (gap < 1 nat;
+   a 0.05 radii cut trips it above 100) -> each band's tiled ll at the
+   truth against the fp64 oracle -> the committed three-band artifacts'
+   saved logps against a live evaluation (printed, not gated) -> one
+   gradient's launches (K3 and K4 once per band and bucket) ->
+   ``config5_warmup_and_whiten`` -> ``measure_chees_z``, cut in steps by
+   MULTIBAND_PREP and MULTIBAND_CHEES; gates: finite samples, accept >=
+   0.4, divergence <= 0.05, max split-R-hat printed; fail on a tiled kernel
+   the run never launched;
+10. drive configs 2 and 3 through ``run_experiment``, the stamp kernels'
    counters set to 0 just before each run and read just after: ``star_ugriz``
    (32 chains, five 25x25 bands) with HMC (max R-hat <= 1.1) and with the
    slice sampler (<= 1.15), the truth within mean +- 5 std, slice against
@@ -74,7 +88,7 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    source's log-flux at -8.  Then ``batched_stamp_loglik(impl="sep")`` and
    its gradient at B=65536 on config 1's stamp (K8's counters set to 0
    just before), against the general kernel;
-10. drive the source-sharded config 5 at full width (12 sources, 48x128,
+11. drive the source-sharded config 5 at full width (12 sources, 48x128,
    1024 chains, per-source radii), every tiled counter set to 0 just
    before and read just after: on a one-rank NCCL mesh (1, 1), in this
    process, the sharded tiled log-likelihood plus the rectangular prior
@@ -86,11 +100,11 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    0.05; fail if K5 or K6 was never launched.  Then two spawned gloo ranks
    on this one card, mesh (1, 2), must give the one-rank value and gradient
    at the same tolerances, and ``dryrun_multichip(1)`` runs;
-11. time with CUDA events (best of 3 after a warm-up), in ms per wrapper
+12. time with CUDA events (best of 3 after a warm-up), in ms per wrapper
    call: config 1 at B=65536 (K1 and the HMC gradient, kernel and plain);
    K2, K3 and K4 over config 5's field at B=1024 and 4096 (both buckets'
    launches timed together, divided by two), and one config-5
-   ``value_and_grad`` at B=1024, kernel and plain; K5 and K6 over the sharded tables at B=1024
+   ``value_and_grad`` at B=1024, one band and three, kernel and plain; K5 and K6 over the sharded tables at B=1024
    and 4096, kernel and plain, and one sharded ``value_and_grad`` at B=1024
    beside the single-device one; K8-fwd and K8-bwd at B=65536 on config 1's
    stamp in turns with K1-fwd and K1-bwd (device time from CUDA graphs of
@@ -103,31 +117,40 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    config 3 at 32, config 5's dense probe at 8, config 1's stamp at 65536),
    device time per call from a CUDA graph of 20 calls, with the bound and
    this run's launches at that shape;
-12. print K1's rows by shape as a JSON line (``k1_shapes``, with the time
+13. print K1's rows by shape as a JSON line (``k1_shapes``, with the time
     lost, launches x (ms - bound), summed per kernel in ``k1_lost_s``), K7's
     likewise (``k7_shapes``, ``k7_lost_s``), then the kernels' JSON line
     (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd), each kernel's ms per wrapper
     call (K2-K4: both buckets timed together, divided by their two
-    launches) with its bound per call (the largest of its bytes over the
+    launches; their launches those of both config-5 paths, one band and
+    three) with its bound per call (the largest of its bytes over the
     card's memory rate, its float32 operations over the card's float32
     rate, and its exponentials and logarithms over the special-function
     unit's rate), failing on a kernel faster than its
     bound, then the card line and the result line.
 
-Config 5's flow runs the bench's step counts (the defaults of
-``celeste_tpu_torch/bench/config5.py``).  The entry-point runs and the
-sharded ChEES run are cut in steps only so that the script fits its time,
-by the constants below (PERF.md lists them).
+Before its last lines, and on any failure, the script stops every process
+it started that still runs (the resource tracker that the spawned ranks'
+queues start, and any other child).
+
+Config 5's one-band flow runs the bench's step counts (the defaults of
+``celeste_tpu_torch/bench/config5.py``) but for its NUTS arm.  That arm,
+the three-band flow, the entry-point runs and the sharded ChEES run are
+cut in steps only so that the script fits its time, by the constants
+below (PERF.md lists them).
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import os
+import signal
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -143,9 +166,20 @@ BENCH_CHAINS = 65536
 C5_CHAINS = 1024
 TIMING_CHAINS = (1024, 4096)   # the config-5 kernel timings
 # the entry point's crowded_field run (defaults: 300 warmup, 500 steps, 16 leapfrog)
-ENTRY_CROWDED = dict(n_warmup=64, n_steps=64, n_leapfrog=8)
-# config 1's HMC run at full length (300 warmup, 500 steps)
-STAR_HMC = dict(n_steps=500, n_warmup=300)
+ENTRY_CROWDED = dict(n_warmup=32, n_steps=32, n_leapfrog=8)
+# config 5's NUTS arm (the JAX bench: 64 steps in segments of 16)
+C5_NUTS = dict(n_steps=32, run_segment=16)
+# config 5 in three bands (g, r, i), cut in steps only (chains, bands,
+# sources and field as the JAX bench has them), against the JAX bench's
+# stage (bench.py _bench_config5_multiband): HMC warmup 150 in windows of 50
+# from a step of 0.03, NUTS probe 16, z-space warmup 30; ChEES warmup 60 in
+# windows of 20, 192 steps in segments of 48
+MULTIBAND_PREP = dict(n_warmup=50, warmup_window=50, init_step_size=0.03, probe_steps=4,
+                      n_zwarm=10)
+MULTIBAND_CHEES = dict(warmup_iters=20, warmup_window=20, n_steps=48, run_segment=48)
+MULTIBAND_ARTIFACTS = ("config5_multiband_prep", "config5_multiband_chees_prep")
+# config 1's HMC run (the config: 300 warmup, 500 steps)
+STAR_HMC = dict(n_steps=250, n_warmup=300)
 # the sharded ChEES run on config 5's rectangular posterior (the JAX
 # helper's defaults: 100 warmup, 400 steps, trajectory cap 256)
 SHARDED_CHEES = dict(n_warmup=100, n_steps=100, max_leapfrog=32)
@@ -169,6 +203,11 @@ SEP_GRID = tuple((b, c, h, w) for w, h in ((25, 21), (31, 26), (32, 27), (33, 40
 K1_CHAINS = (1, 9, 32, 64, 1000, 4096)
 K1_SIDES = (25, 96, 128)
 K1_BWD_MAX_CHAINS = 64
+# phase 5: K7 at every geometry k7_geometry picks, for a star's, a galaxy's
+# and config 5's component counts, on 25x25, 31x31, 48x128 and 128x128
+K7_CHAINS = (1, 9, 32, 64, 1000, 4096)
+K7_COMPONENTS = (3, 48, 126)
+K7_SHAPES = ((25, 25), (31, 31), (48, 128), (128, 128))
 DENSE_CHAINS = 64               # phase 6: config 5's dense gradient
 PPC_DRAWS = 32
 # the card's peaks (H100 SXM at 700 W, NVIDIA's data sheet: HBM3 rate, float32
@@ -241,6 +280,46 @@ def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def child_processes():
+    """(pid, command line) of every child of this process, from /proc."""
+    me, out = str(os.getpid()), []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = f.read().rsplit(")", 1)[1].split()[1]   # after "(comm) state"
+            if ppid == me:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    out.append((int(pid), f.read().replace(b"\0", b" ").decode().strip()))
+        except (OSError, IndexError):
+            pass                                  # it ended while we looked
+    return out
+
+
+def stop_children():
+    """Stop every process this script started that still runs.  The spawned
+    gloo ranks' queues start multiprocessing's resource tracker, which lives
+    until its parent ends; it is closed here, and any other child is sent
+    SIGTERM (SIGKILL after 10 s) and reaped, with a line saying so."""
+    from multiprocessing import resource_tracker
+
+    resource_tracker._resource_tracker._stop()
+    left = child_processes()
+    for pid, cmd in left:
+        print(f"[exit] stopping child process {pid}: {cmd}", file=sys.stderr, flush=True)
+        os.kill(pid, signal.SIGTERM)
+    deadline = time.monotonic() + 10.0
+    for pid, _ in left:
+        try:
+            while os.waitpid(pid, os.WNOHANG) == (0, 0):
+                if time.monotonic() > deadline:
+                    os.kill(pid, signal.SIGKILL)
+                    os.waitpid(pid, 0)
+                    break
+                time.sleep(0.05)
+        except ChildProcessError:
+            pass                                  # already reaped
 
 
 # ---------------------------------------------------------------------------
@@ -549,11 +628,29 @@ def stamp_render_checks(device, config5):
     """K7 against its plain version: star (C=3, 25x25) and galaxy (C=48,
     31x31) planes at B=32 (the PPC's draws), 1000 and 4096, with every 9th
     row at zero amplitude (it must render exactly the sky); config 5's
-    dense planes (C=126) over the 48x128 field at B=1024."""
+    dense planes (C=126) over the 48x128 field at B=1024; and
+    ``random_render_problem`` at every geometry ``k7_geometry`` picks
+    (K7_CHAINS), C in K7_COMPONENTS, on the K7_SHAPES pixel sets, each call
+    twice, bitwise equal."""
     from celeste_tpu_torch.kernels import mog_field as mf
     from celeste_tpu_torch.parallel.crowded import scene_field_planes
 
     err = 0.0
+    for b in K7_CHAINS:
+        for c in K7_COMPONENTS:
+            for h, w in K7_SHAPES:
+                planes, (px, py, sky) = (
+                    [torch.as_tensor(a, device=device) for a in arrays]
+                    for arrays in mf.random_render_problem(b, c, h, w, seed=b + c + w))
+                what = f"K7 random B={b} C={c} {h}x{w} (CB, T)={mf.k7_geometry(b, px.shape[1])}"
+                got = mf.render_cuda(*planes, px, py, sky)
+                again = mf.render_cuda(*planes, px, py, sky)
+                want = mf._render_torch(*planes, px, py, sky)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), f"{what}: two calls differ")
+                err = max(err, max_abs_err(got, want, *LAM_TOL, what))
+                check(torch.equal(got[::9], sky.expand(got[::9].shape[0], -1)),
+                      f"{what}: a zero-amplitude row does not render exactly the sky")
     for kind, scene in (("star", stamp_scene("star", 25, device)),
                         ("galaxy", galaxy_scene(device))):
         stamp = scene.stamps[0]
@@ -578,8 +675,10 @@ def stamp_render_checks(device, config5):
     want = mf._render_torch(*planes, px, py, sky)
     torch.cuda.synchronize()
     err = max(err, max_abs_err(got, want, *LAM_TOL, f"K7 config-5 field B={C5_CHAINS}"))
-    print(f"[kernels] K7 matches the plain version on star, galaxy and config-5 planes (max abs "
-          f"err {err:.4g}); zero-amplitude rows render exactly the sky", flush=True)
+    print(f"[kernels] K7 matches the plain version on star, galaxy and config-5 planes and on "
+          f"random problems at B={K7_CHAINS}, C={K7_COMPONENTS}, pixel sets {K7_SHAPES} (max abs "
+          f"err {err:.4g}); zero-amplitude rows render exactly the sky; repeats bitwise equal",
+          flush=True)
     return err
 
 
@@ -862,7 +961,7 @@ def config5_path(device):
     prep = config5_warmup_and_whiten(logd, vec, n_chains=C5_CHAINS)
     t_prep = time.perf_counter() - t0
     chees = measure_chees_z(prep)
-    nuts = measure_nuts_z(prep)
+    nuts = measure_nuts_z(prep, **C5_NUTS)
     wall = time.perf_counter() - t0
     print(f"[config 5] 12 sources, 48x128, {C5_CHAINS} chains: prep {t_prep:.3f}s "
           f"(step {prep['step_size']:.5f}, z-space step {prep['step_z']:.5f}), "
@@ -897,6 +996,124 @@ def config5_path(device):
           f"traj={res['trajectory_length']:.4f} max_rhat={float(np.max(res['rhat'])):.4f} "
           f"min_ess={float(np.min(res['ess'])):.1f}", flush=True)
     return dense_counts
+
+
+def multiband_path(device):
+    """Config 5 in three bands (g, r, i) at full width, through the JAX bench's
+    stage: ``build_config5_multiband`` -> the parity gate (gap < 1 nat; radii
+    cut to 0.05 trips it above 100) -> each band's tiled ll at the truth
+    against the fp64 oracle -> the committed artifacts' saved logps against a
+    live evaluation (printed) -> one gradient's launches -> warmup and
+    whitening -> ChEES, cut by MULTIBAND_PREP and MULTIBAND_CHEES.  Gates:
+    finite samples, accept >= 0.4, divergence <= 0.05; max split-R-hat
+    printed.  Returns (the three-band build, the tiled launches of one
+    gradient at C5_CHAINS)."""
+    from celeste_tpu_torch.bench.config5 import (
+        build_config5_multiband, config5_parity_gap, config5_warmup_and_whiten, measure_chees_z,
+    )
+    from celeste_tpu_torch.inference import whiten_logdensity
+    from celeste_tpu_torch.inference.hmc import value_and_grad
+    from celeste_tpu_torch.interop import load_config5_prep
+    from celeste_tpu_torch.kernels import tiled_field as tf
+    from celeste_tpu_torch.oracle.forward import oracle_poisson_loglik, oracle_scene_lambda
+
+    t0 = time.perf_counter()
+    multiband = build_config5_multiband(device=device)
+    logd, logd_dense, vec, info = multiband
+    gap, rel = config5_parity_gap(logd, logd_dense, vec)
+    check(gap < 1.0, f"three-band tiled-vs-dense gap {gap:.4g} nats >= 1")
+    cut = build_config5_multiband(radii_scale=0.05, device=device)[0]
+    gap_cut, _ = config5_parity_gap(cut, logd_dense, vec)
+    check(gap_cut > 100.0, f"a 0.05 radii cut moved the three-band gap only to {gap_cut:.4g}")
+    print(f"[config 5 gri] D={vec.shape[0]}, bands {info['bands']}: tiled vs dense gap "
+          f"{gap:.6g} nats (rel {rel:.3g}); radii x0.05: {gap_cut:.6g} nats", flush=True)
+
+    errs = []
+    for i, (stamp, ost, band) in enumerate(zip(info["stamps"], info["oracle_stamps"],
+                                               info["bands"])):
+        srcs = [dict(s, flux=float(s["flux"][band])) for s in info["sources"]]
+        want = oracle_poisson_loglik(oracle_scene_lambda(srcs, ost), ost["counts"])
+        planes = tf.scene_planes_blocked(info["scene"], vec[None], stamp, i)
+        with torch.no_grad():
+            got = tf.tiled_field_loglik(planes, info["tiled_data"][i], n_comp=3)
+        errs.append(max_abs_err(got.cpu(), torch.tensor([want]), *ORACLE_TOL,
+                                f"three-band config 5, band {band}: tiled loglik vs oracle"))
+    print(f"[oracle] config 5 gri tiled loglik at truth, per band: abs err "
+          f"{', '.join(f'{e:.4g}' for e in errs)}", flush=True)
+
+    art = Path(__file__).resolve().parent / "celeste_tpu" / "bench" / "artifacts"
+    prep_a, chees_a = (load_config5_prep(art / f"{n}.npz", device) for n in MULTIBAND_ARTIFACTS)
+    logd_z = whiten_logdensity(logd, prep_a["m_hat"], prep_a["cov_hat"])[0]
+    with torch.no_grad():
+        gaps = {name: float((f(x[:8]).double() - saved[:8].double()).abs().max())
+                for name, f, x, saved in (
+                    ("prep states_x", logd, prep_a["states_x"].x, prep_a["states_x"].logp),
+                    ("prep states_z", logd_z, prep_a["states_z"].x, prep_a["states_z"].logp),
+                    ("chees st", logd_z, chees_a["st"].xs, chees_a["st"].logps))}
+    print(f"[artifacts] three-band warm-start files, saved logp against a live evaluation on "
+          f"the first 8 chains (max abs, nats): {gaps}", flush=True)
+
+    rng = np.random.default_rng(8)
+    vecs = vec[None] + torch.as_tensor(0.01 * rng.normal(size=(C5_CHAINS, vec.shape[0])),
+                                       dtype=torch.float32, device=device)
+    before = tf.launch_counts()
+    value_and_grad(logd, vecs)
+    torch.cuda.synchronize()
+    per_grad = {k: v - before[k] for k, v in tf.launch_counts().items()}
+    n_buckets = [len(d.buckets) for d in info["tiled_data"]]
+    print(f"[config 5 gri] launches per gradient at B={C5_CHAINS}: {per_grad} (bands x buckets "
+          f"= {' + '.join(map(str, n_buckets))})", flush=True)
+    check(per_grad["tiled_field_fwd_lam"] == per_grad["tiled_field_bwd"] == sum(n_buckets),
+          "a three-band gradient does not launch K3 and K4 once per band and bucket")
+
+    t1 = time.perf_counter()
+    prep = config5_warmup_and_whiten(logd, vec, n_chains=C5_CHAINS, **MULTIBAND_PREP)
+    t_prep = time.perf_counter() - t1
+    chees = measure_chees_z(prep, **MULTIBAND_CHEES)
+    print(f"[config 5 gri] 12 sources, 48x128, three bands, {C5_CHAINS} chains, "
+          f"{MULTIBAND_PREP} {MULTIBAND_CHEES}: prep {t_prep:.3f}s (step "
+          f"{prep['step_size']:.5f}, z-space step {prep['step_z']:.5f}); ChEES(z): "
+          f"min_ess_per_s={chees['min_ess_per_s']:.6g} min_ess={float(chees['ess'].min()):.1f} "
+          f"accept={chees['accept']:.4f} leapfrogs_per_step={chees['n_leapfrog']:.3f} "
+          f"divergence={chees['divergence']:.4f} max_rhat={chees['max_rhat']:.4f} "
+          f"eps={chees['eps']:.4f} traj={chees['traj']:.4f} wall={chees['wall_s']:.3f}s; "
+          f"phase wall {time.perf_counter() - t0:.3f}s", flush=True)
+    check(chees["finite"], "three-band ChEES: non-finite samples")
+    check(chees["accept"] >= 0.4, f"three-band ChEES accept {chees['accept']:.4f} < 0.4")
+    check(chees["divergence"] <= 0.05,
+          f"three-band ChEES divergence {chees['divergence']:.4f} > 0.05")
+    return multiband, per_grad
+
+
+def multiband_timings(device, card, multiband):
+    """One three-band config-5 value_and_grad at B=1024, kernel and plain."""
+    from celeste_tpu_torch.inference.hmc import value_and_grad
+    from celeste_tpu_torch.kernels import tiled_field as tf
+    from celeste_tpu_torch.model.priors import SourcePriors
+    from celeste_tpu_torch.parallel.crowded import _crowded_logprior
+
+    logd, _, vec, info = multiband
+    rng = np.random.default_rng(8)
+    vecs = vec[None] + torch.as_tensor(0.01 * rng.normal(size=(C5_CHAINS, vec.shape[0])),
+                                       dtype=torch.float32, device=device)
+    priors = SourcePriors()
+
+    def logd_plain(v):
+        ll = 0.0
+        for i, (stamp, data) in enumerate(zip(info["stamps"], info["tiled_data"])):
+            planes = tf.scene_planes_blocked(info["scene"], v, stamp, i)
+            ll = ll + tf.tiled_field_loglik_plain(planes, data, n_comp=3, centered=True)
+        return ll + _crowded_logprior(info["scene"], priors, v)
+
+    lv, gv = value_and_grad(logd, vecs)
+    lp, gp = value_and_grad(logd_plain, vecs)
+    max_abs_err(lv, lp, *TILED_TOL, "three-band value_and_grad value: kernel vs plain")
+    max_abs_err(gv, gp, *TILED_BWD_TOL, "three-band value_and_grad gradient: kernel vs plain")
+    out = {"vg_ms": time_ms(lambda: value_and_grad(logd, vecs), 10),
+           "vg_plain_ms": time_ms(lambda: value_and_grad(logd_plain, vecs), 2)}
+    print(f"[timing] three-band config-5 value_and_grad, B={C5_CHAINS}: kernel "
+          f"{out['vg_ms']:.6f} ms, plain {out['vg_plain_ms']:.6f} ms, card: {card}", flush=True)
+    return out
 
 
 def whitening_check(prep):
@@ -1675,6 +1892,15 @@ def main() -> int:
     for name in ("tiled_field_fwd", "tiled_field_fwd_lam", "tiled_field_bwd"):
         check(c5_counts[name] > 0, f"the config-5 path never launched {name}")
 
+    mf.reset_launch_counts()
+    tf.reset_launch_counts()
+    multiband, mb_per_grad = multiband_path(device)
+    mb_counts = tf.launch_counts()
+    print(f"[config 5 gri] launches: {mb_counts} (stamp kernels: {mf.launch_counts()})",
+          flush=True)
+    for name in ("tiled_field_fwd", "tiled_field_fwd_lam", "tiled_field_bwd"):
+        check(mb_counts[name] > 0, f"the three-band config-5 path never launched {name}")
+
     runs23 = configs23_path(device)
     k7_launches, k7_shapes = ppc_path(device, runs23)
     k8_counts, k1_65536 = sep_entry_path(device)
@@ -1698,6 +1924,7 @@ def main() -> int:
 
         t1 = config1_timings(device, card)
         t5 = config5_timings(device, card, config5)
+        multiband_timings(device, card, multiband)
         tr = render_timings(card, sharded5, t5["vg_ms"])
         t8 = sep_timings(device, card)
         t7 = stamp_render_timings(device, card, config5)
@@ -1713,11 +1940,14 @@ def main() -> int:
          "K1-bwd", k1_counts["mog_field_loglik_bwd"], k1_errs["bwd"], t1["bwd_ms"],
          t1["bwd_plain_ms"]),
         ("tiled_field_fwd", "tiled_field.cu", f"{tiled}:57", "K2",
-         c5_counts["tiled_field_fwd"], tiled_errs["K2"], t5b["K2"], t5b["K2_plain"]),
+         c5_counts["tiled_field_fwd"] + mb_counts["tiled_field_fwd"], tiled_errs["K2"],
+         t5b["K2"], t5b["K2_plain"]),
         ("tiled_field_fwd_lam", "tiled_field.cu", f"{tiled}:84", "K3",
-         c5_counts["tiled_field_fwd_lam"], tiled_errs["K3"], t5b["K3"], t5b["K3_plain"]),
+         c5_counts["tiled_field_fwd_lam"] + mb_counts["tiled_field_fwd_lam"], tiled_errs["K3"],
+         t5b["K3"], t5b["K3_plain"]),
         ("tiled_field_bwd", "tiled_field.cu", f"{tiled}:108", "K4",
-         c5_counts["tiled_field_bwd"], tiled_errs["K4"], t5b["K4"], t5b["K4_plain"]),
+         c5_counts["tiled_field_bwd"] + mb_counts["tiled_field_bwd"], tiled_errs["K4"],
+         t5b["K4"], t5b["K4_plain"]),
         ("tiled_field_render", "tiled_field.cu", f"{tiled}:632", "K5",
          sh_counts["tiled_field_render"], render_errs["K5"], trb["K5"], trb["K5_plain"]),
         ("tiled_field_render_bwd", "tiled_field.cu", f"{tiled}:652", "K6",
@@ -1740,6 +1970,7 @@ def main() -> int:
                         "replaces": replaces, "launches": launches, "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
+    stop_children()
     print(f"[done] whole script {time.perf_counter() - t_start:.3f} s", flush=True)
     lost = {k: sum(r["lost_s"] for r in k1_rows if r["kernel"] == k) for k in ("K1-fwd", "K1-bwd")}
     print(json.dumps({"k1_shapes": k1_rows, "k1_lost_s": lost}), flush=True)
@@ -1754,4 +1985,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_children()
+    sys.exit(rc)

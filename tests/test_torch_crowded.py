@@ -34,7 +34,6 @@ from celeste_tpu_torch.experiments import CONFIGS, run_experiment
 from celeste_tpu_torch.inference import whiten_logdensity
 from celeste_tpu_torch.interop import load_config5_prep
 from celeste_tpu_torch.parallel import CrowdedScene
-from celeste_tpu_torch.parallel.crowded import make_tiled_crowded_logdensity
 
 from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -135,13 +134,6 @@ def test_log_density_at_truth(config5):
         single = torch.cat([config5["t_tiled"](rows[i:i + 1]) for i in range(3)])
     assert abs(float(lt[0] - ld[0])) < 1.0
     torch.testing.assert_close(batch, single, rtol=1e-6, atol=1e-2)
-
-
-def test_multiband_tiled_is_not_yet_ported(config5):
-    info = config5["tinfo"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_tiled_crowded_logdensity(info["scene"], [info["stamp"]] * 2, [0, 1],
-                                      positions_px=info["positions_px"])
 
 
 def test_run_experiment_crowded_field_tiled():

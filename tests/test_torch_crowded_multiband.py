@@ -1,0 +1,211 @@
+"""The port's three-band crowded field (config 5 in g, r, i:
+``bench/config5.py::build_config5_multiband`` and the multi-band
+``parallel/crowded.py::make_tiled_crowded_logdensity``) on the CPU against
+the JAX package's ``build_config5_multiband(impl="jnp")``.
+
+States: the truth and seeded perturbations of it (spread 0.01, drawn with
+numpy), 4 chains; the artifact states are the first 4 chains of the JAX
+package's committed three-band warm-start files.  The dense reference is
+held in value (its gradient is the one-band path's, per band, held by
+tests/test_torch_crowded.py).  Log-densities rtol 2e-6,
+atol 1.0; gradients rtol 5e-4, atol 0.1 (the tiled gates,
+tests/test_tiled_field.py:97, :129, as tests/test_torch_crowded.py holds
+one band).  The parity gate: the tiled-vs-dense gap under 1.0 nats, a
+radii cut to 0.05 trips it above 100 (tests/test_tiled_field.py:375; a cut
+to 0.95 moves no (source, tile) pair at the field's 8x128 tiles, so the
+gap stays), and radii x1.5 keep it under 1.0.  The JAX references are
+jitted once per module and shared.
+"""
+
+import copy
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from celeste_tpu.bench.config5 import build_config5_multiband as j_build_multiband
+from celeste_tpu.experiments import CONFIGS as J_CONFIGS
+from celeste_tpu.experiments import _crowded_problem as j_crowded_problem
+from celeste_tpu.inference import whiten_logdensity as j_whiten
+
+from celeste_tpu_torch.bench.config5 import build_config5_multiband, config5_parity_gap
+from celeste_tpu_torch.experiments import CONFIGS, _crowded_problem, run_experiment
+from celeste_tpu_torch.inference import whiten_logdensity
+from celeste_tpu_torch.interop import load_config5_prep
+from celeste_tpu_torch.model.stamp import Stamp
+from celeste_tpu_torch.mog import MoG2D
+from celeste_tpu_torch.parallel.crowded import make_tiled_crowded_logdensity
+
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse fixture)
+
+ARTIFACTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "celeste_tpu", "bench", "artifacts")
+TOL = dict(rtol=2e-6, atol=1.0)
+GRAD_TOL = dict(rtol=5e-4, atol=0.1)
+
+
+@pytest.fixture(scope="module")
+def mb():
+    j_tiled, j_dense, jvec, jinfo = j_build_multiband(impl="jnp")
+    t_tiled, t_dense, tvec, tinfo = build_config5_multiband(device="cpu")
+    probes = np.asarray(jvec)[None] + 0.01 * np.random.default_rng(31).normal(size=(3, 68))
+    states = np.concatenate([np.asarray(jvec)[None], probes]).astype(np.float32)
+    def total(v):
+        ll = j_tiled.batched(v)
+        return jnp.sum(ll), ll
+
+    return {"j_tiled": j_tiled, "j_dense": j_dense, "jvec": np.asarray(jvec), "jinfo": jinfo,
+            "t_tiled": t_tiled, "t_dense": t_dense, "tvec": tvec, "tinfo": tinfo,
+            "states": states,
+            # the JAX tiled posterior's value and gradient, batch-major as the
+            # JAX bench drives it; every call below is [4, 68], one compile
+            "j_vg": jax.jit(jax.value_and_grad(total, has_aux=True))}
+
+
+def _j_tiled(mb, x):
+    (_, v), g = mb["j_vg"](jnp.asarray(x, jnp.float32))
+    return np.asarray(v), np.asarray(g)
+
+
+@pytest.fixture(scope="module")
+def jax_values(mb):
+    """JAX value and gradient of the tiled posterior and value of the dense
+    one at the 4 states."""
+    return {"tiled": _j_tiled(mb, mb["states"]),
+            "dense": (np.asarray(jax.jit(jax.vmap(mb["j_dense"]))(jnp.asarray(mb["states"]))),
+                      None)}
+
+
+def test_scene_matches_jax(mb):
+    """D = 10 (2 + 3) + 2 (6 + 3) = 68; the truth, positions, radii and
+    every band's counts equal the JAX package's."""
+    t, j = mb["tinfo"], mb["jinfo"]
+    assert mb["tvec"].shape == (68,) and t["scene"].dim == 68 and t["bands"] == (1, 2, 3)
+    np.testing.assert_array_equal(mb["tvec"].numpy(), mb["jvec"])
+    np.testing.assert_array_equal(t["positions_px"], j["positions_px"])
+    for ts, js in zip(t["stamps"], j["stamps"]):
+        np.testing.assert_array_equal(ts.counts.numpy(), np.asarray(js.counts))
+
+
+@pytest.mark.parametrize("band", [0, 1, 2])
+def test_tile_maps_match_jax(mb, band):
+    """Each band's tile map, tiled pixels and occupancy buckets equal JAX's."""
+    td, jd = mb["tinfo"]["tiled_data"][band], mb["jinfo"]["tiled_data"][band]
+    np.testing.assert_array_equal(td.tile_map.tile_src, jd.tile_map.tile_src)
+    np.testing.assert_array_equal(td.tile_src.numpy(), np.asarray(jd.tile_src))
+    for a, b in zip(td.pixels, jd.pixels):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert [c for _, c in td.buckets] == [int(c) for _, c in jd.buckets]
+    for (ts, _), (js, _) in zip(td.buckets, jd.buckets):
+        np.testing.assert_array_equal(np.asarray(ts), np.asarray(js))
+
+
+@pytest.mark.parametrize("which", ["tiled", "dense"])
+@pytest.mark.parametrize("rows", ["truth", "perturbed"])
+def test_three_band_logdensity_matches_jax(mb, jax_values, which, rows):
+    sl = slice(0, 1) if rows == "truth" else slice(1, 4)
+    x = torch.as_tensor(mb["states"][sl]).requires_grad_(True)
+    v = mb["t_" + which](x)
+    want_v, want_g = jax_values[which]
+    np.testing.assert_allclose(v.detach().numpy(), want_v[sl], **TOL)
+    if want_g is not None:
+        (g,) = torch.autograd.grad(v.sum(), x)
+        np.testing.assert_allclose(g.numpy(), want_g[sl], **GRAD_TOL)
+
+
+def test_parity_gap_and_radii_cut(mb):
+    gap, rel = config5_parity_gap(mb["t_tiled"], mb["t_dense"], mb["tvec"])
+    assert gap < 1.0, (gap, rel)
+    cut = build_config5_multiband(radii_scale=0.05, device="cpu")[0]
+    gap_cut, _ = config5_parity_gap(cut, mb["t_dense"], mb["tvec"])
+    assert gap_cut > 100.0 and gap_cut > 100 * gap, (gap_cut, gap)
+    big = build_config5_multiband(radii_scale=1.5, device="cpu")[0]
+    assert config5_parity_gap(big, mb["t_dense"], mb["tvec"])[0] < 1.0
+
+
+def test_list_in_list_out_and_ambiguous_positions(mb):
+    """A list of stamps gives a list of tile data and one stamp one; per-band
+    position lists equal the shared array; a stacked [n_bands, S, 2] array
+    and mismatched PSF component counts raise."""
+    info = mb["tinfo"]
+    cs, stamps, pos = info["scene"], info["stamps"], info["positions_px"]
+    x = mb["tvec"][None]
+    logd, datas = make_tiled_crowded_logdensity(cs, stamps, [0, 1, 2], [pos] * 3,
+                                                radii_px=info["radii"], centered=True)
+    assert isinstance(datas, list) and len(datas) == 3
+    with torch.no_grad():
+        assert torch.equal(logd(x), mb["t_tiled"](x))
+    _, one = make_tiled_crowded_logdensity(cs, stamps[0], 0, pos, radii_px=info["radii"])
+    assert not isinstance(one, list)
+    with pytest.raises(ValueError, match="ambiguous"):
+        make_tiled_crowded_logdensity(cs, stamps, [0, 1, 2], np.stack([pos] * 3))
+    st = stamps[1]
+    odd = Stamp(st.counts, st.sky, st.iota, st.mask,
+                MoG2D(st.psf.w[:2], st.psf.mu[:2], st.psf.cov[:2]), st.wcs_A, st.wcs_p0, st.band)
+    with pytest.raises(ValueError, match="PSF component count"):
+        make_tiled_crowded_logdensity(cs, [stamps[0], odd], [0, 1], pos)
+
+
+def test_build_config5_multiband_runs_on_the_card_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs CUDA"):
+        build_config5_multiband()
+
+
+@pytest.mark.parametrize("artifact", ["prep x", "prep z", "chees z"])
+def test_logdensity_at_the_artifact_states_matches_jax(mb, artifact):
+    """The live log-density at the first 4 chains of the committed
+    three-band artifacts: x-space states through the tiled posterior,
+    z-space states through its whitening by the preparation file's moments
+    (JAX's reference: its tiled posterior at JAX's ``to_x`` of them).  The
+    saved logps are stale inputs and are compared with nothing here (their
+    gap is recorded in ROADMAP.md §3)."""
+    prep = load_config5_prep(f"{ARTIFACTS}/config5_multiband_prep.npz")
+    if artifact == "prep x":
+        x = prep["states_x"].x[:4]
+        with torch.no_grad():
+            got = mb["t_tiled"](x).numpy()
+        want = _j_tiled(mb, x.numpy())[0]
+    else:
+        z = (prep["states_z"].x if artifact == "prep z" else load_config5_prep(
+            f"{ARTIFACTS}/config5_multiband_chees_prep.npz")["st"].xs)[:4]
+        logd_z = whiten_logdensity(mb["t_tiled"], prep["m_hat"], prep["cov_hat"])[0]
+        j_to_x = j_whiten(mb["j_tiled"], prep["m_hat"].numpy(), prep["cov_hat"].numpy())[1]
+        with torch.no_grad():
+            got = logd_z(z).numpy()
+        want = _j_tiled(mb, np.asarray(j_to_x(jnp.asarray(z.numpy()))))[0]
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_crowded_field_in_three_bands_gives_jax_problem(tiled):
+    """``crowded_field`` with bands (1, 2, 3): every band rendered, the first
+    band's stamp sampled with one flux per source, as the JAX entry point
+    does; the scene, the start and the log-density equal JAX's, and the
+    port's run goes through."""
+    cfg = copy.deepcopy(CONFIGS["crowded_field"])
+    jcfg = copy.deepcopy(J_CONFIGS["crowded_field"])
+    small = dict(bands=(1, 2, 3), tiled=tiled, n_galaxies=1, n_sources=3, shape=(16, 16),
+                 n_chains=4, n_warmup=8, n_steps=6, n_leapfrog=1, max_depth=2)
+    for c in (cfg, jcfg):
+        for k, v in small.items():
+            setattr(c, k, v)
+    cfg.device = "cpu"
+    scene, logd, x0 = _crowded_problem(cfg, torch.device("cpu"))
+    jscene, jlogd, jx0 = j_crowded_problem(jcfg)
+    assert len(scene.stamps) == 3 and x0.shape == (2 * 3 + 6 + 1,)
+    np.testing.assert_array_equal(x0, jx0)
+    for ts, js in zip(scene.stamps, jscene.stamps):
+        np.testing.assert_array_equal(ts.counts.numpy(), np.asarray(js.counts))
+    xs = (x0[None] + 0.01 * np.random.default_rng(4).normal(size=(3, x0.size))).astype(
+        np.float32)
+    with torch.no_grad():
+        got = logd(torch.as_tensor(xs)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax.jit(jax.vmap(jlogd))(jnp.asarray(xs))), **TOL)
+    if not tiled:   # the plain tiled path is slow on the CPU; one run shows the entry point
+        res = run_experiment(cfg)
+        assert res["samples"].shape == (4, 6, x0.size) and np.all(np.isfinite(res["samples"]))

@@ -151,7 +151,7 @@ def test_cli_and_not_yet_ported_paths(tmp_path):
         main(["config=quasar_photoz", "device=cpu"])
     with pytest.raises(SystemExit, match="unknown config key"):
         main(["config=star_single", "n_temps=8"])
-    for bad in (dict(sampler="tempered_slice"), dict(name="crowded_field", bands=(0, 2)),
+    for bad in (dict(sampler="tempered_slice"), dict(name="crowded_field", color_prior="gmm"),
                 dict(checkpoint_every=10), dict(resume="ckpt")):
         with pytest.raises(NotImplementedError):
             run_experiment(_cfg(**bad))

@@ -14,8 +14,8 @@ Tolerances are those of the JAX package's kernel tests
 order); gradients rtol 5e-4, atol 5e-2.  The tiled kernels (K2, K3, K4)
 take those of tests/test_tiled_field.py: values rtol 2e-6, atol 1.0;
 gradients rtol 5e-4, atol 0.1 on config 5, and rtol 2e-4, atol 5e-3 on
-the random-plane setup with repeated sentinel slots; lambda rtol 1e-5,
-atol 1e-3 (sums of ~100 terms on a sky of ~150).
+the random-plane setup with repeated sentinel slots; lambda (K3, K5, K7)
+rtol 1e-5, atol 1e-3 (sums of ~100 terms on a sky of ~150).
 """
 
 import numpy as np
@@ -683,6 +683,66 @@ def test_render_stamp_kernel_on_the_config5_field(cuda, config5):
     got = mf.mog_field_render(*planes, pd)
     assert mf.launch_counts()["mog_field_render"] == before + 1
     torch.testing.assert_close(got, mf._render_torch(*planes, pd[0], pd[1], pd[3]), **LAM_TOL)
+
+
+# K7 at every geometry k7_geometry picks (B 1, 9, 32, 64, 1000, 4096), for a
+# star's, a galaxy's and config 5's component counts, on 25x25, 31x31,
+# 48x128 and 128x128 pixel sets (640, 1024, 6144, 16384 lanes)
+K7_CHAINS = (1, 9, 32, 64, 1000, 4096)
+K7_COMPONENTS = (3, 48, 126)
+K7_SHAPES = ((25, 25), (31, 31), (48, 128), (128, 128))
+
+
+def _render_problem(b, c, h, w, device, seed=0):
+    planes, pix = mf.random_render_problem(b, c, h, w, seed=seed)
+    return [torch.as_tensor(a, device=device) for a in planes], [
+        torch.as_tensor(a, device=device) for a in pix]
+
+
+@pytest.mark.parametrize("h,w", K7_SHAPES)
+@pytest.mark.parametrize("c", K7_COMPONENTS)
+@pytest.mark.parametrize("b", K7_CHAINS)
+def test_render_kernel_at_every_geometry(cuda, b, c, h, w):
+    """K7 against its plain version at LAM_TOL, padded lanes included; the
+    zero-amplitude rows (every 9th chain) exactly the sky; one launch per
+    call; two calls bitwise equal."""
+    planes, (px, py, sky) = _render_problem(b, c, h, w, cuda, seed=b + c + w)
+    before = mf.launch_counts()["mog_field_render"]
+    got = mf.render_cuda(*planes, px, py, sky)
+    again = mf.render_cuda(*planes, px, py, sky)
+    assert mf.launch_counts()["mog_field_render"] == before + 2
+    assert tuple(got.shape) == (b, px.shape[1])
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, mf._render_torch(*planes, px, py, sky), **LAM_TOL)
+    assert torch.equal(got[::9], sky.expand(got[::9].shape[0], -1))
+
+
+def test_render_kernel_component_cap_fails_loudly(cuda):
+    """At 8 chains per block (B=4096) K7 stages up to ~800 components; above
+    that the launch is refused and the wrapper raises, counting nothing."""
+    assert mf.k7_geometry(4096, 640)[0] == 8
+    planes, (px, py, sky) = _render_problem(4096, 800, 25, 25, cuda)
+    torch.testing.assert_close(mf.render_cuda(*planes, px, py, sky),
+                               mf._render_torch(*planes, px, py, sky), **LAM_TOL)
+    planes, _ = _render_problem(4096, 900, 25, 25, cuda)
+    before = mf.launch_counts()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mf.render_cuda(*planes, px, py, sky)
+    assert mf.launch_counts() == before
+
+
+def test_render_wrapper_rejects_bad_inputs(cuda):
+    planes, (px, py, sky) = _render_problem(8, 3, 25, 25, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        mf.render_cuda(planes[0].double(), *planes[1:], px, py, sky)
+    with pytest.raises(ValueError, match="shape"):
+        mf.render_cuda(*planes, px[:, :-1], py, sky)
+    with pytest.raises(ValueError, match="shape"):
+        mf.render_cuda(planes[0][:4], *planes[1:], px, py, sky)
+    with pytest.raises(ValueError):
+        mf.render_cuda(*planes, px.cpu(), py, sky)
+    with pytest.raises(ValueError, match="CUDA"):
+        mf.render_cuda(*(p.cpu() for p in planes), px.cpu(), py.cpu(), sky.cpu())
 
 
 def _sep_planes(n, device, seed=0):

@@ -7,6 +7,8 @@ the JAX package.
   0 and sky = 1, so both render the sources at pixel (0, 0) there), star
   and galaxy planes: rtol 1e-5, atol 1e-3 (tests/test_pallas_kernel.py's
   render gate; sums of up to 48 terms on a sky of 150).
+- the same on ``random_render_problem``, the problem K7's card tests use;
+  K7's launch geometry (``k7_geometry``) stores every pixel once.
 - ``ppc_lambda_draws`` against JAX's on the same samples and seed (the same
   host draw picks the same rows): the same gate.
 - tests/test_ppc.py's calibrated and missing-source cases on a port MH
@@ -78,6 +80,43 @@ def test_render_entry_point_on_the_cpu(scenes):
     meta = [torch.empty(t.shape, device="meta") for t in planes]
     with pytest.raises(ValueError, match="no implementation"):
         tmf.mog_field_render(*meta, pd)
+
+
+@pytest.mark.parametrize("b,c,h,w", [(10, 5, 25, 25), (4, 9, 26, 31)])
+def test_plain_render_on_a_random_problem_matches_jax(b, c, h, w):
+    """``random_render_problem`` (rotated Gaussians spread over the stamp,
+    every 9th chain at zero amplitude), the problem K7's card tests use,
+    through JAX's render in interpret mode and the port's plain version."""
+    planes, pix = tmf.random_render_problem(b, c, h, w, seed=b + c)
+    px, py, sky = pix
+    assert px.shape == (1, -(-h * w // 128) * 128)
+    assert np.all(px[0, h * w:] == 0) and np.all(sky[0, h * w:] == 1)
+    pd = tuple(jnp.asarray(a) for a in (px, py, sky, sky, sky))
+    want = np.asarray(jmf.mog_field_render(*(jnp.asarray(a) for a in planes), pd,
+                                           interpret=True))
+    got = tmf._render_torch(*(torch.as_tensor(a) for a in planes),
+                            *(torch.as_tensor(a) for a in pix)).numpy()
+    np.testing.assert_allclose(got, want, **LAM_TOL)
+    assert np.array_equal(got[::9], np.broadcast_to(sky, got[::9].shape))
+
+
+@pytest.mark.parametrize("b", [1, 9, 32, 64, 1024, 65536])
+@pytest.mark.parametrize("n_pix", [640, 1024, 6144, 16384])
+def test_k7_geometry_covers_every_pixel_once(b, n_pix):
+    """K7's (CB, T): 32 and 64 chains fill at least one block per SM of the
+    H100 with pixel tiles, 65536 chains keep 8 chains per block (one staged
+    chunk serves 8), and a chain's T * 8 / CB warps store every pixel
+    exactly once (the kernel's slicing, ``k1_pixel_slices``)."""
+    cb, t = tmf.k7_geometry(b, n_pix)
+    assert cb in (1, 2, 4, 8) and 1 <= t <= -(-n_pix // 32)
+    if b >= 32:
+        assert -(-b // cb) * t >= tmf.N_SM
+    if b == 65536:
+        assert (cb, t) == (8, 1)
+    slices = tmf.k1_pixel_slices(n_pix, cb, t)
+    assert len(slices) == t * tmf.WARPS // cb
+    covered = np.sort(np.concatenate([np.asarray(s, dtype=np.int64) for s in slices]))
+    assert np.array_equal(covered, np.arange(n_pix))
 
 
 @pytest.mark.parametrize("kinds", [("star", "star"), ("galaxy",)])
