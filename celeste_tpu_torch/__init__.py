@@ -13,7 +13,9 @@ of crowded fields: its log-likelihood forward, forward keeping lambda and
 backward, and the sky-free lambda render of the source-sharded field with
 its backward (``csrc/tiled_field.cu``).  A CUDA tensor always goes through
 the kernels; a CPU tensor takes their plain PyTorch versions.  The sharded
-paths run on ``torch.distributed`` (``parallel/``).
+paths run on ``torch.distributed`` (``parallel/``).  Quasar photo-z
+(``quasar/``) and its tempered samplers are plain PyTorch: the JAX package
+has no Pallas kernel there.
 """
 
 __version__ = "0.1.0"

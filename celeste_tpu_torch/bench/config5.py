@@ -10,14 +10,19 @@ dense metric, z-space warmup) and the two whitened-space arms (ChEES and
 NUTS).  Everything is batch-major; time is a Python loop.
 :func:`build_config5_multiband` gives the same scene observed jointly in
 several bands (g, r, i by default), :func:`build_config5_sharded` its
-rectangular posterior sharded over a mesh of ranks.  The warm-start
-artifact variants (``*_cached``) are not ported.
+rectangular posterior sharded over a mesh of ranks.  The warm starts can
+be cached (``config5_warmup_and_whiten_cached``, and ``measure_chees_z``'s
+``warm_cache_path``): a file under ``celeste_tpu_torch/_cache/`` (not
+committed) holds the warmed ensembles, trusted only when its fingerprint
+matches and a live evaluation reproduces its saved log-densities.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -269,6 +274,127 @@ def config5_warmup_and_whiten(logd, vec, n_chains=1024, n_warmup=150, n_zwarm=30
     }
 
 
+def prep_cache_path(name: str) -> str:
+    """The warm-start cache file of a named bench scene:
+    ``celeste_tpu_torch/_cache/<name>_prep.npz`` (listed in .gitignore)."""
+    d = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_cache")
+    os.makedirs(d, exist_ok=True)
+    return os.path.join(d, f"{name}_prep.npz")
+
+
+def _prep_fingerprint(vec, n_chains, n_warmup, warmup_window, n_zwarm, probe_steps,
+                      init_step_size):
+    """Everything that shapes the warmup stream (the scene enters via vec)."""
+    return {
+        "vec_sum": float(np.sum(vec.detach().cpu().numpy(), dtype=np.float64)),
+        "d": int(vec.shape[0]),
+        "n_chains": int(n_chains), "n_warmup": int(n_warmup),
+        "warmup_window": int(warmup_window), "n_zwarm": int(n_zwarm),
+        "probe_steps": int(probe_steps), "init_step_size": float(init_step_size),
+    }
+
+
+def _fp_ok(saved, want) -> bool:
+    if not isinstance(saved, dict) or set(saved) != set(want):
+        return False
+    for k, v in want.items():
+        s = saved[k]
+        if isinstance(v, float):
+            if abs(float(s) - v) > 1e-6 * max(1.0, abs(v)):
+                return False
+        elif s != v:
+            return False
+    return True
+
+
+def _live_probe_gap(logd_z, xs, saved_logps, n_probe=8):
+    """Max |live logd_z - saved logp| over the first ``n_probe`` chains."""
+    with torch.no_grad():
+        live = logd_z(xs[:n_probe])
+    return float((live.double() - saved_logps[:n_probe].double()).abs().max())
+
+
+def config5_warmup_and_whiten_cached(logd, vec, cache_path, n_chains=1024, n_warmup=150,
+                                     warmup_window=WARMUP_WINDOW, n_zwarm=30, probe_steps=16,
+                                     init_step_size=INIT_STEP_SIZE, verbose=True):
+    """``config5_warmup_and_whiten`` behind a warm-start cache file: the
+    probe-and-warmup flow runs once, its output (whitening moments, the
+    warmed ensembles, the adapted step sizes) is checkpointed, and later
+    runs load it.
+
+    Two validation layers before a cached prep is trusted:
+
+    - a fingerprint of the warmup-stream inputs (scene via ``sum(vec)``,
+      chain count, window sizes): a different scene or configuration falls
+      through to a fresh warmup;
+    - a LIVE log-density probe: the cached chain states carry their saved
+      ``logp``; recomputing ``logd_z(x)`` on 8 chains must reproduce them
+      to 1 nat.  A code change to the likelihood or whitening math silently
+      invalidates any saved ensemble; this catches it and falls back to a
+      fresh warmup (and re-saves), rather than measuring a stale posterior.
+
+    The file holds plain arrays (m_hat, cov_hat, the states, scalars) via
+    ``utils.checkpoint``; ``logd_z``/``to_x``/``to_z`` are rebuilt from the
+    moments at load, so nothing callable is serialized.  A hit returns,
+    bitwise, what was saved.
+    """
+    from celeste_tpu_torch.inference import whiten_logdensity
+    from celeste_tpu_torch.inference.hmc import HMCState
+    from celeste_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    d, device = int(vec.shape[0]), vec.device
+    fp = _prep_fingerprint(vec, n_chains, n_warmup, warmup_window, n_zwarm, probe_steps,
+                           init_step_size)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    def states():
+        return HMCState(x=zeros(n_chains, d), logp=zeros(n_chains), grad=zeros(n_chains, d))
+
+    like = {"m_hat": zeros(d), "cov_hat": zeros(d, d), "states_z": states(),
+            "states_x": states(), "inv_mass": zeros(d), "step_z": zeros(), "step_size": zeros()}
+    if cache_path and os.path.exists(cache_path):
+        try:
+            blob, _, extra = load_checkpoint(cache_path, like)
+            if not _fp_ok(extra.get("fp"), fp):
+                raise ValueError(f"fingerprint mismatch: {extra.get('fp')!r} vs {fp!r}")
+            logd_z, to_x, to_z = whiten_logdensity(logd, blob["m_hat"], blob["cov_hat"])
+            # live probe: the saved logp must be reproduced by today's code
+            gap = _live_probe_gap(logd_z, blob["states_z"].x, blob["states_z"].logp)
+            if not np.isfinite(gap) or gap > 1.0:
+                raise ValueError(f"stale cached prep: live logd_z probe off by {gap:.3g} nats")
+            if verbose:
+                print(f"# config5 prep cache HIT ({cache_path}, probe gap {gap:.3g} nats)",
+                      file=sys.stderr, flush=True)
+            return {
+                "d": d, "logd_z": logd_z, "to_x": to_x, "to_z": to_z,
+                "states_z": blob["states_z"], "step_z": float(blob["step_z"]),
+                "states_x": blob["states_x"], "step_size": float(blob["step_size"]),
+                "inv_mass": blob["inv_mass"], "probe_gap": gap,
+                "whiten_moments": (blob["m_hat"], blob["cov_hat"]),
+            }
+        except (ValueError, KeyError, OSError, zipfile.BadZipFile) as e:   # invalid -> warmup
+            print(f"# config5 prep cache MISS ({str(e)[:200]})", file=sys.stderr, flush=True)
+
+    prep = config5_warmup_and_whiten(logd, vec, n_chains=n_chains, n_warmup=n_warmup,
+                                     n_zwarm=n_zwarm, probe_steps=probe_steps,
+                                     warmup_window=warmup_window, init_step_size=init_step_size)
+    if cache_path:
+        # persist the moments the transforms are rebuilt from, not the
+        # closures, with the warmed ensembles and adapted scalars
+        m_hat, cov_hat = prep["whiten_moments"]
+        save_checkpoint(cache_path, {
+            "m_hat": m_hat, "cov_hat": cov_hat, "states_z": prep["states_z"],
+            "states_x": prep["states_x"], "inv_mass": prep["inv_mass"],
+            "step_z": torch.tensor(prep["step_z"], dtype=torch.float32),
+            "step_size": torch.tensor(prep["step_size"], dtype=torch.float32),
+        }, step=0, extra={"fp": fp})
+        if verbose:
+            print(f"# config5 prep cache SAVED -> {cache_path}", file=sys.stderr, flush=True)
+    return prep
+
+
 def _arm_diagnostics(to_x, seg_samples, drop_frac: int = 4):
     """Unwhiten the z-space segments, drop the first 1/drop_frac of the
     draws, and return (ESS [D], split-R-hat [D]) as NumPy arrays."""
@@ -279,7 +405,7 @@ def _arm_diagnostics(to_x, seg_samples, drop_frac: int = 4):
     return ess(kept).cpu().numpy(), split_rhat(kept).cpu().numpy()
 
 
-def _chees_warm(prep, warmup_iters, warmup_window):
+def _chees_warm(prep, warmup_iters, warmup_window, max_leapfrog=MAX_LEAPFROG):
     """Windowed ChEES (eps, T) adaptation on the prepared ensemble, in
     windows of ``warmup_window`` iterations.  Returns ``(ChEESState, eps,
     traj)``."""
@@ -295,7 +421,7 @@ def _chees_warm(prep, warmup_iters, warmup_window):
     for off in range(0, warmup_iters, warmup_window):
         carry = chees_warmup_window(gen, logd_z, carry,
                                     n_iters=min(warmup_window, warmup_iters - off),
-                                    init_step_size=prep["step_z"], max_leapfrog=MAX_LEAPFROG)
+                                    init_step_size=prep["step_z"], max_leapfrog=max_leapfrog)
     st, eps, traj = chees_warmup_finish(carry)
     eps, traj = float(eps), float(traj)
     _sync(device)
@@ -305,11 +431,68 @@ def _chees_warm(prep, warmup_iters, warmup_window):
     return st, eps, traj
 
 
+def _chees_warm_cached(prep, cache_path, warmup_iters, warmup_window,
+                       max_leapfrog=MAX_LEAPFROG, verbose=True):
+    """``_chees_warm`` behind a warm-start cache file, with the two
+    validation layers of ``config5_warmup_and_whiten_cached``: a
+    fingerprint of the adaptation-stream inputs, and a live ``logd_z``
+    probe against the saved per-chain logps, so a likelihood or whitening
+    code change falls back to a fresh adaptation instead of measuring a
+    stale ensemble.  Returns ``(ChEESState, eps, traj)``."""
+    from celeste_tpu_torch.inference.chees import ChEESState
+    from celeste_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    z0 = prep["states_z"].x
+    n_chains, d = int(z0.shape[0]), int(z0.shape[1])
+    fp = {
+        "z_sum": float(np.sum(z0.cpu().numpy(), dtype=np.float64)),
+        "d": d, "n_chains": n_chains, "warmup_iters": int(warmup_iters),
+        "warmup_window": int(warmup_window), "max_leapfrog": int(max_leapfrog),
+        "step_z": float(prep["step_z"]),
+    }
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=z0.device)
+
+    like = {"st": ChEESState(xs=zeros(n_chains, d), logps=zeros(n_chains),
+                             grads=zeros(n_chains, d)),
+            "eps": zeros(), "traj": zeros()}
+    if cache_path and os.path.exists(cache_path):
+        try:
+            blob, _, extra = load_checkpoint(cache_path, like)
+            if not _fp_ok(extra.get("fp"), fp):
+                raise ValueError(f"fingerprint mismatch: {extra.get('fp')!r} vs {fp!r}")
+            gap = _live_probe_gap(prep["logd_z"], blob["st"].xs, blob["st"].logps)
+            if not np.isfinite(gap) or gap > 1.0:
+                raise ValueError(f"stale cached chees warm: live logd_z probe off by "
+                                 f"{gap:.3g} nats")
+            if verbose:
+                print(f"# config5 chees warm cache HIT ({cache_path}, probe gap {gap:.3g} "
+                      f"nats)", file=sys.stderr, flush=True)
+            return blob["st"], float(blob["eps"]), float(blob["traj"])
+        except (ValueError, KeyError, OSError, zipfile.BadZipFile) as e:   # invalid -> warmup
+            print(f"# config5 chees warm cache MISS ({str(e)[:200]})", file=sys.stderr,
+                  flush=True)
+    with torch.no_grad():
+        st, eps, traj = _chees_warm(prep, warmup_iters, warmup_window, max_leapfrog)
+    if cache_path:
+        save_checkpoint(cache_path, {"st": st,
+                                     "eps": torch.tensor(eps, dtype=torch.float32),
+                                     "traj": torch.tensor(traj, dtype=torch.float32)},
+                        step=0, extra={"fp": fp})
+        if verbose:
+            print(f"# config5 chees warm cache SAVED -> {cache_path}", file=sys.stderr,
+                  flush=True)
+    return st, eps, traj
+
+
 def measure_chees_z(prep, n_steps=240, run_segment=48, warmup_iters=60,
-                    warmup_window=CHEES_WINDOW):
+                    warmup_window=CHEES_WINDOW, max_leapfrog=MAX_LEAPFROG,
+                    warm_cache_path=None):
     """Whitened-space ChEES-HMC arm: windowed ensemble warmup adapts
-    (eps, T) in windows of ``warmup_window`` iterations, then
-    frozen-parameter jittered-HMC segments of ``run_segment`` steps.  Returns a dict: ``min_ess_per_s`` (min ESS over
+    (eps, T) in windows of ``warmup_window`` iterations (behind the cache
+    file ``warm_cache_path`` when given), then frozen-parameter jittered-HMC
+    segments of ``run_segment`` steps.  Returns a dict: ``min_ess_per_s`` (min ESS over
     the run's wall, the warmup excluded), ``accept``, ``n_leapfrog`` (mean
     per step), ``divergence``, ``max_rhat``, ``wall_s``, ``eps``, ``traj``
     and the x-space ``ess`` / ``rhat`` arrays."""
@@ -317,15 +500,16 @@ def measure_chees_z(prep, n_steps=240, run_segment=48, warmup_iters=60,
 
     logd_z = prep["logd_z"]
     device = prep["states_z"].x.device
+    st, eps, traj = _chees_warm_cached(prep, warm_cache_path, warmup_iters, warmup_window,
+                                       max_leapfrog)
     with torch.no_grad():
-        st, eps, traj = _chees_warm(prep, warmup_iters, warmup_window)
         gen = _gen(SEED_CHEES, device)
         t = time.perf_counter()
         seg_samples, infos = [], []
         for i in range(n_steps // run_segment):
             samples, st, info = run_chees_ensemble(gen, logd_z, st, n_steps=run_segment,
                                                    step_size=eps, trajectory_length=traj,
-                                                   max_leapfrog=MAX_LEAPFROG,
+                                                   max_leapfrog=max_leapfrog,
                                                    start_iter=i * run_segment)
             seg_samples.append(samples)
             infos.append(info)

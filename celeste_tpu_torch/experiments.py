@@ -17,15 +17,27 @@ Ported so far:
                    JAX package, every band is rendered and the first
                    band's stamp is sampled with one flux per source.
 
+  quasar_photoz  — BASELINE config 4: the photometric-redshift posterior of a
+                   quasar's ugriz fluxes, slice sampling within a tempered
+                   ladder (``sampler=tempered_slice``, ``n_temps``, ``z_max``).
+
 Samplers: mh, slice, hmc, nuts and chees; the gradient samplers after an
-adaptive HMC warmup; ``metric=dense`` samples in the whitened space.  The
-other configs of the JAX package, the tempered samplers and
-checkpoint/resume raise "not yet ported" (ROADMAP.md lists them).
+adaptive HMC warmup; ``metric=dense`` samples in the whitened space.
+``checkpoint_every=K`` (with ``out``) saves the sampler state every K
+steps to ``out + ".ckpt.npz"`` and the samples so far beside it;
+``resume=<ckpt>`` continues such a run bitwise, since every segment draws
+from its own stream (seed, segment) and the warmup from its own.  The
+configs ``pipeline``, ``field`` and ``field_survey`` of the JAX package
+raise "not yet ported" (ROADMAP.md lists them).
 
 Run:  python -m celeste_tpu_torch.run config=star_single n_chains=64 n_steps=2000
       python -m celeste_tpu_torch.run config=star_ugriz sampler=slice color_prior=gmm
       python -m celeste_tpu_torch.run config=galaxy
       python -m celeste_tpu_torch.run config=crowded_field tiled=true n_galaxies=2
+      python -m celeste_tpu_torch.run config=quasar_photoz
+      python -m celeste_tpu_torch.run config=star_single checkpoint_every=500 out=run1
+      python -m celeste_tpu_torch.run config=star_single checkpoint_every=500 \
+          resume=run1.ckpt.npz out=run2
 Flat ``key=value`` overrides are parsed onto the dataclass.  ``device``
 defaults to ``cuda`` and raises where CUDA is absent; ``device=cpu`` runs
 the plain PyTorch path.
@@ -34,6 +46,7 @@ the plain PyTorch path.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -43,7 +56,7 @@ import torch
 @dataclass
 class ExperimentConfig:
     name: str = "star_single"
-    sampler: str = "mh"            # mh | slice | hmc | nuts | chees
+    sampler: str = "mh"            # mh | slice | hmc | nuts | chees | tempered_slice
     n_chains: int = 64
     n_steps: int = 1000
     n_warmup: int = 300
@@ -62,10 +75,13 @@ class ExperimentConfig:
     color_prior: str = "gaussian"  # gaussian | gmm (empirical colour GMM)
     tiled: bool = False            # crowded_field: block-sparse tiled loglik
     n_galaxies: int = 0            # crowded_field: mixed star/galaxy scenes
+    # quasar
+    n_temps: int = 8
+    z_max: float = 6.0
     # io
     out: str = ""
-    checkpoint_every: int = 0      # not yet ported: must stay 0
-    resume: str = ""               # not yet ported: must stay ""
+    checkpoint_every: int = 0      # steps per segment; a checkpoint after each (needs out)
+    resume: str = ""               # a checkpoint to continue from
     device: str = "cuda"
 
 
@@ -108,6 +124,8 @@ CONFIGS = {
     "crowded_field": ExperimentConfig(name="crowded_field", sampler="chees", metric="dense",
                                       n_chains=256, n_steps=500, shape=(41, 41),
                                       n_sources=10, bands=(2,)),
+    "quasar_photoz": ExperimentConfig(name="quasar_photoz", sampler="tempered_slice",
+                                      n_chains=8, n_steps=1500, n_warmup=500),
 }
 
 
@@ -220,14 +238,22 @@ def _crowded_problem(cfg: ExperimentConfig, device):
 
 _PROBLEMS = {"star_single": _star_problem, "star_ugriz": _star_problem,
              "galaxy": _galaxy_problem, "crowded_field": _crowded_problem}
+# the random streams of a run (utils.rng paths under cfg.seed): the start and
+# warmup draw from one, sampling segment s from (_SEGMENT, s)
+_WARMUP, _SEGMENT = 0, 1
 
 
 def _check_ported(cfg: ExperimentConfig):
+    if cfg.name == "quasar_photoz":
+        if cfg.sampler != "tempered_slice":
+            raise ValueError(f"quasar_photoz samples with sampler=tempered_slice, "
+                             f"got {cfg.sampler!r}")
+        return
     if cfg.name not in _PROBLEMS:
         raise NotImplementedError(f"config {cfg.name!r} is not yet ported to "
                                   f"celeste_tpu_torch (see ROADMAP.md)")
     if cfg.sampler not in ("mh", "slice", "hmc", "nuts", "chees"):
-        raise NotImplementedError(f"sampler {cfg.sampler!r} is not yet ported")
+        raise ValueError(f"sampler {cfg.sampler!r} is not one of mh, slice, hmc, nuts, chees")
     if cfg.metric not in ("diag", "dense"):
         raise ValueError(f"metric must be diag or dense, got {cfg.metric!r}")
     if cfg.color_prior not in ("gaussian", "gmm"):
@@ -236,10 +262,13 @@ def _check_ported(cfg: ExperimentConfig):
         raise NotImplementedError("color_prior=gmm is wired for the star and galaxy problems "
                                   "only; the crowded-field priors would need per-kind flux "
                                   "priors: rerun with color_prior=gaussian")
-    if cfg.checkpoint_every or cfg.resume:
-        raise NotImplementedError("checkpoint/resume is not yet ported")
     if cfg.sampler == "chees" and cfg.thin != 1:
         raise ValueError("the chees sampler does not support thinning")
+    seg = cfg.checkpoint_every if cfg.checkpoint_every > 0 else cfg.n_steps
+    if cfg.n_steps % seg:
+        raise ValueError(f"checkpoint_every={seg} must divide n_steps={cfg.n_steps}")
+    if seg % cfg.thin:
+        raise ValueError(f"thin={cfg.thin} must divide the segment length {seg}")
 
 
 def _dense_metric(cfg, gen, logd, states, step_size, inv_mass, logger):
@@ -256,25 +285,80 @@ def _dense_metric(cfg, gen, logd, states, step_size, inv_mass, logger):
     return out["logd_z"], out["states_z"], out["step_z"], torch.ones_like(inv_mass), out["to_x"]
 
 
+def _quasar_photoz(cfg: ExperimentConfig, device, logger):
+    """Config 4: fluxes of one quasar at a random redshift, made from
+    ``default_rng(cfg.seed)`` exactly as the JAX package makes them, and the
+    tempered slice sampler's cold-chain redshifts."""
+    from celeste_tpu_torch.quasar import (
+        PhotoZConfig, project_to_bands, run_photo_z, sdss_like_filterbank,
+        synthetic_template_basis,
+    )
+
+    basis = synthetic_template_basis(device=device)
+    filters = sdss_like_filterbank(device=device)
+    rng = np.random.default_rng(cfg.seed)
+    z_true = rng.uniform(0.5, 4.0)
+    w_true = torch.as_tensor(rng.dirichlet(np.full(basis.n_basis, 0.7)), dtype=torch.float32,
+                             device=device)
+    flux = project_to_bands(basis, filters, w_true, 2.0, z_true).cpu().numpy()
+    err = 0.04 * np.abs(flux) + 1e-5
+    obs = flux + rng.normal(size=5) * err
+    pz = PhotoZConfig(n_temps=cfg.n_temps, n_steps=cfg.n_steps, n_warmup=cfg.n_warmup,
+                      n_systems=cfg.n_chains, z_max=cfg.z_max)
+    out = run_photo_z(cfg.seed, basis, filters, obs, err, pz, device=device)
+    result = {"z": out["z"].cpu().numpy(), "z_true": z_true,
+              "swap_rate": float(out["swap_rate"]),
+              "calls_per_sweep": float(out["calls_per_sweep"])}
+    logger.log("done", z_true=z_true, z_median=float(np.median(result["z"])),
+               swap_rate=result["swap_rate"], calls_per_sweep=result["calls_per_sweep"])
+    return result
+
+
+def _save_segments(ckpt: str, chunks):
+    """The samples so far beside the checkpoint, one array per segment,
+    written atomically."""
+    tmp = ckpt + ".segments.tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **{f"seg_{i}": c.cpu().numpy() for i, c in enumerate(chunks)})
+    os.replace(tmp, ckpt + ".segments.npz")
+
+
 def run_experiment(cfg: ExperimentConfig):
     """Execute one experiment; returns a results dict (also written to
-    ``cfg.out`` if set)."""
+    ``cfg.out`` if set).
+
+    Sampling runs in segments of ``checkpoint_every`` steps (one segment
+    without it); each segment draws from its own stream (seed, segment), so
+    a run resumed from the checkpoint after segment s equals the unbroken
+    run bitwise.  A resume reruns the warmup, whose stream is its own, and
+    reloads the stored segments, so the summary covers the whole chain.
+    ``quasar_photoz`` runs unsegmented, as in the JAX package.
+    """
     from celeste_tpu_torch.inference import (
         chees_warmup, hmc_kernel, hmc_warmup, mh_init, mh_kernel, nuts_kernel,
         run_chains_ensemble, run_chees_ensemble, slice_init, slice_kernel, summarize,
     )
+    from celeste_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
     from celeste_tpu_torch.utils.metrics import MetricsLogger
+    from celeste_tpu_torch.utils.rng import seeded_generator
 
     _check_ported(cfg)
     device = resolve_device(cfg.device)
     logger = MetricsLogger(cfg.out + ".metrics.jsonl" if cfg.out else None)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     logger.log("start", config=dataclasses.asdict(cfg) | {"device_kind": kind})
+    if cfg.name == "quasar_photoz":
+        if cfg.checkpoint_every or cfg.resume:
+            logger.log("checkpoint_ignored", note="quasar_photoz runs unsegmented")
+        result = _quasar_photoz(cfg, device, logger)
+        logger.close()
+        if cfg.out:
+            np.savez(cfg.out, **result)
+        return result
 
     scene, logd, x0 = _PROBLEMS[cfg.name](cfg, device)
     d = x0.shape[0]
-    gen = torch.Generator(device=device)
-    gen.manual_seed(cfg.seed)
+    gen = seeded_generator(device, cfg.seed, _WARMUP)
     kw = dict(dtype=torch.float32, device=device)
     x0b = (torch.as_tensor(x0, **kw)[None, :]
            + 0.01 * torch.randn((cfg.n_chains, d), generator=gen, **kw))
@@ -313,28 +397,68 @@ def run_experiment(cfg: ExperimentConfig):
                                                max_leapfrog=4 * cfg.n_leapfrog)
                 result["step_size"], result["trajectory_length"] = float(eps), float(traj)
                 logger.log("chees_warmup", step_size=float(eps), trajectory_length=float(traj))
-        if cfg.sampler == "chees":
-            samples, _, info = run_chees_ensemble(
-                gen, logd, init, n_steps=cfg.n_steps, step_size=result["step_size"],
-                trajectory_length=result["trajectory_length"], max_leapfrog=4 * cfg.n_leapfrog)
-            accept, diverged = info.accept_rate, info.divergence_rate
-        else:
-            samples, _, info = run_chains_ensemble(gen, kern, init, n_steps=cfg.n_steps,
-                                                   thin=cfg.thin)
-            accept = (None if cfg.sampler == "slice"
-                      else info.accept_prob if cfg.sampler == "nuts" else info.accepted)
-            diverged = info.diverged if cfg.sampler == "nuts" else None
+
+        seg = cfg.checkpoint_every if cfg.checkpoint_every > 0 else cfg.n_steps
+        n_segments = cfg.n_steps // seg
+        start_seg, chunks = 0, []
+        if cfg.resume:
+            init, start_seg, _ = load_checkpoint(cfg.resume, init)
+            logger.log("resume", path=cfg.resume, segment=start_seg)
+            seg_path = cfg.resume + ".segments.npz"
+            if os.path.exists(seg_path):
+                with np.load(seg_path) as f:
+                    chunks = [torch.as_tensor(f[f"seg_{i}"], device=device)
+                              for i in range(start_seg)]
+            else:
+                logger.log("resume_without_segments", path=seg_path,
+                           note="statistics will cover post-resume samples only")
+
+        state, infos = init, []
+        for s_i in range(start_seg, n_segments):
+            g = seeded_generator(device, cfg.seed, _SEGMENT, s_i)
+            if cfg.sampler == "chees":
+                samples_seg, state, info = run_chees_ensemble(
+                    g, logd, state, n_steps=seg, step_size=result["step_size"],
+                    trajectory_length=result["trajectory_length"],
+                    max_leapfrog=4 * cfg.n_leapfrog, start_iter=s_i * seg)
+            else:
+                samples_seg, state, info = run_chains_ensemble(g, kern, state, n_steps=seg,
+                                                               thin=cfg.thin)
+            chunks.append(samples_seg if to_x is None else to_x(samples_seg))
+            infos.append(info)
+            if cfg.checkpoint_every > 0 and cfg.out:
+                ckpt = cfg.out + ".ckpt.npz"
+                save_checkpoint(ckpt, state, step=s_i + 1)
+                _save_segments(ckpt, chunks)
+                logger.log("checkpoint", segment=s_i + 1)
+        if not chunks:
+            raise SystemExit(
+                f"nothing to run: checkpoint is at segment {start_seg} of {n_segments} and no "
+                f"per-segment samples were found next to it; raise n_steps to continue the chain")
+        if start_seg >= n_segments:
+            logger.log("already_complete", segments=n_segments,
+                       note="no new sampling; re-summarizing the stored chain")
+        samples = torch.cat(chunks, dim=1)
+        kept = samples[:, samples.shape[1] // 4:]
+        summ = summarize(kept)
+        if infos:
+            # every info field's last axis is time: concatenate the segments run here
+            info = type(infos[0])(*(torch.cat(f, dim=-1) for f in zip(*infos)))
+            if cfg.sampler == "chees":
+                accept, diverged = info.accept_rate, info.divergence_rate
+            elif cfg.sampler == "nuts":
+                accept, diverged = info.accept_prob, info.diverged
+            elif cfg.sampler == "slice":
+                accept = diverged = None
+            else:
+                accept, diverged = info.accepted, None
+            if accept is not None:
+                result["accept_rate"] = float(torch.mean(accept.to(torch.float32)))
+            if diverged is not None:
+                result["divergence_rate"] = float(torch.mean(diverged.to(torch.float32)))
             if cfg.sampler == "slice":
                 result["evals_per_sweep"] = float(torch.mean(info.n_evals.double()))
                 result["calls_per_sweep"] = float(torch.mean(info.n_calls[0].double()))
-        if to_x is not None:
-            samples = to_x(samples)
-        kept = samples[:, samples.shape[1] // 4:]
-        summ = summarize(kept)
-        if accept is not None:
-            result["accept_rate"] = float(torch.mean(accept.to(torch.float32)))
-        if diverged is not None:
-            result["divergence_rate"] = float(torch.mean(diverged.to(torch.float32)))
     logger.log("done", rhat_max=float(torch.max(summ["rhat"])),
                ess_min=float(torch.min(summ["ess"])), accept_rate=result.get("accept_rate"),
                mean=summ["mean"], std=summ["std"])

@@ -4,8 +4,9 @@
 Every kernel is a ``(generator, state) -> (state, info)`` step over a
 [B, D] batch of chains; time is a Python loop.  Ported so far: MH, slice,
 HMC with its adaptive warmup, NUTS, ChEES-HMC with its ensemble warmup, the
-dense-metric whitening, diagnostics and the star and galaxy posteriors.
-The rest are listed in ROADMAP.md.
+dense-metric whitening, parallel tempering (the ladder an axis of the
+batch), diagnostics and the star and galaxy posteriors.  The rest are
+listed in ROADMAP.md.
 """
 
 from celeste_tpu_torch.inference.mh import mh_init, mh_kernel  # noqa: F401
@@ -39,3 +40,15 @@ from celeste_tpu_torch.inference.whiten import (  # noqa: F401
 )
 from celeste_tpu_torch.inference.runner import run_chains_ensemble  # noqa: F401
 from celeste_tpu_torch.inference.diagnostics import ess, split_rhat, summarize  # noqa: F401
+from celeste_tpu_torch.inference.tempering import (  # noqa: F401
+    PTInfo,
+    PTState,
+    geometric_ladder,
+    hmc_at_beta,
+    hmc_at_beta_adaptive,
+    mh_at_beta,
+    pt_init,
+    pt_kernel,
+    pt_warmup,
+    slice_at_beta,
+)

@@ -62,12 +62,17 @@ def _leapfrog(logdensity_fn, x, p, grad, step_size, inv_mass, n_steps):
     return x, p, logp, grad
 
 
-def _hmc_step(gen, logdensity_fn, state: HMCState, step_size, inv_mass, n_leapfrog):
+def _hmc_step(gen, logdensity_fn, state: HMCState, step_size, inv_mass, n_leapfrog,
+              noise=None):
     """One HMC transition of every chain; ``step_size`` is a scalar or
-    [B, 1], ``inv_mass`` [D] or [B, D]."""
+    [B, 1], ``inv_mass`` [D] or [B, D].  ``noise``: where the momenta and
+    uniforms come from instead of ``gen`` (an object with ``normal(gen,
+    like)`` and ``uniform(gen, like)``, as ``parallel.ensemble.ChainShard``)."""
     x = state.x
     sqrt_mass = 1.0 / torch.sqrt(inv_mass)
-    p0 = sqrt_mass * torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
+    z = (torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device) if noise is None
+         else noise.normal(gen, x))
+    p0 = sqrt_mass * z
     energy0 = -state.logp + 0.5 * torch.sum(inv_mass * p0 * p0, dim=-1)
     x1, p1, logp1, grad1 = _leapfrog(logdensity_fn, x, p0, state.grad, step_size,
                                      inv_mass, n_leapfrog)
@@ -76,7 +81,8 @@ def _hmc_step(gen, logdensity_fn, state: HMCState, step_size, inv_mass, n_leapfr
     d_energy = torch.where(torch.isfinite(d_energy), d_energy,
                            torch.full_like(d_energy, -float("inf")))
     accept_prob = torch.clamp(torch.exp(d_energy), max=1.0)
-    u = torch.rand(x.shape[0], generator=gen, dtype=x.dtype, device=x.device)
+    u = (torch.rand(x.shape[0], generator=gen, dtype=x.dtype, device=x.device) if noise is None
+         else noise.uniform(gen, accept_prob))
     accept = u < accept_prob
     new = HMCState(
         x=torch.where(accept[:, None], x1, x),
@@ -87,15 +93,16 @@ def _hmc_step(gen, logdensity_fn, state: HMCState, step_size, inv_mass, n_leapfr
                         energy_error=-d_energy)
 
 
-def hmc_kernel(logdensity_fn, step_size, inv_mass, n_leapfrog: int = 16):
+def hmc_kernel(logdensity_fn, step_size, inv_mass, n_leapfrog: int = 16, noise=None):
     """Build an HMC step ``(generator, state) -> (state, info)``.
     ``inv_mass`` is the [D] (or per-chain [B, D]) diagonal inverse mass;
-    ``step_size`` a scalar or a per-chain [B] tensor."""
+    ``step_size`` a scalar or a per-chain [B] tensor; ``noise`` as in
+    ``_hmc_step``."""
 
     def step(gen, state: HMCState):
         eps = _per_chain(step_size, state.x)
         im = torch.as_tensor(inv_mass, dtype=state.x.dtype, device=state.x.device)
-        return _hmc_step(gen, logdensity_fn, state, eps, im, n_leapfrog)
+        return _hmc_step(gen, logdensity_fn, state, eps, im, n_leapfrog, noise)
 
     return step
 
@@ -171,14 +178,15 @@ def hmc_warmup_init(x0, logdensity_fn, init_step_size: float = 0.1) -> WarmupCar
 
 def hmc_warmup_window(gen, logdensity_fn, carry: WarmupCarry, n_steps: int,
                       n_warmup: int, n_leapfrog: int = 16,
-                      target_accept: float = 0.8) -> WarmupCarry:
+                      target_accept: float = 0.8, noise=None) -> WarmupCarry:
     """Advance the adaptive warmup by ``n_steps`` steps.  ``n_warmup`` is the
     TOTAL planned warmup length (the mass-adaptation window is phased on
-    it), so chaining windows equals one ``hmc_warmup`` call."""
+    it), so chaining windows equals one ``hmc_warmup`` call.  ``noise`` as
+    in ``_hmc_step``."""
     state, da, wf, inv_mass, t = carry
     for _ in range(n_steps):
         eps = torch.exp(da.log_step)[:, None]
-        state, info = _hmc_step(gen, logdensity_fn, state, eps, inv_mass, n_leapfrog)
+        state, info = _hmc_step(gen, logdensity_fn, state, eps, inv_mass, n_leapfrog, noise)
         da = da_update(da, info.accept_prob, target=target_accept)
         # mass adaptation window: second half of warmup, frozen for the last 10%
         if n_warmup // 2 <= t < int(n_warmup * 0.9):
@@ -196,11 +204,11 @@ def hmc_warmup_finish(carry: WarmupCarry):
 
 
 def hmc_warmup(gen, logdensity_fn, x0, n_warmup: int = 500, n_leapfrog: int = 16,
-               init_step_size: float = 0.1, target_accept: float = 0.8):
+               init_step_size: float = 0.1, target_accept: float = 0.8, noise=None):
     """Adaptive warmup of every chain: dual averaging of each chain's step
     size at every step, Welford diagonal mass over the second half.
     Returns (final HMCState, step sizes [B], inv_mass [B, D])."""
     carry = hmc_warmup_init(x0, logdensity_fn, init_step_size)
     carry = hmc_warmup_window(gen, logdensity_fn, carry, n_warmup, n_warmup, n_leapfrog,
-                              target_accept)
+                              target_accept, noise)
     return hmc_warmup_finish(carry)

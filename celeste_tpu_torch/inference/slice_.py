@@ -18,6 +18,11 @@ One step is one sweep over the D coordinates.  The JAX package runs a
 ``n_evals`` counts the evaluations each chain used, as JAX counts them;
 ``n_calls`` counts the batched log-density calls of the sweep, the same
 for every chain: the work the device did.
+
+``chains``: the batch is this rank's rows of a larger one (the sharded
+tempering ladder's ``LadderShard``): uniforms come from ``chains.uniform(gen,
+like)`` and a phase ends when ``chains.any(active)`` is false, so every
+rank draws and loops as one process holding every row would.
 """
 
 from __future__ import annotations
@@ -43,9 +48,11 @@ def slice_init(x0, logdensity_fn) -> SliceState:
     return SliceState(x=x0, logp=logdensity_fn(x0))
 
 
-def slice_kernel(logdensity_fn, widths, max_stepout: int = 16, max_shrink: int = 32):
+def slice_kernel(logdensity_fn, widths, max_stepout: int = 16, max_shrink: int = 32,
+                 chains=None):
     """Build a one-sweep step ``(generator, state) -> (state, info)``.
-    ``widths`` is the [D] initial bracket width of each coordinate."""
+    ``widths`` is the [D] initial bracket width of each coordinate;
+    ``chains`` as in the module docstring."""
 
     def step(gen, state: SliceState):
         x, logp = state.x.clone(), state.logp
@@ -54,6 +61,13 @@ def slice_kernel(logdensity_fn, widths, max_stepout: int = 16, max_shrink: int =
         w = torch.as_tensor(widths, **kw)
         n_evals = torch.zeros(b, dtype=torch.int32, device=x.device)
         n_calls = 0
+
+        def uniform():
+            return (torch.rand(b, generator=gen, **kw) if chains is None
+                    else chains.uniform(gen, logp))
+
+        def any_(active):
+            return bool(active.any()) if chains is None else chains.any(active)
 
         def logp_at(d, v, active):
             """The batched log-density with coordinate d set to v on the
@@ -69,7 +83,7 @@ def slice_kernel(logdensity_fn, widths, max_stepout: int = 16, max_shrink: int =
             active = torch.ones(b, dtype=torch.bool, device=x.device)
             n = torch.zeros(b, dtype=torch.int32, device=x.device)
             for _ in range(max_stepout):
-                if not bool(active.any()):
+                if not any_(active):
                     break
                 inside = logp_at(d, v, active) > log_y
                 n += active.to(torch.int32)
@@ -78,8 +92,8 @@ def slice_kernel(logdensity_fn, widths, max_stepout: int = 16, max_shrink: int =
             return v, n
 
         for d in range(dim):
-            log_y = logp + torch.log(torch.rand(b, generator=gen, **kw))
-            lo0 = x[:, d] - w[d] * torch.rand(b, generator=gen, **kw)
+            log_y = logp + torch.log(uniform())
+            lo0 = x[:, d] - w[d] * uniform()
             lo, n_lo = step_out(d, lo0, log_y, -w[d])
             hi, n_hi = step_out(d, lo0 + w[d], log_y, w[d])
 
@@ -90,9 +104,9 @@ def slice_kernel(logdensity_fn, widths, max_stepout: int = 16, max_shrink: int =
             n_shrink = torch.zeros(b, dtype=torch.int32, device=x.device)
             for _ in range(max_shrink):
                 active = ~accepted
-                if not bool(active.any()):
+                if not any_(active):
                     break
-                prop = lo + torch.rand(b, generator=gen, **kw) * (hi - lo)
+                prop = lo + uniform() * (hi - lo)
                 lp_prop = logp_at(d, prop, active)
                 ok = active & (lp_prop > log_y)
                 miss = active & ~ok

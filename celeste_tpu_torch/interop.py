@@ -16,10 +16,15 @@ import torch
 
 from celeste_tpu_torch.inference.chees import ChEESState
 from celeste_tpu_torch.inference.hmc import HMCState
+from celeste_tpu_torch.inference.tempering import PTState
 from celeste_tpu_torch.model.color_prior import ColorGMM
 from celeste_tpu_torch.model.params import GalaxyParams, StarParams
 from celeste_tpu_torch.model.stamp import Stamp
 from celeste_tpu_torch.mog import MoG2D
+from celeste_tpu_torch.quasar.basis import QuasarBasis
+from celeste_tpu_torch.quasar.filters import FilterBank
+from celeste_tpu_torch.quasar.photometry import BandMatrixGrid
+from celeste_tpu_torch.utils import checkpoint
 
 
 def _t(x, device):
@@ -65,6 +70,53 @@ def hmc_warm_state_from_numpy(x, logp, grad, step_size, inv_mass, device="cpu"):
 def chees_state_from_numpy(xs, logps, grads, device="cpu") -> ChEESState:
     """A ChEES ensemble state: xs [B, D], logps [B], grads [B, D]."""
     return ChEESState(xs=_t(xs, device), logps=_t(logps, device), grads=_t(grads, device))
+
+
+def quasar_basis_from_numpy(lam_rest, b, device="cpu") -> QuasarBasis:
+    """A ``QuasarBasis`` from the JAX one's fields: lam_rest [L], b [K, L]."""
+    return QuasarBasis(lam_rest=_t(lam_rest, device), b=_t(b, device))
+
+
+def filterbank_from_numpy(lam, resp, dlam, names, device="cpu") -> FilterBank:
+    """A ``FilterBank`` from the JAX one's fields: lam, resp, dlam [n_bands,
+    n_pts] and the band names."""
+    return FilterBank(lam=_t(lam, device), resp=_t(resp, device), dlam=_t(dlam, device),
+                      names=tuple(names))
+
+
+def band_matrix_grid_from_numpy(table, z_max, n_basis, device="cpu") -> BandMatrixGrid:
+    """A ``BandMatrixGrid`` from the JAX one's fields: table [n_z, n_bands, K]."""
+    return BandMatrixGrid(table=_t(table, device), z_max=float(z_max), n_basis=int(n_basis))
+
+
+def pt_state_from_numpy(xs, logps, even_phase, device="cpu") -> PTState:
+    """A tempering state: xs [..., T, D], untempered logps [..., T] and the
+    swap parity of the next step."""
+    return PTState(xs=_t(xs, device), logps=_t(logps, device), even_phase=bool(even_phase))
+
+
+def load_jax_checkpoint(path, like):
+    """Read a checkpoint that the JAX package's ``save_checkpoint`` wrote
+    into the structure of ``like`` (this package's state of the same
+    sampler, say an ``MHState``).  JAX orders its leaves as this package's
+    checkpoints do (NamedTuple fields in order, dict keys sorted); its
+    ``__meta__`` records a ``treedef`` string instead of this package's
+    structure record, so the leaf count, every NamedTuple name of ``like``
+    and every leaf's shape and dtype are checked against it.  Returns
+    (state, step, extra), tensors on the devices of ``like``'s."""
+    with np.load(path, allow_pickle=False) as f:
+        meta = json.loads(str(f["__meta__"]))
+        flat_like, structure = checkpoint.flatten(like)
+        if meta.get("n_leaves") != len(flat_like):
+            raise ValueError(f"{path} has {meta.get('n_leaves')} leaves, the target "
+                             f"structure has {len(flat_like)}")
+        treedef = meta.get("treedef", "")
+        for name in re.findall(r"(\w+)\(", structure):
+            if f"namedtuple[{name}]" not in treedef:
+                raise ValueError(f"{path}'s treedef has no {name}: {treedef}")
+        leaves = [np.asarray(f[f"leaf_{i}"]) for i in range(len(flat_like))]
+    checkpoint.check_leaves(leaves, flat_like)
+    return checkpoint.unflatten(like, leaves), meta.get("step"), meta.get("extra", {})
 
 
 # the namedtuples in the JAX package's config-5 artifacts: this package's

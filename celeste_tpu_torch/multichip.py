@@ -13,10 +13,14 @@ source shard on a 16x16 stamp, with 2 chains per chain shard, and runs:
   dense one, on the rectangular state, with the rectangular prior;
 - one MH update of the joint state and the ensemble reductions over
   ``chains`` (pooled acceptance, mean state, mean log density);
-- a short ChEES warmup on a Gaussian, its statistics pooled over ``chains``.
+- a short ChEES warmup on a Gaussian, its statistics pooled over ``chains``;
+- the tempering ladder sharded over every rank (a ``temps`` mesh, two
+  replicas each) on a bimodal 2-D target, two steps so that both swap
+  parities run: the all-reduce of the [T] log densities and the edge
+  exchange cross ranks here; the ladder's log densities must be finite.
 
-The sharded tempering ladder and the field pipeline's group mesh of the
-JAX dry run wait for their slices (ROADMAP.md).  Without ``torchrun`` the
+The field pipeline's group mesh of the JAX dry run waits for its slice
+(ROADMAP.md).  Without ``torchrun`` the
 ranks are spawned on this host (``parallel.mesh.launch``): NCCL where each
 rank has its own card, else gloo.
 """
@@ -109,11 +113,50 @@ def _dryrun_rank(device_type: str):
     _, eps, traj = chees_warmup(gen, lambda z: -0.5 * torch.sum(z * z, -1),
                                 z0[chains.rows], n_warmup=5, max_leapfrog=8, chains=chains)
     out = {k: float(v) for k, v in diag.items()}
-    out.update(eps=float(eps), traj=float(traj))
+    out.update(eps=float(eps), traj=float(traj), **_dryrun_ladder(device_type, rng))
     bad = [k for k, v in out.items() if not math.isfinite(v)]
     if bad:
         raise RuntimeError(f"dryrun_multichip: non-finite {bad} on rank {dist.get_rank()}")
     return out
+
+
+def _bimodal(x):
+    """Two Gaussian modes at (2, 2) and (-2, -2), variance 0.3: tempering matters."""
+    return torch.logaddexp(-0.5 * torch.sum((x - 2.0) ** 2, -1) / 0.3,
+                           -0.5 * torch.sum((x + 2.0) ** 2, -1) / 0.3)
+
+
+def _dryrun_ladder(device_type: str, rng):
+    """The ladder sharded over every rank (two replicas each), two MH steps;
+    returns the swaps accepted and the cold log density."""
+    import torch.distributed as dist
+
+    from celeste_tpu_torch.inference.tempering import geometric_ladder, mh_at_beta
+    from celeste_tpu_torch.parallel import make_mesh
+    from celeste_tpu_torch.parallel.pt_sharded import (
+        LadderShard, sharded_pt_init, sharded_pt_kernel,
+    )
+
+    mesh = make_mesh({"temps": dist.get_world_size()}, device_type)
+    device = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+              else torch.device("cpu"))
+    n_temps = 2 * dist.get_world_size()
+    betas = geometric_ladder(n_temps, beta_min=0.05, device=device)
+    inner = mh_at_beta(_bimodal, torch.full((2,), 0.4, device=device),
+                       noise=LadderShard(mesh, "temps", n_temps))
+    kern = sharded_pt_kernel(_bimodal, inner, betas, mesh, "temps")
+    xs = torch.as_tensor(rng.normal(size=(n_temps, 2)), dtype=torch.float32, device=device)
+    state = sharded_pt_init(xs, _bimodal, mesh, "temps")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    accepted = 0
+    with torch.no_grad():
+        for _ in range(2):
+            state, info = kern(gen, state)
+            accepted += int(info.swap_accept.sum())
+    if not bool(torch.isfinite(state.logps).all()):
+        raise RuntimeError("dryrun_multichip: the sharded ladder's log densities are not finite")
+    return {"pt_swaps_accepted": accepted, "pt_logp_cold": float(info.logp_cold)}
 
 
 def dryrun_multichip(world: int, device: str = "cuda"):

@@ -8,9 +8,12 @@ joint posteriors, and their scaling over a mesh of ranks
 - ``sources``: the source catalog split over ranks, the partial lambdas
   summed before the Poisson log.
 
+and a third way for tempering (``pt_sharded``): the temperature ladder
+split over ``temps``, the swap sweep's log densities all-reduced and the
+edge replicas exchanged with ``ring_shift``.
+
 Every collective goes through ``collectives.py``; the CPU tests run the
-same code on gloo ranks.  The sharded tempering ladder (``pt_sharded``)
-waits for the tempering slice (ROADMAP.md).
+same code on gloo ranks.
 """
 
 from celeste_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -38,3 +41,8 @@ from celeste_tpu_torch.parallel.crowded import (  # noqa: F401
 )
 from celeste_tpu_torch.parallel import collectives  # noqa: F401
 from celeste_tpu_torch.parallel.tiles import build_block_tile_map, build_tile_map  # noqa: F401
+from celeste_tpu_torch.parallel.pt_sharded import (  # noqa: F401
+    LadderShard,
+    sharded_pt_init,
+    sharded_pt_kernel,
+)

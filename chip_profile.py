@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where the device time of config 1 (``star_single``), configs 2 and 3
-(``star_ugriz``, ``galaxy``) and config 5 (the crowded field) goes, on one
-NVIDIA GPU.
+(``star_ugriz``, ``galaxy``), config 5 (the crowded field) and config 4
+(quasar photo-z) goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [--iters N] [--out FILE]
+    python3 chip_profile.py [--iters N] [--out FILE] [--only TEXT]
 
 Each call is run ``N`` times after a warm-up, first unprofiled (wall time
 per call, CUDA synchronized) and then under ``torch.profiler`` with CUPTI
@@ -17,7 +17,11 @@ log-density and ``value_and_grad`` at their 32 sampling chains.  Config 5
 ``CHEES_LEAPFROGS`` leapfrog steps at B=1024, the ``value_and_grad`` of
 the source-sharded rectangular posterior on one rank (K5 and K6) at
 B=1024, and the ``value_and_grad`` of the three-band field (g, r, i) at
-B=1024.  For each it prints
+B=1024.  Config 4 (quasar photo-z, the bench batch's shape): the
+``value_and_grad`` of 256 targets x 6 temperatures (B=1536, the 8192-point
+grid) and one ``hmc_adaptive`` tempered step of 8 leapfrog steps and the
+swap sweep.  ``--only TEXT`` profiles the calls whose names hold TEXT.
+For each it prints
 
     wall ms/call (unprofiled), device busy ms/call (sum of the device
     kernels' times in the trace), idle share = 1 - busy / wall, and device
@@ -111,6 +115,53 @@ def config5_calls(device):
     ]
 
 
+PHOTOZ_TARGETS, PHOTOZ_TEMPS = 256, 6
+
+
+def photoz_calls(device):
+    """Config 4 at the bench batch's shape: 256 targets of ``default_rng(17)``
+    (as ``bench.py``'s photo-z stage makes them), one system of 6
+    temperatures each."""
+    from celeste_tpu_torch.inference.hmc import value_and_grad
+    from celeste_tpu_torch.inference.tempering import (
+        geometric_ladder, hmc_at_beta_adaptive, pt_init, pt_kernel,
+    )
+    from celeste_tpu_torch.quasar import (
+        PhotoZConfig, QuasarBasis, make_photo_z_logdensity, project_to_bands,
+        sdss_like_filterbank,
+    )
+
+    basis, filt = QuasarBasis.default(device), sdss_like_filterbank(n_pts=64, device=device)
+    rng = np.random.default_rng(17)
+    z_true = rng.uniform(0.5, 4.0, PHOTOZ_TARGETS)
+    ws = rng.dirichlet(np.ones(basis.n_basis), size=PHOTOZ_TARGETS)
+    flux = project_to_bands(basis, filt, torch.as_tensor(ws, dtype=torch.float32, device=device),
+                            2.0, torch.as_tensor(z_true, dtype=torch.float32, device=device))
+    flux = flux.cpu().numpy()
+    err = 0.03 * np.abs(flux) + 1e-5
+    logd = make_photo_z_logdensity(basis, filt, flux + rng.normal(size=flux.shape) * err, err,
+                                   PhotoZConfig())
+    d = basis.n_basis + 1
+    xs = torch.as_tensor(rng.normal(size=(PHOTOZ_TARGETS, 1, PHOTOZ_TEMPS, d)),
+                         dtype=torch.float32, device=device)
+    betas = geometric_ladder(PHOTOZ_TEMPS, 0.02, device)
+    ss = torch.full((PHOTOZ_TEMPS,), 0.05, device=device)
+    im = torch.ones((PHOTOZ_TEMPS, d), device=device)
+    kern = pt_kernel(logd, hmc_at_beta_adaptive(logd, ss, im, n_leapfrog=8), betas)
+    state = [pt_init(xs, logd)]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+
+    def pt_step():
+        with torch.no_grad():
+            state[0], _ = kern(gen, state[0])
+
+    b = PHOTOZ_TARGETS * PHOTOZ_TEMPS
+    return [(f"photo-z value_and_grad {PHOTOZ_TARGETS}x{PHOTOZ_TEMPS} (B={b})",
+             lambda: value_and_grad(logd, xs)),
+            (f"photo-z hmc_adaptive tempered step (8 leapfrog) B={b}", pt_step)]
+
+
 def config23_calls(device):
     """Configs 2 and 3 at their sampling chains (32): the five-band star
     log-density and its ``value_and_grad``, one slice batched call's
@@ -189,6 +240,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", default="")
+    ap.add_argument("--only", default="", help="profile only the calls whose names hold this")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_profile: CUDA is not available; this script needs an NVIDIA GPU",
@@ -206,7 +258,10 @@ def main(argv=None) -> int:
     tables = []
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     device = torch.device("cuda:0")
-    for name, fn in calls(device) + config23_calls(device) + config5_calls(device):
+    groups = (calls, config23_calls, config5_calls, photoz_calls)
+    for name, fn in (c for group in groups for c in group(device)):
+        if args.only not in name:
+            continue
         wall, busy, ops, table = breakdown(fn, args.iters, activities)
         if ops == 0:
             raise RuntimeError(f"chip_profile: the trace of {name!r} holds no device op")

@@ -59,12 +59,32 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    run never launched;
 8. drive config 5 at full width (12 sources, 48x128, 1024 chains) with every
    counter set to 0 just before and read just after: ``build_config5`` ->
-   parity -> ``config5_warmup_and_whiten`` -> ``measure_chees_z`` ->
+   parity -> ``config5_warmup_and_whiten_cached`` -> ``measure_chees_z`` ->
    ``measure_nuts_z``, then ``run_experiment`` of ``crowded_field`` with
-   ``tiled=true n_galaxies=2``; gates: finite samples, ChEES accept >= 0.4,
-   divergence <= 0.05 in both arms, max split-R-hat <= 1.1 on the ChEES
-   arm; check the whitening maps on the card against float64 on the host;
-   fail on a tiled kernel the run never launched;
+   ``tiled=true n_galaxies=2`` in 4 segments with checkpoints; gates:
+   finite samples, ChEES accept >= 0.4, divergence <= 0.05 in both arms,
+   max split-R-hat <= 1.1 on the ChEES arm; check the whitening maps on
+   the card against float64 on the host; fail on a tiled kernel the run
+   never launched.  Phase b, the warm-start caches, on fresh files: the
+   preparation's first call misses and saves, the second hits (live-probe
+   gap printed, < 1 nat; the ensemble bitwise the saved one), and on the
+   target shifted by +5 nats the live probe is off by >= 4 nats, so a third
+   call would miss; for the ChEES warm state the same miss, hit and a whole
+   shifted call that misses (the ChEES arm reads the hit);
+   Phase a, checkpoint and resume: ``run_experiment`` of ``star_single``
+   with MH (64 chains, 400 steps in 4 segments) and HMC (cut by
+   RESUME_HMC), and phase 8's crowded_field ChEES run, each stopped after
+   segment 2 and resumed from its checkpoint: ``samples``, ``mean`` and
+   ``rhat`` bitwise equal to the unbroken run; K1's (K2-K4's) counters set
+   to 0 before, and a kernel never launched fails.  Phase c: config 4,
+   ``run_experiment`` of ``quasar_photoz`` at the JAX package's
+   configuration (8 systems x 8 temperatures, slice inner, 1500 steps after
+   500; QUASAR_ENTRY cuts it): finite z, swap rate > 0.05, a fraction >
+   0.3 of z within 0.25 of z_true, the lockstep slice's calls per sweep
+   printed.  Phase d: the bench's config-4 batch
+   (``run_photo_z_batch_segmented``: 256 targets, 6 temperatures,
+   hmc_adaptive, 150 + 400 steps in segments of 100, the 8192-point grid):
+   z-recovery >= 0.88, full-wall and steady targets/s printed;
 9. drive config 5 in three bands (g, r, i) at full width (12 sources,
    48x128, 1024 chains) with every counter set to 0 just before and read
    just after: ``build_config5_multiband`` -> the parity gate (gap < 1 nat;
@@ -99,7 +119,14 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    posterior (D = 84), gates finite samples, accept >= 0.4, divergence <=
    0.05; fail if K5 or K6 was never launched.  Then two spawned gloo ranks
    on this one card, mesh (1, 2), must give the one-rank value and gradient
-   at the same tolerances, and ``dryrun_multichip(1)`` runs;
+   at the same tolerances, and ``dryrun_multichip(1)`` runs (its tempering
+   part: the ladder sharded over the ranks, two steps, finite logps).
+   Phase e: the tempering ladder sharded over a ``temps`` mesh, on one NCCL
+   rank in this process and on two spawned gloo ranks on the one card,
+   against the in-device ladder on the bimodal 2-D target (8 temperatures,
+   20 steps): xs rtol 1e-5, atol 1e-5, logps rtol 1e-4, atol 1e-4, every
+   swap decision equal; ``run_photo_z_sharded`` (hmc_adaptive) against
+   ``run_photo_z``, vec rtol 2e-4, atol 2e-5;
 12. time with CUDA events (best of 3 after a warm-up), in ms per wrapper
    call: config 1 at B=65536 (K1 and the HMC gradient, kernel and plain);
    K2, K3 and K4 over config 5's field at B=1024 and 4096 (both buckets'
@@ -148,6 +175,7 @@ import os
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -165,8 +193,19 @@ LAM_TOL = (1e-5, 1e-3)
 BENCH_CHAINS = 65536
 C5_CHAINS = 1024
 TIMING_CHAINS = (1024, 4096)   # the config-5 kernel timings
-# the entry point's crowded_field run (defaults: 300 warmup, 500 steps, 16 leapfrog)
-ENTRY_CROWDED = dict(n_warmup=32, n_steps=32, n_leapfrog=8)
+# the entry point's crowded_field run (defaults: 300 warmup, 500 steps, 16
+# leapfrog), in 4 segments with checkpoints: phase a's unbroken ChEES run
+ENTRY_CROWDED = dict(n_warmup=32, n_steps=32, n_leapfrog=8, checkpoint_every=8)
+# phase a: star_single MH as configured (64 chains) and HMC cut in steps (the
+# config: 300 warmup, 500 steps, 16 leapfrog), each in 4 segments
+RESUME_MH = dict(n_steps=400, checkpoint_every=100)
+RESUME_HMC = dict(sampler="hmc", n_warmup=100, n_steps=200, n_leapfrog=8, checkpoint_every=50)
+C5_CHEES_WARMUP = 60            # config 5's ChEES adaptation (measure_chees_z's)
+# phase c: config 4 through run_experiment (the config: 8 systems x 8
+# temperatures, 1500 steps after 500 of warmup), cut in steps only
+QUASAR_ENTRY = dict(n_steps=240, n_warmup=80)
+PHOTOZ_TARGETS = 256            # phase d: the bench's photo-z batch
+LADDER_TEMPS, LADDER_STEPS = 8, 20   # phase e: the bimodal ladder
 # config 5's NUTS arm (the JAX bench: 64 steps in segments of 16)
 C5_NUTS = dict(n_steps=32, run_segment=16)
 # config 5 in three bands (g, r, i), cut in steps only (chains, bands,
@@ -943,12 +982,14 @@ def report_config1(sampler, cfg, res, seconds, counts_after):
     check(bool(np.all(z <= 5.0)), f"{sampler}: truth outside mean +- 5 std (|z|={z})")
 
 
-def config5_path(device):
-    """Phase 7: config 5 at full width, then crowded_field through the entry
-    point.  Returns the stamp kernels' counts after the dense parity probe."""
+def config5_path(device, tmp):
+    """Phase 8: config 5 at full width, its preparation and ChEES warm state
+    behind fresh cache files (phase b), then crowded_field through the entry
+    point in segments with checkpoints (phase a's unbroken run).  Returns
+    the stamp kernels' counts after the dense parity probe and the entry
+    run's result."""
     from celeste_tpu_torch.bench.config5 import (
-        build_config5, config5_parity_gap, config5_warmup_and_whiten, measure_chees_z,
-        measure_nuts_z,
+        build_config5, config5_parity_gap, measure_chees_z, measure_nuts_z,
     )
     from celeste_tpu_torch.experiments import CONFIGS, run_experiment
     from celeste_tpu_torch.kernels import mog_field as mf
@@ -958,9 +999,11 @@ def config5_path(device):
     gap, _ = config5_parity_gap(logd, logd_dense, vec)
     dense_counts = mf.launch_counts()    # the dense probe's K1 calls (8 chains)
     check(gap < 1.0, f"config-5 parity gap {gap:.4g} nats >= 1")
-    prep = config5_warmup_and_whiten(logd, vec, n_chains=C5_CHAINS)
+    prep = cached_prep(logd, vec, tmp)
     t_prep = time.perf_counter() - t0
-    chees = measure_chees_z(prep)
+    chees_cache, chees_saved = cached_chees_warm(prep, tmp)
+    chees = measure_chees_z(prep, warmup_iters=C5_CHEES_WARMUP, warm_cache_path=chees_cache)
+    chees_cache_shift_miss(prep, chees_cache, chees_saved)
     nuts = measure_nuts_z(prep, **C5_NUTS)
     wall = time.perf_counter() - t0
     print(f"[config 5] 12 sources, 48x128, {C5_CHAINS} chains: prep {t_prep:.3f}s "
@@ -981,6 +1024,7 @@ def config5_path(device):
 
     cfg = copy.deepcopy(CONFIGS["crowded_field"])
     cfg.device, cfg.tiled, cfg.n_galaxies = str(device), True, 2
+    cfg.out = f"{tmp}/chees_full"
     for k, v in ENTRY_CROWDED.items():
         setattr(cfg, k, v)
     t1 = time.perf_counter()
@@ -995,7 +1039,7 @@ def config5_path(device):
           f"divergence={res['divergence_rate']:.4f} eps={res['step_size']:.4f} "
           f"traj={res['trajectory_length']:.4f} max_rhat={float(np.max(res['rhat'])):.4f} "
           f"min_ess={float(np.min(res['ess'])):.1f}", flush=True)
-    return dense_counts
+    return dense_counts, res
 
 
 def multiband_path(device):
@@ -1394,6 +1438,325 @@ def sep_entry_path(device):
     for name, n in counts.items():
         check(n > 0, f"the impl='sep' entry point never launched {name}")
     return counts, k1_counts
+
+
+# ---------------------------------------------------------------------------
+# checkpoints, warm-start caches, config 4 and the sharded ladder
+# ---------------------------------------------------------------------------
+
+def resume_check(tag, name, overrides, tmp, device, unbroken=None):
+    """``run_experiment`` of ``name`` with ``overrides`` (n_steps in
+    segments of checkpoint_every): the run stopped after segment 2 and
+    resumed from its checkpoint against the unbroken run (``unbroken``, or
+    run here), ``samples``, ``mean`` and ``rhat`` bitwise equal."""
+    from celeste_tpu_torch.experiments import CONFIGS, run_experiment
+
+    def run(**kw):
+        cfg = copy.deepcopy(CONFIGS[name])
+        cfg.device = str(device)
+        for k, v in {**overrides, **kw}.items():
+            setattr(cfg, k, v)
+        t0 = time.perf_counter()
+        res = run_experiment(cfg)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    seg = overrides["checkpoint_every"]
+    walls = {}
+    if unbroken is None:
+        unbroken, walls["unbroken"] = run(out=f"{tmp}/{tag}_full")
+    _, walls["stopped"] = run(n_steps=2 * seg, out=f"{tmp}/{tag}_half")
+    resumed, walls["resumed"] = run(resume=f"{tmp}/{tag}_half.ckpt.npz", out=f"{tmp}/{tag}_resumed")
+    for key in ("samples", "mean", "rhat"):
+        check(np.array_equal(resumed[key], unbroken[key]),
+              f"{tag}: the resumed run's {key} differs from the unbroken run's")
+    print(f"[resume] {tag} {name}, {overrides['n_steps']} steps in segments of {seg}: stopped "
+          f"after 2 segments and resumed, samples/mean/rhat bitwise equal to the unbroken run "
+          f"(max_rhat {float(np.max(unbroken['rhat'])):.4f}); walls "
+          f"{ {k: round(v, 3) for k, v in walls.items()} }", flush=True)
+
+
+def resume_path(device, tmp, crowded_unbroken):
+    """Phase a: resumed runs bitwise equal to unbroken ones on the card,
+    star_single with MH and HMC (K1's counters set to 0 before and read
+    after) and crowded_field's ChEES (K2-K4's), whose unbroken run is phase
+    8's entry run."""
+    from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.kernels import tiled_field as tf
+
+    t0 = time.perf_counter()
+    mf.reset_launch_counts()
+    resume_check("mh", "star_single", RESUME_MH, tmp, device)
+    resume_check("hmc", "star_single", RESUME_HMC, tmp, device)
+    k1 = mf.launch_counts()
+    for kname in ("mog_field_loglik_fwd", "mog_field_loglik_bwd"):
+        check(k1[kname] > 0, f"the resumed star_single runs never launched {kname}")
+    tf.reset_launch_counts()
+    resume_check("chees", "crowded_field", dict(ENTRY_CROWDED, tiled=True, n_galaxies=2), tmp,
+                 device, unbroken=crowded_unbroken)
+    tiled = tf.launch_counts()
+    # every evaluation of a gradient sampler takes its gradient: K3 and K4
+    for kname in ("tiled_field_fwd_lam", "tiled_field_bwd"):
+        check(tiled[kname] > 0, f"the resumed crowded_field runs never launched {kname}")
+    print(f"[resume] launches: K1 {k1}, tiled {tiled}; phase wall "
+          f"{time.perf_counter() - t0:.3f}s", flush=True)
+
+
+def cached_prep(logd, vec, tmp):
+    """Phase b: config 5's preparation behind a fresh cache file: the first
+    call misses and saves, the second hits (live-probe gap < 1 nat, the
+    saved ensemble bitwise; the probe's no-gradient evaluation launches
+    K2).  On the target shifted by +5 nats the cache's live probe, run on
+    the saved states through the saved moments as a third call would run
+    it, is off by >= 4 nats, past its 1-nat gate: the call would miss.  The
+    fresh warmup such a miss runs is not paid here; the ChEES cache's
+    shifted call below, and the CPU tests, run the whole miss.  Returns the
+    first call's prep."""
+    from celeste_tpu_torch.bench.config5 import (
+        _live_probe_gap, config5_warmup_and_whiten_cached,
+    )
+    from celeste_tpu_torch.inference import whiten_logdensity
+    from celeste_tpu_torch.kernels import tiled_field as tf
+
+    path = str(Path(tmp) / "config5_prep.npz")
+    t0 = time.perf_counter()
+    prep = config5_warmup_and_whiten_cached(logd, vec, path, n_chains=C5_CHAINS)
+    t_miss = time.perf_counter() - t0
+    check(os.path.exists(path) and "probe_gap" not in prep, "the first cached prep did not miss")
+    t0 = time.perf_counter()
+    k2_before = tf.launch_counts()["tiled_field_fwd"]
+    hit = config5_warmup_and_whiten_cached(logd, vec, path, n_chains=C5_CHAINS)
+    t_hit = time.perf_counter() - t0
+    check("probe_gap" in hit, "the second cached prep did not hit")
+    check(tf.launch_counts()["tiled_field_fwd"] > k2_before, "the live probe never launched K2")
+    check(hit["probe_gap"] < 1.0, f"cache hit's live-probe gap {hit['probe_gap']:.4g} >= 1 nat")
+    for space in ("states_z", "states_x"):
+        for f in ("x", "logp", "grad"):
+            check(torch.equal(getattr(hit[space], f), getattr(prep[space], f)),
+                  f"the cache hit's {space}.{f} is not the saved one")
+    check(torch.equal(hit["inv_mass"], prep["inv_mass"]) and hit["step_z"] == prep["step_z"]
+          and hit["step_size"] == prep["step_size"], "the cache hit's scalars differ")
+    shifted_z, _, _ = whiten_logdensity(lambda x: logd(x) + 5.0, *hit["whiten_moments"])
+    shift_gap = _live_probe_gap(shifted_z, hit["states_z"].x, hit["states_z"].logp)
+    check(shift_gap >= 4.0, f"the +5-nat target's live-probe gap {shift_gap:.6g} < 4 nats")
+    print(f"[cache] config-5 prep at {C5_CHAINS} chains: miss+save {t_miss:.3f}s, hit "
+          f"{t_hit:.3f}s (live-probe gap {hit['probe_gap']:.6g} nats, ensemble bitwise), "
+          f"+5 nats: live-probe gap {shift_gap:.6g} nats > 1, a miss", flush=True)
+    return prep
+
+
+def cached_chees_warm(prep, tmp):
+    """Phase b, ChEES: the adaptation behind a fresh cache file, miss+save,
+    then a hit (bitwise).  Returns the cache path, which the ChEES arm
+    then reads."""
+    from celeste_tpu_torch.bench.config5 import CHEES_WINDOW, MAX_LEAPFROG, _chees_warm_cached
+
+    path = str(Path(tmp) / "config5_chees.npz")
+    t0 = time.perf_counter()
+    st1, eps1, traj1 = _chees_warm_cached(prep, path, C5_CHEES_WARMUP, CHEES_WINDOW,
+                                          MAX_LEAPFROG)
+    t_miss = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st2, eps2, traj2 = _chees_warm_cached(prep, path, C5_CHEES_WARMUP, CHEES_WINDOW,
+                                          MAX_LEAPFROG)
+    check(torch.equal(st2.xs, st1.xs) and torch.equal(st2.logps, st1.logps)
+          and torch.equal(st2.grads, st1.grads) and eps2 == eps1 and traj2 == traj1,
+          "the ChEES cache hit is not the saved warm state")
+    print(f"[cache] config-5 ChEES warm: miss+save {t_miss:.3f}s, hit "
+          f"{time.perf_counter() - t0:.3f}s (bitwise)", flush=True)
+    return path, st1
+
+
+def chees_cache_shift_miss(prep, path, saved):
+    """Phase b, ChEES: the +5-nat target misses the cache (the live probe)."""
+    from celeste_tpu_torch.bench.config5 import CHEES_WINDOW, MAX_LEAPFROG, _chees_warm_cached
+
+    t0 = time.perf_counter()
+    shifted = dict(prep, logd_z=lambda z: prep["logd_z"](z) + 5.0)
+    st, _, _ = _chees_warm_cached(shifted, path, C5_CHEES_WARMUP, CHEES_WINDOW, MAX_LEAPFROG)
+    gap = float((st.logps.double() - saved.logps.double()).abs().max())
+    check(gap > 1.0, "the +5-nat target hit the ChEES cache")
+    print(f"[cache] config-5 ChEES warm, +5 nats: miss ({time.perf_counter() - t0:.3f}s; the "
+          f"fresh ensemble's logps {gap:.4g} nats from the saved)", flush=True)
+
+
+def quasar_entry(device):
+    """Phase c: config 4 through run_experiment at the JAX package's
+    configuration (8 systems x 8 temperatures, slice inner), cut in steps by
+    QUASAR_ENTRY.  Gates: finite z, swap rate > 0.05, a fraction > 0.3 of z
+    within 0.25 of z_true."""
+    from celeste_tpu_torch.experiments import CONFIGS, run_experiment
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest", "TF32 is on for float32 matmuls")
+    cfg = copy.deepcopy(CONFIGS["quasar_photoz"])
+    cfg.device = str(device)
+    for k, v in QUASAR_ENTRY.items():
+        setattr(cfg, k, v)
+    t0 = time.perf_counter()
+    res = run_experiment(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    z = res["z"]
+    near = float(np.mean(np.abs(z - res["z_true"]) < 0.25))
+    print(f"[config 4] run_experiment quasar_photoz: {cfg.n_chains} systems x {cfg.n_temps} temps, "
+          f"slice inner, {cfg.n_steps} steps ({cfg.n_warmup} burned): wall={wall:.3f}s z_true="
+          f"{res['z_true']:.4f} z median={float(np.median(z)):.4f} near_fraction={near:.4f} "
+          f"swap_rate={res['swap_rate']:.4f} calls_per_sweep={res['calls_per_sweep']:.3f}",
+          flush=True)
+    check(z.shape == (cfg.n_chains, cfg.n_steps - cfg.n_warmup) and bool(np.isfinite(z).all()),
+          f"config 4: z shape {z.shape} or non-finite")
+    check(res["swap_rate"] > 0.05, f"config 4: swap rate {res['swap_rate']:.4f} <= 0.05")
+    check(near > 0.3, f"config 4: only {near:.4f} of z within 0.25 of z_true")
+
+
+def photoz_bench_batch(device, card):
+    """Phase d: the bench's config-4 batch (bench.py _bench_photoz_batch):
+    256 targets from default_rng(17), the default basis, 64-point filters, 6
+    temperatures, hmc_adaptive, 150 warmup + 400 steps in segments of 100,
+    the 8192-point grid.  Gate: z-recovery (|median - z_true| < 0.25) >= 0.88."""
+    from celeste_tpu_torch.quasar import (
+        PhotoZConfig, QuasarBasis, project_to_bands, run_photo_z_batch_segmented,
+        sdss_like_filterbank,
+    )
+
+    basis, filt = QuasarBasis.default(device), sdss_like_filterbank(n_pts=64, device=device)
+    n = PHOTOZ_TARGETS
+    rng = np.random.default_rng(17)
+    z_true = rng.uniform(0.5, 4.0, n)
+    ws = rng.dirichlet(np.ones(basis.n_basis), size=n)
+    f_clean = project_to_bands(basis, filt, torch.as_tensor(ws, dtype=torch.float32,
+                                                            device=device),
+                               2.0, torch.as_tensor(z_true, dtype=torch.float32,
+                                                    device=device)).cpu().numpy()
+    flux, err = [], []
+    for i in range(n):
+        e = 0.03 * np.abs(f_clean[i]) + 1e-5
+        flux.append(f_clean[i] + rng.normal(size=e.shape) * e)
+        err.append(e)
+    flux, err = np.stack(flux).astype(np.float32), np.stack(err).astype(np.float32)
+    cfg = PhotoZConfig(n_temps=6, n_steps=400, n_warmup=150, n_systems=1, inner="hmc_adaptive")
+    t0 = time.perf_counter()
+    out = run_photo_z_batch_segmented(5, basis, filt, flux, err, cfg, segment_steps=100,
+                                      device=device)
+    wall = time.perf_counter() - t0
+    z_med = np.median(out["z"].cpu().numpy().reshape(n, -1), axis=1)
+    recov = float(np.mean(np.abs(z_med - z_true) < 0.25))
+    seg_s = out["timings"]["segment_s"]
+    steady = n / (float(np.mean(seg_s[1:])) * len(seg_s))
+    print(f"[config 4 batch] {n} targets x 6 temps, hmc_adaptive, 150 warmup + 400 steps in "
+          f"segments of 100: wall {wall:.3f}s (warmup {out['timings']['init_s']:.3f}s, segments "
+          f"{[round(t, 3) for t in seg_s]}), {n / wall:.4f} targets/s full wall, {steady:.4f} "
+          f"steady; z-recovery {recov:.4f}, swap rate {float(out['swap_rate']):.4f} ({card})",
+          flush=True)
+    check(out["n_steps_done"] == cfg.n_steps, "the photo-z batch stopped early")
+    check(bool(torch.isfinite(out["z"]).all()), "the photo-z batch: non-finite z")
+    check(recov >= 0.88, f"the photo-z batch's z-recovery {recov:.4f} < 0.88")
+
+
+def ladder_run(mesh, device):
+    """The bimodal 2-D ladder of the JAX package's parity test (8 temperatures
+    from 1 to 0.05, MH with scales 0.4, 3 systems), 20 steps: in device
+    (``mesh=None``) or sharded over ``mesh['temps']``.  Returns (xs, logps
+    of this rank's replicas, every step's swap decisions), on the host."""
+    from celeste_tpu_torch.inference.tempering import (
+        geometric_ladder, mh_at_beta, pt_init, pt_kernel,
+    )
+    from celeste_tpu_torch.multichip import _bimodal
+    from celeste_tpu_torch.parallel.pt_sharded import (
+        LadderShard, sharded_pt_init, sharded_pt_kernel,
+    )
+
+    betas = geometric_ladder(LADDER_TEMPS, 0.05, device)
+    scales = torch.full((2,), 0.4, device=device)
+    xs0 = torch.as_tensor(np.random.default_rng(0).normal(size=(3, LADDER_TEMPS, 2)),
+                          dtype=torch.float32, device=device)
+    if mesh is None:
+        kern = pt_kernel(_bimodal, mh_at_beta(_bimodal, scales), betas)
+        state = pt_init(xs0, _bimodal)
+    else:
+        inner = mh_at_beta(_bimodal, scales, noise=LadderShard(mesh, "temps", LADDER_TEMPS))
+        kern = sharded_pt_kernel(_bimodal, inner, betas, mesh, "temps")
+        state = sharded_pt_init(xs0, _bimodal, mesh, "temps")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    accepts = []
+    with torch.no_grad():
+        for _ in range(LADDER_STEPS):
+            state, info = kern(gen, state)
+            accepts.append(info.swap_accept.cpu())
+    return state.xs.cpu(), state.logps.cpu(), torch.stack(accepts)
+
+
+def photoz_sharded_run(mesh, device):
+    """The JAX package's sharded photo-z parity run
+    (tests/test_collectives.py:296): the default basis, 64-point filters, a
+    target at z = 2 with 2% errors, 4 temperatures, hmc_adaptive, 25 steps
+    after a 15-step warmup, the exact projection; in device or sharded.
+    Returns the cold chain's kept vectors on the host."""
+    from celeste_tpu_torch.quasar import (
+        PhotoZConfig, QuasarBasis, project_to_bands, run_photo_z, run_photo_z_sharded,
+        sdss_like_filterbank,
+    )
+
+    basis, filt = QuasarBasis.default(device), sdss_like_filterbank(n_pts=64, device=device)
+    flux = project_to_bands(basis, filt, torch.full((4,), 0.25, device=device), 1.0,
+                            2.0).cpu().numpy()
+    err = 0.02 * np.abs(flux) + 1e-4
+    cfg = PhotoZConfig(n_temps=4, n_steps=25, n_warmup=5, n_systems=1, inner="hmc_adaptive",
+                       pt_warmup_steps=15, flux_grid_n=0)
+    out = (run_photo_z(5, basis, filt, flux, err, cfg, device=device) if mesh is None
+           else run_photo_z_sharded(5, basis, filt, flux, err, mesh, cfg, device=device))
+    return out["vec"].cpu()
+
+
+def sharded_ladder_world2_rank():
+    """One of two gloo ranks on the one card: the sharded ladder and the
+    sharded photo-z run over a two-rank ``temps`` mesh."""
+    from celeste_tpu_torch.parallel import make_mesh
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh({"temps": 2}, "cuda")
+    return ladder_run(mesh, device), photoz_sharded_run(mesh, device)
+
+
+def check_ladder(tag, got, want):
+    """The sharded ladder (its ranks' replicas concatenated) against the
+    in-device one: xs rtol 1e-5, atol 1e-5; logps rtol 1e-4, atol 1e-4;
+    every step's swap decisions equal."""
+    xs, lp, acc = got
+    ex = max_abs_err(xs, want[0], 1e-5, 1e-5, f"{tag}: ladder xs")
+    el = max_abs_err(lp, want[1], 1e-4, 1e-4, f"{tag}: ladder logps")
+    check(torch.equal(acc, want[2]), f"{tag}: a swap decision differs")
+    return ex, el
+
+
+def sharded_ladder_path(device):
+    """Phase e: the sharded ladder on a one-rank mesh in this process and on
+    two gloo ranks on the one card, against the in-device ladder; the
+    sharded photo-z run (hmc_adaptive) against run_photo_z (vec rtol 2e-4,
+    atol 2e-5) at both."""
+    from celeste_tpu_torch.parallel import launch, make_mesh
+
+    t0 = time.perf_counter()
+    want = ladder_run(None, device)
+    check(bool(want[2].any()), "the in-device ladder accepted no swap")
+    want_vec = photoz_sharded_run(None, device)
+    mesh = make_mesh({"temps": 1}, "cuda")
+    e1 = check_ladder("one rank", ladder_run(mesh, device), want)
+    v1 = max_abs_err(photoz_sharded_run(mesh, device), want_vec, 2e-4, 2e-5,
+                     "one-rank sharded photo-z vs run_photo_z")
+    ranks = launch(sharded_ladder_world2_rank, 2, backend="gloo")
+    got = tuple(torch.cat([r[0][i] for r in ranks], dim=-2 if i == 0 else -1) for i in range(2))
+    e2 = check_ladder("two ranks", got + (ranks[0][0][2],), want)
+    check(torch.equal(ranks[1][0][2], ranks[0][0][2]), "the two ranks' swap decisions differ")
+    v2 = max(max_abs_err(r[1], want_vec, 2e-4, 2e-5, f"two-rank sharded photo-z rank {i}")
+             for i, r in enumerate(ranks))
+    print(f"[sharded ladder] bimodal 2-D, {LADDER_TEMPS} temps, 3 systems, {LADDER_STEPS} steps, "
+          f"{int(want[2].sum())} swaps: one rank (nccl) xs/logps max abs err {e1[0]:.4g}/"
+          f"{e1[1]:.4g}, two gloo ranks {e2[0]:.4g}/{e2[1]:.4g}, swap decisions equal; sharded "
+          f"photo-z vs run_photo_z {v1:.4g} (one rank), {v2:.4g} (two); "
+          f"{time.perf_counter() - t0:.3f}s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1856,6 +2219,9 @@ def main() -> int:
     card = card_line()
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t_start = time.perf_counter()
+    # checkpoints and warm-start caches of phases a and b; removed at the end
+    tmp_dir = tempfile.TemporaryDirectory(prefix="celeste_smoke_")
+    tmp = tmp_dir.name
 
     # one nvcc per library, started together; the loads then find them built
     with ThreadPoolExecutor(max_workers=3) as pool:
@@ -1886,7 +2252,7 @@ def main() -> int:
 
     mf.reset_launch_counts()
     tf.reset_launch_counts()
-    dense_counts = config5_path(device)
+    dense_counts, crowded_unbroken = config5_path(device, tmp)
     c5_counts = tf.launch_counts()
     print(f"[config 5] launches: {c5_counts} (stamp kernels: {mf.launch_counts()})", flush=True)
     for name in ("tiled_field_fwd", "tiled_field_fwd_lam", "tiled_field_bwd"):
@@ -1900,6 +2266,10 @@ def main() -> int:
           flush=True)
     for name in ("tiled_field_fwd", "tiled_field_fwd_lam", "tiled_field_bwd"):
         check(mb_counts[name] > 0, f"the three-band config-5 path never launched {name}")
+
+    resume_path(device, tmp, crowded_unbroken)
+    quasar_entry(device)
+    photoz_bench_batch(device, card)
 
     runs23 = configs23_path(device)
     k7_launches, k7_shapes = ppc_path(device, runs23)
@@ -1921,6 +2291,7 @@ def main() -> int:
         for name in ("tiled_field_render", "tiled_field_render_bwd"):
             check(sh_counts[name] > 0, f"the sharded config-5 path never launched {name}")
         sharded_world2(world1)
+        sharded_ladder_path(device)
 
         t1 = config1_timings(device, card)
         t5 = config5_timings(device, card, config5)
@@ -1970,6 +2341,7 @@ def main() -> int:
                         "replaces": replaces, "launches": launches, "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
+    tmp_dir.cleanup()
     stop_children()
     print(f"[done] whole script {time.perf_counter() - t_start:.3f} s", flush=True)
     lost = {k: sum(r["lost_s"] for r in k1_rows if r["kernel"] == k) for k in ("K1-fwd", "K1-bwd")}

@@ -148,12 +148,15 @@ def test_cli_and_not_yet_ported_paths(tmp_path):
     with open(out + ".metrics.jsonl") as fh:
         assert [json.loads(line)["event"] for line in fh] == ["start", "done"]
     with pytest.raises(SystemExit, match="not yet ported"):
-        main(["config=quasar_photoz", "device=cpu"])
+        main(["config=pipeline", "device=cpu"])
     with pytest.raises(SystemExit, match="unknown config key"):
-        main(["config=star_single", "n_temps=8"])
-    for bad in (dict(sampler="tempered_slice"), dict(name="crowded_field", color_prior="gmm"),
-                dict(checkpoint_every=10), dict(resume="ckpt")):
+        main(["config=star_single", "sample_segment=8"])
+    for bad in (dict(name="pipeline"), dict(name="crowded_field", color_prior="gmm")):
         with pytest.raises(NotImplementedError):
+            run_experiment(_cfg(**bad))
+    for bad in (dict(sampler="tempered_slice"), dict(name="quasar_photoz", sampler="mh"),
+                dict(n_steps=30, checkpoint_every=20)):
+        with pytest.raises(ValueError):
             run_experiment(_cfg(**bad))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="needs CUDA"):

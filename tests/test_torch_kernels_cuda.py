@@ -923,3 +923,88 @@ def test_sep_and_render_wrappers_reject_bad_inputs(cuda):
     rplanes, rpd, _, _ = _planes("star", 8, cuda)
     with pytest.raises(ValueError, match="contiguous"):
         mf.render_cuda(rplanes[0].t().contiguous().t(), *rplanes[1:], rpd[0], rpd[1], rpd[3])
+
+
+# ---------------------------------------------------------------------------
+# checkpoint/resume and quasar photo-z on the card
+# ---------------------------------------------------------------------------
+
+def test_photo_z_projection_on_the_card_matches_the_cpu(cuda):
+    """``basis_band_matrix`` on the card against the CPU port, rtol 1e-6
+    (atol 1e-7 x max: sums of 64 float32 terms in another order), and
+    ``make_photo_z_logdensity``'s value and gradient on the card against
+    the CPU port on the same vectors, for the exact projection and for the
+    8192-point grid (built on the CPU, then gathered and interpolated on
+    the card): values rtol 1e-5, gradients rtol 1e-4 with atol 1e-4 (the
+    card's exp, sigmoid and softmax round differently by an ulp or two);
+    TF32 off for float32 matmuls."""
+    from celeste_tpu_torch.inference.hmc import value_and_grad
+    from celeste_tpu_torch.quasar import (
+        PhotoZConfig, QuasarBasis, band_matrix_grid, make_photo_z_logdensity,
+        project_to_bands, sdss_like_filterbank,
+    )
+    from celeste_tpu_torch.quasar.photometry import basis_band_matrix
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    basis, filt = QuasarBasis.default(), sdss_like_filterbank(n_pts=64)
+    z = torch.linspace(0.0, 5.99, 37)
+    want = basis_band_matrix(basis, filt, z)
+    got = basis_band_matrix(basis.to(cuda), filt.to(cuda), z.to(cuda)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7 * float(want.abs().max()))
+
+    k = basis.n_basis
+    w0 = torch.full((k,), 1.0 / k)
+    flux = project_to_bands(basis, filt, w0, 2.0, 1.7).numpy()
+    err = 0.03 * np.abs(flux) + 1e-5
+    rng = np.random.default_rng(5)
+    vec0 = np.concatenate([[np.log(1.7 / (6.0 - 1.7))], np.zeros(k - 1), [np.log(2.0)]])
+    v = (vec0[None] + 0.3 * rng.normal(size=(64, k + 1))).astype(np.float32)
+    v[:4, 0] = [30.0, 30.0, -30.0, -30.0]            # z at z_max and at 0
+    v = torch.as_tensor(v)
+    grid = band_matrix_grid(basis, filt)
+    for n_grid, g in ((0, None), (8192, grid)):
+        cfg = PhotoZConfig(flux_grid_n=n_grid)
+        lv, lg = value_and_grad(make_photo_z_logdensity(basis, filt, flux, err, cfg, grid=g), v)
+        g_card = None if g is None else g._replace(table=g.table.to(cuda))
+        cv, cg = value_and_grad(make_photo_z_logdensity(basis.to(cuda), filt.to(cuda), flux, err,
+                                                        cfg, grid=g_card), v.to(cuda))
+        assert cv.is_cuda and bool(torch.isfinite(cv).all() and torch.isfinite(cg).all())
+        torch.testing.assert_close(cv.cpu(), lv, rtol=1e-5, atol=0.0)
+        torch.testing.assert_close(cg.cpu(), lg, rtol=1e-4, atol=1e-4)
+
+
+def test_resumed_star_single_is_bitwise_on_the_card(cuda, tmp_path):
+    """``run_experiment`` of star_single (MH and HMC, 16 chains, 4 segments)
+    stopped after segment 2 and resumed equals the unbroken run bitwise,
+    and the runs launched K1."""
+    from celeste_tpu_torch.run import main
+
+    for sampler in ("mh", "hmc"):
+        base = ["config=star_single", f"sampler={sampler}", "n_chains=16", "n_warmup=20",
+                "n_leapfrog=4", "checkpoint_every=10"]
+        mf.reset_launch_counts()
+        full = main(base + ["n_steps=40", f"out={tmp_path}/{sampler}_full"])
+        assert mf.launch_counts()["mog_field_loglik_fwd"] > 0
+        main(base + ["n_steps=20", f"out={tmp_path}/{sampler}_half"])
+        resumed = main(base + ["n_steps=40", f"resume={tmp_path}/{sampler}_half.ckpt.npz",
+                               f"out={tmp_path}/{sampler}_resumed"])
+        for key in ("samples", "mean", "rhat"):
+            np.testing.assert_array_equal(resumed[key], full[key])
+
+
+def test_photo_z_run_keeps_tf32_off(cuda):
+    """A short config-4 ladder on the card: finite draws, and the float32
+    matmul settings still exclude TF32 after it."""
+    from celeste_tpu_torch.quasar import (
+        PhotoZConfig, QuasarBasis, project_to_bands, run_photo_z, sdss_like_filterbank,
+    )
+
+    basis, filt = QuasarBasis.default(), sdss_like_filterbank(n_pts=64)
+    flux = project_to_bands(basis, filt, torch.full((4,), 0.25), 2.0, 2.0).numpy()
+    out = run_photo_z(0, basis, filt, flux, 0.03 * np.abs(flux) + 1e-5,
+                      PhotoZConfig(n_temps=4, n_steps=20, n_warmup=5, n_systems=2,
+                                   inner="hmc_adaptive", pt_warmup_steps=10), device="cuda")
+    assert out["z"].is_cuda and bool(torch.isfinite(out["z"]).all())
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
