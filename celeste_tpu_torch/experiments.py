@@ -20,6 +20,12 @@ Ported so far:
   quasar_photoz  — BASELINE config 4: the photometric-redshift posterior of a
                    quasar's ugriz fluxes, slice sampling within a tempered
                    ladder (``sampler=tempered_slice``, ``n_temps``, ``z_max``).
+  pipeline       — the stamp catalog pipeline (``pipeline.run_pipeline``): a
+                   33x33 r-band stamp with two stars and a galaxy, from
+                   pixels to a posterior catalog (detect, classify, type
+                   switch, joint ChEES, catalog; ``ppc=true`` adds the
+                   posterior-predictive check, ``type_switch=false`` keeps
+                   the margin rule for every candidate).
 
 Samplers: mh, slice, hmc, nuts and chees; the gradient samplers after an
 adaptive HMC warmup; ``metric=dense`` samples in the whitened space.
@@ -27,14 +33,15 @@ adaptive HMC warmup; ``metric=dense`` samples in the whitened space.
 steps to ``out + ".ckpt.npz"`` and the samples so far beside it;
 ``resume=<ckpt>`` continues such a run bitwise, since every segment draws
 from its own stream (seed, segment) and the warmup from its own.  The
-configs ``pipeline``, ``field`` and ``field_survey`` of the JAX package
-raise "not yet ported" (ROADMAP.md lists them).
+configs ``field`` and ``field_survey`` of the JAX package are not yet
+ported (ROADMAP.md lists them).
 
 Run:  python -m celeste_tpu_torch.run config=star_single n_chains=64 n_steps=2000
       python -m celeste_tpu_torch.run config=star_ugriz sampler=slice color_prior=gmm
       python -m celeste_tpu_torch.run config=galaxy
       python -m celeste_tpu_torch.run config=crowded_field tiled=true n_galaxies=2
       python -m celeste_tpu_torch.run config=quasar_photoz
+      python -m celeste_tpu_torch.run config=pipeline ppc=true
       python -m celeste_tpu_torch.run config=star_single checkpoint_every=500 out=run1
       python -m celeste_tpu_torch.run config=star_single checkpoint_every=500 \
           resume=run1.ckpt.npz out=run2
@@ -75,6 +82,9 @@ class ExperimentConfig:
     color_prior: str = "gaussian"  # gaussian | gmm (empirical colour GMM)
     tiled: bool = False            # crowded_field: block-sparse tiled loglik
     n_galaxies: int = 0            # crowded_field: mixed star/galaxy scenes
+    # pipeline knobs
+    ppc: bool = False              # posterior-predictive check stage
+    type_switch: bool = True       # exact Carlin-Chib for ambiguous kinds
     # quasar
     n_temps: int = 8
     z_max: float = 6.0
@@ -126,6 +136,10 @@ CONFIGS = {
                                       n_sources=10, bands=(2,)),
     "quasar_photoz": ExperimentConfig(name="quasar_photoz", sampler="tempered_slice",
                                       n_chains=8, n_steps=1500, n_warmup=500),
+    # sampler="nuts" as in the JAX package, whose pipeline config does not
+    # pass it on: the pipeline samples with its own default, ChEES
+    "pipeline": ExperimentConfig(name="pipeline", sampler="nuts", n_chains=16, n_steps=400,
+                                 n_warmup=200, shape=(33, 33), n_sources=3, bands=(2,)),
 }
 
 
@@ -249,6 +263,8 @@ def _check_ported(cfg: ExperimentConfig):
             raise ValueError(f"quasar_photoz samples with sampler=tempered_slice, "
                              f"got {cfg.sampler!r}")
         return
+    if cfg.name == "pipeline":
+        return
     if cfg.name not in _PROBLEMS:
         raise NotImplementedError(f"config {cfg.name!r} is not yet ported to "
                                   f"celeste_tpu_torch (see ROADMAP.md)")
@@ -314,6 +330,53 @@ def _quasar_photoz(cfg: ExperimentConfig, device, logger):
     return result
 
 
+def pipeline_scene(cfg: ExperimentConfig, device):
+    """The ``pipeline`` config's field, as the JAX package makes it: two
+    stars and a galaxy a few arcsec apart, counts from seed + 101.  Returns
+    (scene, sources)."""
+    from celeste_tpu_torch.data.synthetic import galaxy_source, make_synthetic_stamp, star_source
+
+    cosd = np.cos(np.deg2rad(10.0))
+    srcs = [
+        star_source(u=(30.0 - 3.5 / 3600 / cosd, 10.0 - 2.0 / 3600), flux_r=35.0),
+        star_source(u=(30.0 + 3.0 / 3600 / cosd, 10.0 + 2.5 / 3600), flux_r=25.0),
+        galaxy_source(u=(30.0, 10.0), flux_r=70.0, sigma=1.8, ab=0.6),
+    ]
+    scene = make_synthetic_stamp(srcs, shape=cfg.shape, bands=cfg.bands, seed=cfg.seed + 101,
+                                 device=device)
+    return scene, srcs
+
+
+def _pipeline(cfg: ExperimentConfig, device, logger):
+    """The stamp catalog pipeline on ``pipeline_scene``.  Like the JAX
+    package, the ``PipelineConfig`` takes chains, steps, seed, ``ppc`` and
+    ``type_switch`` from the experiment and keeps its own sampler (ChEES).
+    Returns the catalog's kinds, P(star), positions and fluxes, the
+    PPC p-values with ``ppc``, and the run itself (catalog, artifacts,
+    scene, sources, priors)."""
+    from celeste_tpu_torch.model.priors import FluxPrior, SourcePriors
+    from celeste_tpu_torch.pipeline import PipelineConfig, run_pipeline
+
+    scene, srcs = pipeline_scene(cfg, device)
+    pcfg = PipelineConfig(n_chains=cfg.n_chains, n_warmup=cfg.n_warmup, n_steps=cfg.n_steps,
+                          seed=cfg.seed, detection_min_separation=7, ppc=cfg.ppc,
+                          type_switch=cfg.type_switch)
+    priors = SourcePriors(flux=FluxPrior(log_ref_mean=3.2, log_ref_std=2.0))
+    catalog, artifacts = run_pipeline(scene.stamps[0], band=0, n_bands=1, cfg=pcfg,
+                                      priors=priors, logger=logger)
+    logger.log("done", n_sources=len(catalog), kinds=[e.kind for e in catalog])
+    result = {
+        "kinds": np.asarray([e.kind for e in catalog]),
+        "p_star": np.asarray([e.p_star for e in catalog]),
+        "du_mean": np.stack([e.du_mean for e in catalog]) if catalog else np.zeros((0, 2)),
+        "flux_mean": np.stack([e.flux_mean for e in catalog]) if catalog else np.zeros((0, 1)),
+    }
+    if "ppc" in artifacts:
+        result["ppc_pvalue"] = np.asarray([p["pvalue"] for p in artifacts["ppc"]])
+    return result, {"catalog": catalog, "artifacts": artifacts, "scene": scene,
+                    "sources": srcs, "priors": priors}
+
+
 def _save_segments(ckpt: str, chunks):
     """The samples so far beside the checkpoint, one array per segment,
     written atomically."""
@@ -332,7 +395,9 @@ def run_experiment(cfg: ExperimentConfig):
     a run resumed from the checkpoint after segment s equals the unbroken
     run bitwise.  A resume reruns the warmup, whose stream is its own, and
     reloads the stored segments, so the summary covers the whole chain.
-    ``quasar_photoz`` runs unsegmented, as in the JAX package.
+    ``quasar_photoz`` and ``pipeline`` run unsegmented, as in the JAX
+    package; ``pipeline``'s result also holds the catalog and the run's
+    artifacts under ``"run"``.
     """
     from celeste_tpu_torch.inference import (
         chees_warmup, hmc_kernel, hmc_warmup, mh_init, mh_kernel, nuts_kernel,
@@ -347,13 +412,18 @@ def run_experiment(cfg: ExperimentConfig):
     logger = MetricsLogger(cfg.out + ".metrics.jsonl" if cfg.out else None)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     logger.log("start", config=dataclasses.asdict(cfg) | {"device_kind": kind})
-    if cfg.name == "quasar_photoz":
+    if cfg.name in ("quasar_photoz", "pipeline"):
         if cfg.checkpoint_every or cfg.resume:
-            logger.log("checkpoint_ignored", note="quasar_photoz runs unsegmented")
-        result = _quasar_photoz(cfg, device, logger)
+            logger.log("checkpoint_ignored", note=f"{cfg.name} runs unsegmented")
+        if cfg.name == "quasar_photoz":
+            result, run = _quasar_photoz(cfg, device, logger), None
+        else:
+            result, run = _pipeline(cfg, device, logger)
         logger.close()
         if cfg.out:
             np.savez(cfg.out, **result)
+        if run is not None:
+            result["run"] = run
         return result
 
     scene, logd, x0 = _PROBLEMS[cfg.name](cfg, device)

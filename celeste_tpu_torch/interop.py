@@ -15,8 +15,11 @@ import numpy as np
 import torch
 
 from celeste_tpu_torch.inference.chees import ChEESState
+from celeste_tpu_torch.inference.ensemble_stretch import StretchState
+from celeste_tpu_torch.inference.gibbs import GibbsState
 from celeste_tpu_torch.inference.hmc import HMCState
 from celeste_tpu_torch.inference.tempering import PTState
+from celeste_tpu_torch.inference.type_switch import GaussianPseudoPrior, TypeSwitchState
 from celeste_tpu_torch.model.color_prior import ColorGMM
 from celeste_tpu_torch.model.params import GalaxyParams, StarParams
 from celeste_tpu_torch.model.stamp import Stamp
@@ -70,6 +73,41 @@ def hmc_warm_state_from_numpy(x, logp, grad, step_size, inv_mass, device="cpu"):
 def chees_state_from_numpy(xs, logps, grads, device="cpu") -> ChEESState:
     """A ChEES ensemble state: xs [B, D], logps [B], grads [B, D]."""
     return ChEESState(xs=_t(xs, device), logps=_t(logps, device), grads=_t(grads, device))
+
+
+def pseudo_prior_from_numpy(mean, chol, logdet_cov, device="cpu") -> GaussianPseudoPrior:
+    """A batch of Gaussian pseudo-priors from JAX ``GaussianPseudoPrior``
+    fields, one per row: mean [M, D], chol [M, D, D], logdet_cov [M] (one
+    JAX pseudo-prior, [D], [D, D] and a scalar, becomes M = 1)."""
+    mean = np.asarray(mean, np.float32)
+    d = mean.shape[-1]
+    return GaussianPseudoPrior(mean=_t(mean.reshape(-1, d), device),
+                               chol=_t(np.reshape(chol, (-1, d, d)), device),
+                               logdet_cov=_t(np.reshape(logdet_cov, (-1,)), device))
+
+
+def type_switch_state_from_numpy(a, star_x, star_logp, star_grad, gal_x, gal_logp, gal_grad,
+                                 device="cpu") -> TypeSwitchState:
+    """A Carlin-Chib state of B rows: a [B] (0 star, 1 galaxy) and each
+    block's HMC state (x [B, D], logp [B], grad [B, D])."""
+    return TypeSwitchState(
+        a=torch.as_tensor(np.array(a, np.int32), device=device),
+        star=HMCState(x=_t(star_x, device), logp=_t(star_logp, device),
+                      grad=_t(star_grad, device)),
+        gal=HMCState(x=_t(gal_x, device), logp=_t(gal_logp, device), grad=_t(gal_grad, device)))
+
+
+def gibbs_state_from_numpy(x, logp, device="cpu") -> GibbsState:
+    """A block-Gibbs state of B chains: x [B, D_total], logp [B] (one JAX
+    state, [D_total] and a scalar, becomes B = 1)."""
+    x = np.asarray(x, np.float32)
+    return GibbsState(x=_t(x.reshape(-1, x.shape[-1]), device),
+                      logp=_t(np.reshape(logp, (-1,)), device))
+
+
+def stretch_state_from_numpy(xs, logps, device="cpu") -> StretchState:
+    """A stretch-move ensemble: xs [K, D], logps [K]."""
+    return StretchState(xs=_t(xs, device), logps=_t(logps, device))
 
 
 def quasar_basis_from_numpy(lam_rest, b, device="cpu") -> QuasarBasis:

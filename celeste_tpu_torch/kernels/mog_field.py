@@ -261,10 +261,15 @@ def _check_inputs(planes, pixels, extra=()):
     return amp.shape[0], amp.shape[1], n_pix, device
 
 
-def _raise_on_error(lib, err, name):
+def _raise_on_error(lib, err, name, b, c):
+    """Raise on a launch's error code.  Each of a block's chains stages its
+    row's C components in shared memory, so a row of too many components
+    (about 400 for K1-bwd at 8 chains per block) is refused by the launch."""
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.mog_field_error_string(err).decode()} ({err})")
+        raise RuntimeError(f"{name} launch failed at B={b}, C={c}: "
+                           f"{lib.mog_field_error_string(err).decode()} ({err}); a block stages "
+                           f"its rows' components in shared memory, so past its size give each "
+                           f"row fewer components (the stamp pipeline: a lower max_sources)")
 
 
 def _ptrs(ts):
@@ -285,7 +290,7 @@ def loglik_fwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mog_field_loglik_fwd(*_ptrs(planes), *_ptrs(pixels), out.data_ptr(),
                                        b, c, p, int(bool(centered)), *k1_geometry(b, p), stream)
-    _raise_on_error(lib, err, "mog_field_loglik_fwd")
+    _raise_on_error(lib, err, "mog_field_loglik_fwd", b, c)
     loglik_fwd_cuda.launches += 1
     return out
 
@@ -306,7 +311,7 @@ def loglik_bwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mog_field_loglik_bwd(*_ptrs(planes), *_ptrs(pixels), g.data_ptr(),
                                        *_ptrs(grads), b, c, p, *k1_geometry(b, p), stream)
-    _raise_on_error(lib, err, "mog_field_loglik_bwd")
+    _raise_on_error(lib, err, "mog_field_loglik_bwd", b, c)
     loglik_bwd_cuda.launches += 1
     return grads
 
@@ -318,7 +323,7 @@ def render_cuda(amp, mx, my, pa, pb, pc, px, py, sky):
     """Launch the render kernel: lambda [B, P] on the planes' card."""
     planes = (amp, mx, my, pa, pb, pc)
     pixels = (px, py, sky)
-    b, _, p, device = _check_inputs(planes, pixels)
+    b, c, p, device = _check_inputs(planes, pixels)
     out = torch.empty(b, p, dtype=torch.float32, device=device)
     if b == 0 or p == 0:
         return out
@@ -326,8 +331,8 @@ def render_cuda(amp, mx, my, pa, pb, pc, px, py, sky):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mog_field_render(*_ptrs(planes), *_ptrs(pixels), out.data_ptr(),
-                                   b, planes[0].shape[1], p, *k7_geometry(b, p), stream)
-    _raise_on_error(lib, err, "mog_field_render")
+                                   b, c, p, *k7_geometry(b, p), stream)
+    _raise_on_error(lib, err, "mog_field_render", b, c)
     render_cuda.launches += 1
     return out
 

@@ -12,10 +12,11 @@ import torch
 
 
 class MetricsLogger:
-    """Append-only JSONL metrics stream (file, or stderr without a path)."""
+    """Append-only JSONL metrics stream: a file, else ``stream``, else
+    stderr."""
 
-    def __init__(self, path: str | None = None):
-        self._fh = open(path, "a") if path else sys.stderr
+    def __init__(self, path: str | None = None, stream=None):
+        self._fh = open(path, "a") if path else (stream or sys.stderr)
         self._owns = path is not None
         self._t0 = time.time()
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of config 1 (``star_single``), configs 2 and 3
 (``star_ugriz``, ``galaxy``), config 5 (the crowded field) and config 4
-(quasar photo-z) goes, on one NVIDIA GPU.
+(quasar photo-z) and the stamp pipeline goes, on one NVIDIA GPU.
 
     python3 chip_profile.py [--iters N] [--out FILE] [--only TEXT]
 
@@ -20,7 +20,10 @@ B=1024, and the ``value_and_grad`` of the three-band field (g, r, i) at
 B=1024.  Config 4 (quasar photo-z, the bench batch's shape): the
 ``value_and_grad`` of 256 targets x 6 temperatures (B=1536, the 8192-point
 grid) and one ``hmc_adaptive`` tempered step of 8 leapfrog steps and the
-swap sweep.  ``--only TEXT`` profiles the calls whose names hold TEXT.
+swap sweep.  The stamp pipeline (the ``pipeline`` config's field): one
+classify Adam step of its 6 folded conditional rows and the joint
+posterior's ``value_and_grad`` at 16 chains.  ``--only TEXT`` profiles the
+calls whose names hold TEXT.
 For each it prints
 
     wall ms/call (unprofiled), device busy ms/call (sum of the device
@@ -187,6 +190,47 @@ def config23_calls(device):
     return out
 
 
+def pipeline_calls(device):
+    """The stamp pipeline (the ``pipeline`` config's 33x33 field, its three
+    sources as the candidates): one classify Adam step of the 2N = 6
+    folded conditional rows (one K1-fwd and one K1-bwd launch), and the
+    joint posterior's ``value_and_grad`` at the 16 sampling chains."""
+    from celeste_tpu_torch import pipeline as tpipe
+    from celeste_tpu_torch.experiments import CONFIGS, pipeline_scene
+    from celeste_tpu_torch.inference.hmc import value_and_grad
+    from celeste_tpu_torch.inference.map_fit import map_fit
+    from celeste_tpu_torch.model.priors import FluxPrior, SourcePriors
+    from celeste_tpu_torch.parallel.crowded import CrowdedScene, make_crowded_logdensity
+
+    cfg = CONFIGS["pipeline"]
+    scene, srcs = pipeline_scene(cfg, device)
+    priors = SourcePriors(flux=FluxPrior(log_ref_mean=3.2, log_ref_std=2.0))
+    rects = np.zeros((3, 7), np.float32)
+    for i, s in enumerate(srcs):
+        rects[i, :2], rects[i, 2] = scene.wcs.equa2duas(s["u"]), np.log(s["flux"][2])
+        rects[i, 3:] = ([0.0, 0.0, 0.0, 0.5] if s["type"] == "star"
+                        else [-0.4, np.log(s["sigma"]), 0.4, s["phi"]])
+    flags = [s["type"] == "star" for s in srcs]
+    cond = tpipe.Conditional(scene.stamps, [0], 1, priors)
+    logd = cond.logdensity("mixed", np.repeat(np.arange(3), 2), cond.fold(rects, flags, [True] * 3),
+                           is_star=[True, False] * 3)
+    x = torch.as_tensor(np.repeat(rects, 2, axis=0), device=device)
+    joint = CrowdedScene(kinds=tuple(s["type"] for s in srcs), n_bands=1)
+    logd_joint = make_crowded_logdensity(joint, scene.stamps, bands=[0], priors=priors)
+    rng = np.random.default_rng(2)
+    xj = torch.as_tensor(np.concatenate([r[:3] if f else r for r, f in zip(rects, flags)])[None]
+                         + 0.01 * rng.normal(size=(cfg.n_chains, joint.dim)),
+                         dtype=torch.float32, device=device)
+
+    def adam_step():
+        with torch.no_grad():
+            map_fit(logd, x, n_steps=1)
+
+    return [("pipeline classify Adam step (6 folded rows)", adam_step),
+            (f"pipeline joint value_and_grad B={cfg.n_chains}",
+             lambda: value_and_grad(logd_joint, xj))]
+
+
 def calls(device):
     """The config-1 calls to profile, as (name, zero-argument function)."""
     from celeste_tpu_torch.experiments import CONFIGS, _star_problem
@@ -258,7 +302,7 @@ def main(argv=None) -> int:
     tables = []
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     device = torch.device("cuda:0")
-    groups = (calls, config23_calls, config5_calls, photoz_calls)
+    groups = (calls, config23_calls, config5_calls, photoz_calls, pipeline_calls)
     for name, fn in (c for group in groups for c in group(device)):
         if args.only not in name:
             continue

@@ -107,7 +107,19 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    counter set to 0 just before): p in (0.02, 0.98), and p < 0.02 with the
    source's log-flux at -8.  Then ``batched_stamp_loglik(impl="sep")`` and
    its gradient at B=65536 on config 1's stamp (K8's counters set to 0
-   just before), against the general kernel;
+   just before), against the general kernel.  Phase f, the stamp pipeline:
+   ``run_experiment`` of ``pipeline`` with ``ppc=true`` as the config has it
+   (a 33x33 r-band stamp with two stars and a galaxy; detection, three
+   classify sweeps of 300-step MAP fits with Laplace evidence, the type
+   switch, 16 chains of dense-metric ChEES with 200 warmup and 400 steps,
+   the catalog, the PPC), every counter set to 0 just before and read just
+   after, K1's and K7's launches printed per stage and per classify Adam
+   step and counted by shape; gates: 3 sources, kinds [galaxy, star, star],
+   catalog completeness, purity and kind accuracy 1.0, position RMS < 0.2
+   arcsec, |flux bias| < 0.2, PPC p in (0.01, 0.99), max R-hat <= 1.1, each
+   sweep one K1-fwd and one K1-bwd launch per Adam step (two more forwards
+   and one backward for its Hessians and source-free evidences), the same
+   at 1, 3 and 6 candidates in a 10-step sweep;
 11. drive the source-sharded config 5 at full width (12 sources, 48x128,
    1024 chains, per-source radii), every tiled counter set to 0 just
    before and read just after: on a one-rank NCCL mesh (1, 1), in this
@@ -143,14 +155,18 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    where the paths call them (config 1 at 64 chains, config 2's bands and
    config 3 at 32, config 5's dense probe at 8, config 1's stamp at 65536),
    device time per call from a CUDA graph of 20 calls, with the bound and
-   this run's launches at that shape;
+   this run's launches at that shape; K1 and K7 at every shape the pipeline
+   launched them, on its inputs there, held against their plain versions
+   (K1-fwd rtol 2e-6, atol 1.0, K1-bwd rtol 5e-4, atol 5e-2, K7 rtol 1e-5,
+   atol 1e-3) and timed likewise;
 13. print K1's rows by shape as a JSON line (``k1_shapes``, with the time
     lost, launches x (ms - bound), summed per kernel in ``k1_lost_s``), K7's
     likewise (``k7_shapes``, ``k7_lost_s``), then the kernels' JSON line
     (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd), each kernel's ms per wrapper
     call (K2-K4: both buckets timed together, divided by their two
     launches; their launches those of both config-5 paths, one band and
-    three) with its bound per call (the largest of its bytes over the
+    three; K1's those of config 1's path and the pipeline's, K7's those of
+    the PPC and the pipeline) with its bound per call (the largest of its bytes over the
     card's memory rate, its float32 operations over the card's float32
     rate, and its exponentials and logarithms over the special-function
     unit's rate), failing on a kernel faster than its
@@ -249,6 +265,13 @@ K7_COMPONENTS = (3, 48, 126)
 K7_SHAPES = ((25, 25), (31, 31), (48, 128), (128, 128))
 DENSE_CHAINS = 64               # phase 6: config 5's dense gradient
 PPC_DRAWS = 32
+# phase f: the stamp pipeline through run_experiment as the config has it
+# (16 chains, 200 warmup, 400 ChEES steps; the type switch's 300 steps of 8
+# chains; 300-step MAP fits) with the PPC; max R-hat at the entry runs' gate;
+# then classify sweeps of 10 Adam steps at 1, 3 and 6 candidates
+PIPELINE_ENTRY = dict(ppc=True)
+PIPELINE_RHAT = 1.1
+PIPELINE_SWEEP_N, PIPELINE_SWEEP_STEPS = (1, 3, 6), 10
 # the card's peaks (H100 SXM at 700 W, NVIDIA's data sheet: HBM3 rate, float32
 # outside the tensor cores; 67 TFLOP/s is 132 SMs x 128 lanes x 2 x 1.98 GHz)
 HBM_BYTES_PER_S = 3.35e12
@@ -1441,6 +1464,235 @@ def sep_entry_path(device):
 
 
 # ---------------------------------------------------------------------------
+# the stamp pipeline (phase f)
+# ---------------------------------------------------------------------------
+
+class ShapeLaunches:
+    """K1's and K7's launches by shape inside a ``with`` block: the wrappers
+    of ``kernels.mog_field`` are wrapped so that each call adds, under
+    (kernel, chains, components, padded pixels), what it added to the
+    wrapper's own launch counter (a call that launched nothing adds 0), and
+    the first inputs of a launch at each shape are kept (cloned) to time
+    the kernel there afterwards.  ``check_totals`` holds the sums by kernel
+    against the counters of the same run."""
+
+    NAMES = (("K1-fwd", "loglik_fwd_cuda", "mog_field_loglik_fwd"),
+             ("K1-bwd", "loglik_bwd_cuda", "mog_field_loglik_bwd"),
+             ("K7", "render_cuda", "mog_field_render"))
+
+    def __init__(self):
+        self.counts, self.inputs = {}, {}
+
+    def _wrap(self, kernel, counter, fn):
+        from celeste_tpu_torch.kernels import mog_field as mf
+
+        def call(*args, **kw):
+            before = mf.launch_counts()[counter]
+            out = fn(*args, **kw)
+            n = mf.launch_counts()[counter] - before
+            if n:
+                key = (kernel, args[0].shape[0], args[0].shape[1], args[6].shape[1])
+                self.counts[key] = self.counts.get(key, 0) + n
+                if key not in self.inputs:
+                    self.inputs[key] = ([a.clone() if torch.is_tensor(a) else a for a in args],
+                                        kw)
+            return out
+        # the wrapped function adds to the counter of the name it is bound
+        # to in the module, which is ``call`` while the block runs
+        call.launches = fn.launches
+        return call
+
+    def __enter__(self):
+        from celeste_tpu_torch.kernels import mog_field as mf
+
+        self._orig = {attr: getattr(mf, attr) for _, attr, _ in self.NAMES}
+        for kernel, attr, counter in self.NAMES:
+            setattr(mf, attr, self._wrap(kernel, counter, self._orig[attr]))
+        return self
+
+    def __exit__(self, *exc):
+        from celeste_tpu_torch.kernels import mog_field as mf
+
+        for _, attr, _ in self.NAMES:
+            self._orig[attr].launches = getattr(mf, attr).launches
+            setattr(mf, attr, self._orig[attr])
+
+    def check_totals(self, counts):
+        """Fail unless the launches by shape of each kernel sum to its
+        counter's ``counts`` of the same run."""
+        for kernel, _, counter in self.NAMES:
+            total = sum(n for key, n in self.counts.items() if key[0] == kernel)
+            check(total == counts[counter],
+                  f"{kernel}: {total} launches by shape, its counter says {counts[counter]}")
+
+
+def pipeline_sweep_launches(run):
+    """One classify sweep of PIPELINE_SWEEP_STEPS Adam steps at each
+    candidate count of PIPELINE_SWEEP_N on the pipeline's field (its
+    sources at the catalog's MAPs, then stars at the truth's neighbours):
+    K1-fwd launches steps + 2 (the Adam steps, one Hessian batch, the
+    source-free evidence), K1-bwd steps + 1, whatever the count."""
+    from celeste_tpu_torch import pipeline as tpipe
+    from celeste_tpu_torch.kernels import mog_field as mf
+
+    scene, catalog = run["scene"], run["catalog"]
+    cond = tpipe.Conditional(scene.stamps, [0], 1, run["priors"])
+    cfg = tpipe.PipelineConfig(map_steps=PIPELINE_SWEEP_STEPS)
+    rng = np.random.default_rng(3)
+    out = {}
+    for n in PIPELINE_SWEEP_N:
+        cand = []
+        for i in range(n):
+            e = catalog[i % len(catalog)]
+            x = np.concatenate([e.du_mean + (0.0 if i < len(catalog) else rng.normal(0, 2, 2)),
+                                np.log(e.flux_mean)]).astype(np.float32)
+            cand.append({"kind": "star", "x": x, "p": 1.0, "alive": True})
+        mf.reset_launch_counts()
+        tpipe.classify_sweep(cond, cand, cfg)
+        torch.cuda.synchronize()
+        c = mf.launch_counts()
+        out[n] = (c["mog_field_loglik_fwd"], c["mog_field_loglik_bwd"])
+        check(out[n] == (PIPELINE_SWEEP_STEPS + 2, PIPELINE_SWEEP_STEPS + 1),
+              f"a classify sweep of {n} candidates launched K1 {out[n]} times, not "
+              f"{(PIPELINE_SWEEP_STEPS + 2, PIPELINE_SWEEP_STEPS + 1)}")
+    print(f"[pipeline] classify sweep of {PIPELINE_SWEEP_STEPS} Adam steps, K1 (fwd, bwd) "
+          f"launches by candidate count: {out}: one of each per Adam step at every count",
+          flush=True)
+
+
+def pipeline_path(device):
+    """Phase f: ``run_experiment`` of the ``pipeline`` config with the PPC,
+    every counter set to 0 just before and read just after; the launches of
+    each stage (the pipeline's stage functions wrapped) and of K1 and K7 by
+    shape.  Gates: three sources, kinds [galaxy, star, star], catalog
+    completeness, purity and kind accuracy 1.0, position RMS < 0.2 arcsec,
+    |flux bias| < 0.2, the PPC p-value in (0.01, 0.99), max R-hat <=
+    PIPELINE_RHAT, one K1-fwd and one K1-bwd launch per classify Adam step
+    (each sweep: map_steps + 2 and + 1) and K1 and K7 launched.  Returns the
+    path's launches, the ``ShapeLaunches`` and the stamp's pixel count."""
+    from celeste_tpu_torch import pipeline as tpipe
+    from celeste_tpu_torch.catalog import catalog_accuracy, reference_from_sources
+    from celeste_tpu_torch.kernels import mog_field as mf
+
+    stages = []
+
+    def staged(name, fn):
+        def call(*args, **kw):
+            before, t0 = dict(mf.launch_counts()), time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            after = mf.launch_counts()
+            stages.append((name, {k: after[k] - before[k] for k in after},
+                           time.perf_counter() - t0,
+                           len(out) if name == "classify_sweep" else None))
+            return out
+        return call
+
+    names = ("detect", "classify_sweep", "type_switch_stage", "sample_scene")
+    orig = {n: getattr(tpipe, n) for n in names}
+    for n in names:
+        setattr(tpipe, n, staged(n, orig[n]))
+    try:
+        with ShapeLaunches() as shapes:
+            cfg, res, seconds, counts = entry_run("pipeline", PIPELINE_ENTRY, device)
+    finally:
+        for n in names:
+            setattr(tpipe, n, orig[n])
+    run = res["run"]
+    catalog, art = run["catalog"], run["artifacts"]
+    map_steps = tpipe.PipelineConfig().map_steps
+    staged_k7 = 0
+    for name, c, secs, n_cand in stages:
+        k1 = (c["mog_field_loglik_fwd"], c["mog_field_loglik_bwd"])
+        staged_k7 += c["mog_field_render"]
+        extra = ""
+        if name == "classify_sweep":
+            extra = (f" ({n_cand} candidates, {2 * n_cand} rows; per Adam step K1 "
+                     f"{(k1[0] - 2) / map_steps:g} fwd, {(k1[1] - 1) / map_steps:g} bwd)")
+            check(k1 == (map_steps + 2, map_steps + 1),
+                  f"a classify sweep of {n_cand} candidates launched K1 {k1} times, not "
+                  f"{(map_steps + 2, map_steps + 1)}")
+        print(f"[pipeline] {name}: K1 fwd {k1[0]} bwd {k1[1]}, K7 {c['mog_field_render']}, "
+              f"{secs:.3f} s{extra}", flush=True)
+    print(f"[pipeline] ppc: K7 {counts['mog_field_render'] - staged_k7}", flush=True)
+    summ = art["summary"]
+    rhat = float(torch.max(summ["rhat"]))
+    ref = reference_from_sources(run["sources"], run["scene"].wcs, band_slots=[2])
+    rep = catalog_accuracy(catalog, ref, max_sep_arcsec=1.0)
+    pv = float(res["ppc_pvalue"][0])
+    print(f"[pipeline] run_experiment pipeline ppc=true: {seconds:.3f} s, chains "
+          f"{cfg.n_chains}, warmup {cfg.n_warmup}, steps {cfg.n_steps}; kinds "
+          f"{[str(k) for k in res['kinds']]}, p_star {np.round(res['p_star'], 4).tolist()}; "
+          f"completeness "
+          f"{rep['completeness']}, purity {rep['purity']}, kind accuracy {rep['kind_accuracy']}, "
+          f"pos rms {rep['pos_rms_arcsec']:.4f} arcsec, flux bias {rep['flux_rel_bias']:.4f}, "
+          f"pos z rms {rep['pos_z_rms']:.3f}, flux z rms {rep['flux_z_rms']:.3f}; PPC p {pv:.4f}; "
+          f"max R-hat {rhat:.4f}, min ESS {float(torch.min(summ['ess'])):.1f}; launches {counts}",
+          flush=True)
+    check(art["n_sources"] == 3, f"pipeline: {art['n_sources']} sources, not 3")
+    check(sorted(res["kinds"]) == ["galaxy", "star", "star"],
+          f"pipeline kinds {[str(k) for k in res['kinds']]}")
+    for key in ("completeness", "purity", "kind_accuracy"):
+        check(rep[key] == 1.0, f"pipeline catalog {key} {rep[key]}")
+    check(rep["pos_rms_arcsec"] < 0.2, f"pipeline position RMS {rep['pos_rms_arcsec']}")
+    check(abs(rep["flux_rel_bias"]) < 0.2, f"pipeline flux bias {rep['flux_rel_bias']}")
+    check(0.01 < pv < 0.99, f"pipeline PPC p-value {pv} outside (0.01, 0.99)")
+    check(rhat <= PIPELINE_RHAT, f"pipeline max R-hat {rhat:.4f} > {PIPELINE_RHAT}")
+    for name, n in counts.items():
+        check(n > 0, f"the pipeline never launched {name}")
+    shapes.check_totals(counts)
+    pipeline_sweep_launches(run)
+    return counts, shapes, run["scene"].stamps[0].counts.numel()
+
+
+def shape_rows(card, shapes, tag, pix):
+    """K1-fwd, K1-bwd and K7 at every shape a path launched them
+    (``ShapeLaunches``) on a stamp of ``pix`` pixels, on the first inputs
+    seen there: held against the plain version (K1-fwd rtol 2e-6, atol 1.0;
+    K1-bwd rtol 5e-4, atol 5e-2; K7 rtol 1e-5, atol 1e-3), device ms per
+    call (a CUDA graph of 20 calls, best of 3), the bound per call, the
+    launches and the time lost, launches x (ms - bound).  Returns (K1 rows,
+    K7 rows)."""
+    from celeste_tpu_torch.bench.timing import graph_ms
+    from celeste_tpu_torch.kernels import mog_field as mf
+
+    fns = {"K1-fwd": (mf.loglik_fwd_cuda, mf._loglik_torch, FWD_TOL["galaxy"]),
+           "K1-bwd": (mf.loglik_bwd_cuda, mf._loglik_bwd_torch, BWD_TOL),
+           "K7": (mf.render_cuda, mf._render_torch, LAM_TOL)}
+    k1, k7 = [], []
+    for key in sorted(shapes.counts, key=lambda k: -shapes.counts[k]):
+        kernel, b, c, pix_pad = key
+        n = shapes.counts[key]
+        args, kw = shapes.inputs[key]
+        fn, plain, tol = fns[kernel]
+        got, want = fn(*args, **kw), plain(*args, **kw)
+        if kernel == "K1-bwd":
+            err = max(max_abs_err(g, w, *tol, f"{tag} {kernel} B={b} C={c}")
+                      for g, w in zip(got, want))
+        else:
+            err = max_abs_err(got, want, *tol, f"{tag} {kernel} B={b} C={c}")
+        ms = graph_ms(lambda: fn(*args, **kw))
+        bound_ms, bound_by = (k7_bound(b, c, pix, pix_pad) if kernel == "K7"
+                              else k1_bounds(b, c, pix, pix_pad)[kernel])
+        row = {"kernel": kernel, "shape": f"{tag} B={b} C={c}", "chains": b, "components": c,
+               "pixels": pix, "pixels_padded": pix_pad, "launches": n, "max_abs_err": err,
+               "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "lost_s": n * (ms - bound_ms) * 1e-3}
+        if kernel == "K7":
+            k7.append(row)
+        else:
+            row["cb_t"] = list(mf.k1_geometry(b, pix_pad))
+            k1.append(row)
+    print(f"[timing] K1 and K7 where the {tag} launches them (device ms per call: a CUDA graph "
+          f"of 20 calls, best of 3), card: {card}", flush=True)
+    for r in k1 + k7:
+        print(f"    {r['kernel']} {r['shape']}: max abs err vs plain {r['max_abs_err']:.4g} "
+              f"ms={r['ms']:.6f} bound={r['bound_ms']:.6f} ({r['bound_by']}) "
+              f"launches={r['launches']} lost={r['lost_s']:.6f} s", flush=True)
+    return k1, k7
+
+
+# ---------------------------------------------------------------------------
 # checkpoints, warm-start caches, config 4 and the sharded ladder
 # ---------------------------------------------------------------------------
 
@@ -2274,6 +2526,7 @@ def main() -> int:
     runs23 = configs23_path(device)
     k7_launches, k7_shapes = ppc_path(device, runs23)
     k8_counts, k1_65536 = sep_entry_path(device)
+    pipe_counts, pipe_shapes, pipe_pix = pipeline_path(device)
     k1_launches = {"config 1": k1_counts, "config 5 dense": dense_counts, "B=65536": k1_65536,
                    "config 2": {k: runs23["ugriz hmc"][3][k] + runs23["ugriz slice"][3][k]
                                 for k in k1_counts},
@@ -2301,15 +2554,21 @@ def main() -> int:
         t7 = stamp_render_timings(device, card, config5)
         k7_rows = k7_shape_timings(card, k7_shapes)
         k1_rows = k1_shape_timings(device, card, config5, k1_launches)
+        pipe_k1_rows, pipe_k7_rows = shape_rows(card, pipe_shapes, "pipeline", pipe_pix)
+        k1_rows += pipe_k1_rows
+        k7_rows += pipe_k7_rows
         bounds = kernel_bounds(config5, sharded5)
     tiled = "celeste_tpu/kernels/tiled_field.py"
     t5b, trb = t5[TIMING_CHAINS[0]], tr[TIMING_CHAINS[0]]
+    # K1's launches: config 1's path and the pipeline's; K7's: the PPC's and
+    # the pipeline's
     rows = [
         ("mog_field_loglik_fwd", "mog_field.cu", "celeste_tpu/kernels/mog_field.py:80", "K1-fwd",
-         k1_counts["mog_field_loglik_fwd"], k1_errs["fwd"], t1["fwd_ms"], t1["fwd_plain_ms"]),
+         k1_counts["mog_field_loglik_fwd"] + pipe_counts["mog_field_loglik_fwd"], k1_errs["fwd"],
+         t1["fwd_ms"], t1["fwd_plain_ms"]),
         ("mog_field_loglik_bwd", "mog_field.cu", "celeste_tpu/kernels/mog_field.py:182",
-         "K1-bwd", k1_counts["mog_field_loglik_bwd"], k1_errs["bwd"], t1["bwd_ms"],
-         t1["bwd_plain_ms"]),
+         "K1-bwd", k1_counts["mog_field_loglik_bwd"] + pipe_counts["mog_field_loglik_bwd"],
+         k1_errs["bwd"], t1["bwd_ms"], t1["bwd_plain_ms"]),
         ("tiled_field_fwd", "tiled_field.cu", f"{tiled}:57", "K2",
          c5_counts["tiled_field_fwd"] + mb_counts["tiled_field_fwd"], tiled_errs["K2"],
          t5b["K2"], t5b["K2_plain"]),
@@ -2324,7 +2583,8 @@ def main() -> int:
         ("tiled_field_render_bwd", "tiled_field.cu", f"{tiled}:652", "K6",
          sh_counts["tiled_field_render_bwd"], render_errs["K6"], trb["K6"], trb["K6_plain"]),
         ("mog_field_render", "mog_field.cu", "celeste_tpu/kernels/mog_field.py:103", "K7",
-         k7_launches, k7_err, t7["K7_field_ms"], t7["K7_field_plain_ms"]),
+         k7_launches + pipe_counts["mog_field_render"], k7_err, t7["K7_field_ms"],
+         t7["K7_field_plain_ms"]),
         ("mog_field_sep_fwd", "mog_field_sep.cu", "celeste_tpu/kernels/mog_field_sep.py:71",
          "K8-fwd", k8_counts["mog_field_sep_fwd"], k8_errs["fwd"], t8["K8_fwd_ms"],
          t8["K8_fwd_plain_ms"]),

@@ -1008,3 +1008,188 @@ def test_photo_z_run_keeps_tf32_off(cuda):
     assert out["z"].is_cuda and bool(torch.isfinite(out["z"]).all())
     assert not torch.backends.cuda.matmul.allow_tf32
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+# ---------------------------------------------------------------------------
+# the stamp pipeline's conditional posteriors (celeste_tpu_torch/pipeline.py)
+# ---------------------------------------------------------------------------
+
+def _pipeline_field(device, n_extra_gal=0, n_extra_star=0, seed=0):
+    """The ``pipeline`` config's field on the card with its three sources
+    as candidates, plus extra candidates (galaxies and stars at random
+    spots), as rectangular states, kind flags and the port's
+    ``Conditional``."""
+    from celeste_tpu_torch.experiments import CONFIGS, pipeline_scene
+    from celeste_tpu_torch.model.priors import FluxPrior, SourcePriors
+    from celeste_tpu_torch.pipeline import Conditional
+
+    scene, srcs = pipeline_scene(CONFIGS["pipeline"], device)
+    rng = np.random.default_rng(seed)
+    rects, flags = [], []
+    for s in srcs:
+        r = np.zeros(7, np.float32)
+        r[:2], r[2] = scene.wcs.equa2duas(s["u"]), np.log(s["flux"][2])
+        r[3:] = [0.0, 0.0, 0.0, 0.5] if s["type"] == "star" else [-0.4, np.log(1.8), 0.4, 0.7]
+        rects.append(r)
+        flags.append(s["type"] == "star")
+    for k in range(n_extra_gal + n_extra_star):
+        gal = k < n_extra_gal
+        r = np.concatenate([rng.uniform(-5.0, 5.0, 2), [np.log(rng.uniform(5.0, 40.0))],
+                            [0.0, np.log(rng.uniform(0.5, 2.0)), 0.5, rng.uniform(0, 3)]])
+        rects.append(r.astype(np.float32))
+        flags.append(not gal)
+    priors = SourcePriors(flux=FluxPrior(log_ref_mean=3.2, log_ref_std=2.0))
+    return scene, np.stack(rects), np.array(flags), Conditional(scene.stamps, [0], 1, priors)
+
+
+def _per_row_sky_logdensity(cond, kind, probs, folded, is_star, x):
+    """The plain per-row-sky form of the folded conditional: each row's
+    others rendered by K7's plain version into its own sky, the row's own
+    components through K1's plain version against that [R, P] sky."""
+    (fixed, owner), = folded
+    px, py, counts, sky, mask = cond.pds[0]
+    k = x.shape[0] // len(probs)
+    cands = torch.as_tensor(np.repeat(probs, k), device=x.device)
+    keep = (owner[None, :] != cands[:, None]).to(torch.float32)
+    rows = x.shape[0]
+    eff = mf._render_torch(keep * fixed[0], *(f.expand(rows, -1) for f in fixed[1:]), px, py,
+                           sky)
+    flags = (torch.as_tensor(np.repeat(is_star, k), device=x.device)
+             if kind == "mixed" else None)
+    own = cond._own_planes(kind, x, cond.stamps[0], 0, flags)
+    return mf._loglik_torch(*own, px, py, counts, eff, mask) + cond._prior(kind, x, flags)
+
+
+# (kind, extra galaxies, extra stars, rows per problem): the classify
+# sweep's Adam batch (mixed, 2N rows) and its Hessian batch (15 rows per
+# problem), the type switch's blocks (8 chains per candidate), and a row of
+# ~390 components at 1100 rows (8 chains per block, K1-bwd's ~400 cap)
+FOLDED_CASES = [("mixed", 0, 0, 1), ("mixed", 0, 2, 15), ("star", 0, 0, 8),
+                ("galaxy", 0, 0, 8), ("star", 7, 0, 110)]
+
+
+@pytest.mark.parametrize("kind,n_gal,n_star,k", FOLDED_CASES)
+def test_folded_conditional_through_k1_matches_per_row_sky(cuda, kind, n_gal, n_star, k):
+    """The pipeline's conditional log density through K1-fwd and K1-bwd
+    (one launch each) against the plain per-row-sky form: values rtol 2e-6,
+    atol 0.5; gradients rtol 5e-4, atol 5e-2."""
+    _, rects, flags, cond = _pipeline_field(cuda, n_gal, n_star)
+    n = len(rects)
+    folded = cond.fold(rects, flags, np.ones(n, bool))
+    if kind == "mixed":
+        probs, is_star, width = np.repeat(np.arange(n), 2), [True, False] * n, 7
+    else:
+        probs = np.arange(min(n, 10))
+        is_star, width = None, 3 if kind == "star" else 7
+    rng = np.random.default_rng(4)
+    x = np.repeat(rects[probs][:, :width], k, axis=0)
+    x = torch.as_tensor((x + 0.02 * rng.normal(size=x.shape)).astype(np.float32), device=cuda)
+    logd = cond.logdensity(kind, probs, folded, is_star=is_star)
+    before = mf.launch_counts()
+    xr = x.clone().requires_grad_(True)
+    val = logd(xr)
+    (grad,) = torch.autograd.grad(val.sum(), xr)
+    after = mf.launch_counts()
+    assert after["mog_field_loglik_fwd"] - before["mog_field_loglik_fwd"] == 1
+    assert after["mog_field_loglik_bwd"] - before["mog_field_loglik_bwd"] == 1
+    xp = x.clone().requires_grad_(True)
+    want = _per_row_sky_logdensity(cond, kind, probs, folded, is_star, xp)
+    (gwant,) = torch.autograd.grad(want.sum(), xp)
+    torch.testing.assert_close(val.detach(), want.detach(), rtol=2e-6, atol=0.5)
+    torch.testing.assert_close(grad, gwant, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("kind", ["star", "galaxy"])
+def test_difference_hessian_through_k1_matches_autodiff(cuda, kind):
+    """1/2 log det(-H) of a candidate's conditional at its MAP: the port's
+    central differences of K1-bwd's gradient against ``torch.func.hessian``
+    of the plain per-row-sky form on the card, within 0.01 nats."""
+    from celeste_tpu_torch.inference.map_fit import map_fit
+    from celeste_tpu_torch.inference.model_select import hessian_fd
+
+    _, rects, flags, cond = _pipeline_field(cuda)
+    folded = cond.fold(rects, flags, np.ones(3, bool))
+    cand, width = (0, 3) if kind == "star" else (2, 7)
+    logd = cond.logdensity(kind, [cand], folded)
+    x0 = torch.as_tensor(rects[cand:cand + 1, :width], device=cuda)
+    x_map, _ = map_fit(logd, x0, n_steps=250)
+    _, h = hessian_fd(logd, x_map)
+
+    def plain(v):
+        return _per_row_sky_logdensity(cond, kind, [cand], folded, None, v[None])[0]
+
+    h_ad = torch.func.hessian(plain)(x_map[0].detach())
+    got = 0.5 * float(torch.linalg.slogdet(-h[0].double())[1])
+    want = 0.5 * float(torch.linalg.slogdet(-(h_ad + h_ad.T).double() / 2)[1])
+    assert abs(got - want) < 0.01, (got, want)
+
+
+def test_pipeline_catalog_at_full_settings(cuda):
+    """tests/test_pipeline.py's run uncut on the card: its ``mixed_field``
+    (the ``pipeline`` config's scene) at its settings (five detection
+    rounds, 250-step MAP fits, the type switch's 300 steps of 8 chains, 8
+    chains of 150 warmup and 250 ChEES steps, seed 3), held to that file's
+    gates (:38-96), with K1 and K7 launched.  The CPU's run of it is cut in
+    steps (tests/test_torch_pipeline_catalog.py)."""
+    from celeste_tpu_torch.catalog import catalog_accuracy, reference_from_sources
+    from celeste_tpu_torch.experiments import CONFIGS, pipeline_scene
+    from celeste_tpu_torch.model.priors import FluxPrior, SourcePriors
+    from celeste_tpu_torch.pipeline import PipelineConfig, run_pipeline
+
+    scene, srcs = pipeline_scene(CONFIGS["pipeline"], cuda)
+    cfg = PipelineConfig(max_sources=5, n_chains=8, n_warmup=150, n_steps=250, map_steps=250,
+                         seed=3, detection_min_separation=7)
+    before = mf.launch_counts()
+    catalog, art = run_pipeline(scene.stamps[0], band=0, n_bands=1, cfg=cfg,
+                                priors=SourcePriors(flux=FluxPrior(3.2, 2.0)))
+    after = mf.launch_counts()
+    assert all(after[k] > before[k] for k in after), (before, after)
+    assert art["n_sources"] == 3
+    assert art["samples"].shape == (8, 250, 3 + 3 + 7) and np.isfinite(art["samples"]).all()
+    assert sorted(e.kind for e in catalog) == ["galaxy", "star", "star"], catalog
+    rep = catalog_accuracy(catalog, reference_from_sources(srcs, scene.wcs, band_slots=[2]),
+                           max_sep_arcsec=1.0)
+    assert rep["completeness"] == 1.0 and rep["purity"] == 1.0 and rep["kind_accuracy"] == 1.0
+    assert rep["pos_rms_arcsec"] < 0.2 and abs(rep["flux_rel_bias"]) < 0.2, rep
+    assert 0.05 < rep["pos_z_rms"] < 6.0 and 0.05 < rep["flux_z_rms"] < 6.0, rep
+    truth = sorted(s["flux"][2] for s in srcs)
+    est = sorted(float(e.flux_mean[0]) for e in catalog)
+    assert all(abs(e - t) / t < 0.25 for t, e in zip(truth, est)), (truth, est)
+    truth = sorted(tuple(np.round(scene.wcs.equa2duas(s["u"]), 1)) for s in srcs)
+    est = sorted(tuple(np.round(e.du_mean, 1)) for e in catalog)
+    assert all(np.hypot(t[0] - e[0], t[1] - e[1]) < 0.4 for t, e in zip(truth, est)), (truth,
+                                                                                     est)
+    gal = [e for e in catalog if e.kind == "galaxy"][0]
+    assert 0.5 < gal.extras["sigma_mean"] < 4.0 and 0.1 < gal.extras["ab_mean"] < 1.0
+
+
+@pytest.mark.parametrize("n_rows", [8, 1100])
+def test_k1_component_cap_is_the_kernels(cuda, n_rows):
+    """The cap on a row's components is K1's own: the pipeline's galaxy
+    conditional with 8 extra galaxies folded in (486 components a row: its
+    own 48, 9 galaxies' 432 and 2 stars' 6) runs at 8 rows (one chain per
+    block) both ways, against the plain per-row-sky form within the gates
+    of the folded test.  At 1100 rows (8 chains per block) K1-fwd still
+    takes it, equal to the 8-row values, and K1-bwd's launch refuses it with
+    the wrapper's message."""
+    _, rects, flags, cond = _pipeline_field(cuda, n_extra_gal=8)
+    folded = cond.fold(rects, flags, np.ones(len(rects), bool))
+    logd = cond.logdensity("galaxy", [2], folded)
+    rng = np.random.default_rng(5)
+    x8 = np.repeat(rects[2:3], 8, axis=0)
+    x8 = torch.as_tensor((x8 + 0.02 * rng.normal(size=x8.shape)).astype(np.float32), device=cuda)
+    x = x8.repeat(n_rows // 8 + 1, 1)[:n_rows].contiguous().requires_grad_(True)
+    val = logd(x)
+    if n_rows == 8:
+        (grad,) = torch.autograd.grad(val.sum(), x)
+        xp = x8.clone().requires_grad_(True)
+        want = _per_row_sky_logdensity(cond, "galaxy", [2], folded, None, xp)
+        (gwant,) = torch.autograd.grad(want.sum(), xp)
+        torch.testing.assert_close(val.detach(), want.detach(), rtol=2e-6, atol=0.5)
+        torch.testing.assert_close(grad, gwant, **GRAD_TOL)
+    else:
+        with torch.no_grad():
+            torch.testing.assert_close(val[:8], logd(x8), rtol=2e-6, atol=0.5)
+        with pytest.raises(RuntimeError,
+                           match=r"loglik_bwd launch failed at B=1100, C=486.*max_sources"):
+            torch.autograd.grad(val.sum(), x)

@@ -1,6 +1,12 @@
 """Shared helpers of the ``test_torch_*`` files: move one JAX-package scene
 or source into the PyTorch port through ``celeste_tpu_torch.interop``, as
-NumPy arrays, and keep each module's torch ops on one thread."""
+NumPy arrays, keep each module's torch ops on one thread, and run the
+port's stamp pipeline's decision stages once per process."""
+
+import copy
+import functools
+import io
+import json
 
 import numpy as np
 import pytest
@@ -60,3 +66,62 @@ def port_params(src, wcs, kind):
         return star_params_from_numpy(du, src["flux"])
     return galaxy_params_from_numpy(du, src["flux"], src["theta_dev"], src["sigma"],
                                     src["ab"], src["phi"])
+
+
+# tests/test_pipeline.py's settings, sampling cut to a few NUTS steps
+PIPELINE_DECISION_CFG = dict(max_sources=5, map_steps=250, seed=3, detection_min_separation=7,
+                             n_chains=2, n_warmup=4, n_steps=8, sampler="nuts", max_depth=2)
+
+
+@functools.cache
+def pipeline_decision_run():
+    """The port's pipeline on tests/test_pipeline.py's ``mixed_field`` (the
+    ``pipeline`` config's scene) at that file's detection and
+    classification settings, the type switch off and the sampling cut to a
+    few NUTS steps (``PIPELINE_DECISION_CFG``), with what its stages saw:
+    each detection fit's start, residual and MAP; each sweep's candidate
+    states before it, its results, and the states after its decisions.
+    Run once per process: the pipeline test files share it, and must not
+    change what it returns."""
+    from celeste_tpu_torch import pipeline as tpipe
+    from celeste_tpu_torch.experiments import CONFIGS, pipeline_scene
+    from celeste_tpu_torch.model.priors import FluxPrior, SourcePriors
+    from celeste_tpu_torch.utils.metrics import MetricsLogger
+
+    scene, srcs = pipeline_scene(CONFIGS["pipeline"], "cpu")
+    priors = SourcePriors(flux=FluxPrior(log_ref_mean=3.2, log_ref_std=2.0))
+    rec = {"det": [], "sweeps": []}
+    det_fit = tpipe.Conditional.det_fit
+    sweep, decide = tpipe.classify_sweep, tpipe.decide_sweep
+
+    def det_fit_rec(self, x0, work, map_steps):
+        x_map, lams = det_fit(self, x0, work, map_steps)
+        rec["det"].append((x0.numpy().copy(), [w.copy() for w in work], x_map.numpy().copy()))
+        return x_map, lams
+
+    def sweep_rec(cond, cand, cfg):
+        results = sweep(cond, cand, cfg)
+        rec["sweeps"].append({"before": copy.deepcopy(cand), "results": results})
+        return results
+
+    def decide_rec(cand, results, cfg, n_bands):
+        decide(cand, results, cfg, n_bands)
+        rec["sweeps"][-1]["after"] = copy.deepcopy(cand)
+
+    buf = io.StringIO()
+    cfg = tpipe.PipelineConfig(type_switch=False, **PIPELINE_DECISION_CFG)
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tpipe.Conditional, "det_fit", det_fit_rec)
+            mp.setattr(tpipe, "classify_sweep", sweep_rec)
+            mp.setattr(tpipe, "decide_sweep", decide_rec)
+            catalog, artifacts = tpipe.run_pipeline(scene.stamps[0], band=0, n_bands=1, cfg=cfg,
+                                                    priors=priors,
+                                                    logger=MetricsLogger(stream=buf))
+    finally:
+        torch.set_num_threads(n_threads)
+    return {"rec": rec, "events": [json.loads(line) for line in buf.getvalue().splitlines()],
+            "catalog": catalog, "artifacts": artifacts, "cfg": cfg, "scene": scene,
+            "srcs": srcs, "priors": priors}
