@@ -3,15 +3,18 @@
 built and timed in turns in one process on one card.
 
     python -m celeste_tpu_torch.bench.stamp_turns --parent DIR
-        [--parent-geometry none|k1|all] [--out FILE]
+        [--parent-geometry none|k1|k7|all] [--out FILE]
 
 ``DIR`` holds the earlier ``mog_field.cu`` and ``mog_common.cuh`` (for
 example ``git show <rev>:celeste_tpu_torch/csrc/mog_field.cu``) and, to
 compare K8 too, the earlier ``mog_field_sep.cu``.  ``--parent-geometry``
 says which of the parent's entries take their launch geometry (CB, T) as
 this tree's do: ``none`` (before K1's cluster launch), ``k1`` (K1 but not
-K7: the sources before K7's redesign) or ``all`` (the default: this tree's
-interface, for a variant of it).  The script
+K7: the sources before K7's redesign), ``k7`` (K1 and K7, but no pixel-set
+count: the sources before the pixel-set mode) or ``all`` (the default:
+this tree's interface, for a variant of it).  Every call here has one
+pixel set, so against a ``k7`` parent the outputs show whether the stamp's
+[1, P] calls kept their bits.  The script
 
 1. builds both sources with the package's nvcc flags plus ``-Xptxas -v``
    and prints each kernel's registers and spills;
@@ -130,15 +133,15 @@ def sass_loops(lib: Path, listing: Path) -> dict:
 
 def declare_parent(lib, geometry):
     """Declare the parent's entries: this tree's (``geometry="all"``), or
-    without the geometry arguments of K7 (``"k1"``) or of K1 and K7
-    (``"none"``)."""
+    without the pixel-set count (``"k7"``), and also without the geometry
+    arguments of K7 (``"k1"``) or of K1 and K7 (``"none"``)."""
     mf._declare(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
-    if geometry == "none":
-        lib.mog_field_loglik_fwd.argtypes = [p] * 12 + [i] * 4 + [p]
-        lib.mog_field_loglik_bwd.argtypes = [p] * 18 + [i] * 3 + [p]
-    if geometry != "all":
-        lib.mog_field_render.argtypes = [p] * 10 + [i] * 3 + [p]
+    if geometry == "all":
+        return
+    lib.mog_field_loglik_fwd.argtypes = [p] * 12 + [i] * (4 if geometry == "none" else 6) + [p]
+    lib.mog_field_loglik_bwd.argtypes = [p] * 18 + [i] * (3 if geometry == "none" else 5) + [p]
+    lib.mog_field_render.argtypes = [p] * 10 + [i] * (5 if geometry == "k7" else 3) + [p]
 
 
 def shape_inputs(kind, side, b, device):
@@ -165,41 +168,45 @@ def shape_inputs(kind, side, b, device):
     return planes, mf.stamp_pixel_data(stamp), g, vecs, stamp
 
 
-def calls(lib, planes, pixels, g, geometry):
+def calls(lib, planes, pixels, g, geometry, sets=True):
     """(forward, backward) closures over preallocated outputs; ``geometry``
-    is None for the parent's interface."""
+    is None for the parent's interface without it, ``sets`` False for one
+    without the pixel-set count (one set here)."""
     b, c = planes[0].shape
     p = pixels[0].shape[1]
     out = torch.empty(b, device=g.device)
     grads = [torch.empty(b, c, device=g.device) for _ in range(6)]
     ptrs = [t.data_ptr() for t in (*planes, *pixels)]
     extra = list(geometry) if geometry else []
+    n_sets = [1] if sets else []
 
     def fwd():
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mog_field_loglik_fwd(*ptrs, out.data_ptr(), b, c, p, 0, *extra, stream)
+        err = lib.mog_field_loglik_fwd(*ptrs, out.data_ptr(), b, c, p, *n_sets, 0, *extra,
+                                       stream)
         assert err == 0, err
         return out
 
     def bwd():
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mog_field_loglik_bwd(*ptrs, g.data_ptr(), *(t.data_ptr() for t in grads),
-                                       b, c, p, *extra, stream)
+                                       b, c, p, *n_sets, *extra, stream)
         assert err == 0, err
         return grads
 
     return fwd, bwd
 
 
-def render_call(lib, planes, pixels, geometry):
+def render_call(lib, planes, pixels, geometry, sets=True):
     """A K7 closure over a preallocated output; ``geometry`` (CB, T), or
-    None for a parent's interface without it."""
+    None for a parent's interface without it (and without the pixel-set
+    count); ``sets`` False for one without the count."""
     b, c = planes[0].shape
     px, py, _, sky, _ = pixels
     p = px.shape[1]
     out = torch.empty(b, p, device=px.device)
     ptrs = [t.data_ptr() for t in (*planes, px, py, sky)]
-    extra = list(geometry) if geometry else []
+    extra = ([1] if sets else []) + (list(geometry) if geometry else [])
 
     def fn():
         stream = torch.cuda.current_stream().cuda_stream
@@ -235,7 +242,8 @@ def k7_turns(report, libs, parent_geometry, device):
         p = pixels[0].shape[1]
         chosen = mf.k7_geometry(b, p)
         fns = {"parent": render_call(libs["parent"], planes, pixels,
-                                     chosen if parent_geometry == "all" else None),
+                                     chosen if parent_geometry in ("k7", "all") else None,
+                                     sets=parent_geometry == "all"),
                "new": render_call(libs["new"], planes, pixels, chosen)}
         want = fns["parent"]().clone()
         got = fns["new"]().clone()
@@ -330,9 +338,10 @@ def report_row(report, name, what, row, diff, times):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
-    ap.add_argument("--parent-geometry", choices=("none", "k1", "all"), default="all",
+    ap.add_argument("--parent-geometry", choices=("none", "k1", "k7", "all"), default="all",
                     help="which of the parent's entries take (CB, T) as this tree's do: none, "
-                         "K1 only (the sources before K7's redesign), or all (a variant of "
+                         "K1 only (the sources before K7's redesign), K1 and K7 with no "
+                         "pixel-set count (before the pixel-set mode), or all (a variant of "
                          "this tree)")
     ap.add_argument("--out", type=Path,
                     default=_build.BUILD_DIR / "stamp_turns" / "stamp_turns.json")
@@ -364,7 +373,8 @@ def main() -> int:
         planes, pixels, g, _, _ = shape_inputs(kind, side, b, device)
         geometry = mf.k1_geometry(b, pixels[0].shape[1])
         fns = {"parent": calls(libs["parent"], planes, pixels, g,
-                               None if args.parent_geometry == "none" else geometry),
+                               None if args.parent_geometry == "none" else geometry,
+                               sets=args.parent_geometry == "all"),
                "new": calls(libs["new"], planes, pixels, g, geometry)}
         row = {"kernel": "K1", "kind": kind, "stamp": f"{side}x{side}", "chains": b,
                "n_comp": planes[0].shape[1], "n_pix": pixels[0].shape[1],

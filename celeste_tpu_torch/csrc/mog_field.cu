@@ -105,6 +105,16 @@
 // zero-amplitude row renders exactly the sky.  It returns every one of the
 // P (lane-padded) pixels, padding included, as the TPU body does.
 
+// Pixel sets.  The pixel arrays (px, py, counts, sky, mask) are [S, P]: one
+// set of P pixels per cutout or fit group, and chain b reads set
+// b / rows_per_set, the rows of a set contiguous (B = S rows_per_set).  The
+// stamp's own [1, P] call is S = 1 with rows_per_set = B.  A block's cb
+// chains stage one pixel chunk that they all read, so with S > 1 the
+// geometry takes cb dividing rows_per_set (kernels/mog_field.py
+// k1_geometry, k7_geometry) and only the pixel base pointers move to the
+// block's set: the loop, the cluster sum, the store and the moment-form
+// backward are the ones above.
+
 // Interface: plain C, bound with ctypes.  Each entry launches on the given
 // stream, allocates nothing and returns cudaGetLastError() after the launch.
 
@@ -174,6 +184,12 @@ __device__ __forceinline__ Layout block_layout(int t, int rank, int cb, int n_ch
   l.b0 = (blockIdx.x / t) * cb;
   l.valid = l.b0 + l.j < n_chains;
   return l;
+}
+
+// The offset of the block's pixel set in the [S, P] pixel arrays: the set
+// of its first chain, which every chain of the block shares.
+__device__ __forceinline__ size_t set_offset(const Layout& l, int rows_per_set, int n_pix) {
+  return static_cast<size_t>(l.b0 / rows_per_set) * n_pix;
 }
 
 __device__ __forceinline__ Layout cluster_layout(const cg::cluster_group& cluster, int cb,
@@ -328,7 +344,7 @@ loglik_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
                   const float* __restrict__ px, const float* __restrict__ py,
                   const float* __restrict__ counts, const float* __restrict__ sky,
                   const float* __restrict__ mask, float* __restrict__ out,
-                  int n_chains, int n_comp, int n_pix, int cb) {
+                  int n_chains, int n_comp, int n_pix, int cb, int rows_per_set) {
   extern __shared__ __align__(16) float k1_smem[];
   float4* s_comp = reinterpret_cast<float4*>(k1_smem);                // cb x 2 C
   float2* s_xy = reinterpret_cast<float2*>(s_comp + 2 * cb * n_comp);  // kChunk
@@ -341,6 +357,12 @@ loglik_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
 
   const cg::cluster_group cluster = cg::this_cluster();
   const Layout l = cluster_layout(cluster, cb, n_chains);
+  const size_t set = set_offset(l, rows_per_set, n_pix);
+  px += set;
+  py += set;
+  counts += set;
+  sky += set;
+  mask += set;
   stage_components(amp, mx, my, pa, pb, pc, s_comp, l.b0, cb, n_chains, n_comp, n_comp);
   const float4* w = s_comp + 2 * l.j * n_comp;
   const Chunk ch{s_xy, s_cnt, s_sky, s_mask, s_lxt, 0};
@@ -437,7 +459,7 @@ loglik_bwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
                   float* __restrict__ d_amp, float* __restrict__ d_mx,
                   float* __restrict__ d_my, float* __restrict__ d_pa,
                   float* __restrict__ d_pb, float* __restrict__ d_pc,
-                  int n_chains, int n_comp, int n_pix, int cb) {
+                  int n_chains, int n_comp, int n_pix, int cb, int rows_per_set) {
   constexpr int kE = kBwdEntries;
   const int n_pad = round_up(n_comp, kE);
   extern __shared__ __align__(16) float k1_smem[];
@@ -451,6 +473,12 @@ loglik_bwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
 
   const cg::cluster_group cluster = cg::this_cluster();
   const Layout l = cluster_layout(cluster, cb, n_chains);
+  const size_t set = set_offset(l, rows_per_set, n_pix);
+  px += set;
+  py += set;
+  counts += set;
+  sky += set;
+  mask += set;
   stage_components(amp, mx, my, pa, pb, pc, s_comp, l.b0, cb, n_chains, n_comp, n_pad);
   for (int i = threadIdx.x; i < kWarps * n_pad * 6; i += kThreads) s_acc[i] = 0.0f;
   const float4* w = s_comp + 2 * l.j * n_pad;
@@ -536,7 +564,7 @@ loglik_bwd_small_kernel(const float* __restrict__ amp, const float* __restrict__
                         float* __restrict__ d_amp, float* __restrict__ d_mx,
                         float* __restrict__ d_my, float* __restrict__ d_pa,
                         float* __restrict__ d_pb, float* __restrict__ d_pc,
-                        int n_chains, int n_pix, int cb) {
+                        int n_chains, int n_pix, int cb, int rows_per_set) {
   constexpr int kE = kC == 1 ? 1 : kC == 2 ? 2 : 4;
   constexpr int kLevels = halving_levels(kE);
   extern __shared__ __align__(16) float k1_smem[];
@@ -548,6 +576,12 @@ loglik_bwd_small_kernel(const float* __restrict__ amp, const float* __restrict__
 
   const cg::cluster_group cluster = cg::this_cluster();
   const Layout l = cluster_layout(cluster, cb, n_chains);
+  const size_t set = set_offset(l, rows_per_set, n_pix);
+  px += set;
+  py += set;
+  counts += set;
+  sky += set;
+  mask += set;
   for (int i = threadIdx.x; i < kWarps * kE * 6; i += kThreads) s_acc[i] = 0.0f;
   float a[kC], cx[kC], cy[kC], qa[kC], qb[kC], qc[kC];
   float gb = 0.0f;
@@ -625,13 +659,17 @@ render_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
               const float* __restrict__ pb, const float* __restrict__ pc,
               const float* __restrict__ px, const float* __restrict__ py,
               const float* __restrict__ sky, float* __restrict__ out,
-              int n_chains, int n_comp, int n_pix, int cb, int t) {
+              int n_chains, int n_comp, int n_pix, int cb, int t, int rows_per_set) {
   extern __shared__ __align__(16) float k7_smem[];
   float4* s_comp = reinterpret_cast<float4*>(k7_smem);                // cb x 2 C
   float2* s_xy = reinterpret_cast<float2*>(s_comp + 2 * cb * n_comp);  // kChunk
   float* s_sky = reinterpret_cast<float*>(s_xy + kChunk);
 
   const Layout l = block_layout(t, static_cast<int>(blockIdx.x % t), cb, n_chains);
+  const size_t set = set_offset(l, rows_per_set, n_pix);
+  px += set;
+  py += set;
+  sky += set;
   stage_components(amp, mx, my, pa, pb, pc, s_comp, l.b0, cb, n_chains, n_comp, n_comp);
   const float4* w = s_comp + 2 * l.j * n_comp;
   float* row = out + static_cast<size_t>(l.b0 + l.j) * n_pix;
@@ -677,6 +715,16 @@ size_t render_smem_bytes(int cb, int n_comp) {
 
 bool valid_geometry(int cb, int t) {
   return (cb == 1 || cb == 2 || cb == 4 || cb == 8) && t >= 1 && t <= kMaxCluster;
+}
+
+// Rows per pixel set for n_sets sets of n_chains rows, or 0 if the sets do
+// not split the rows evenly or (S > 1) a block's cb chains would span two
+// sets.  One set serves every row.
+int rows_per_set(int n_chains, int n_sets, int cb) {
+  if (n_sets < 1 || n_chains % n_sets != 0) return 0;
+  if (n_sets == 1) return n_chains > 0 ? n_chains : 1;
+  const int r = n_chains / n_sets;
+  return r % cb == 0 ? r : 0;
 }
 
 // Whether a cluster of this kernel fits on the current device with cfg's
@@ -736,21 +784,23 @@ cudaError_t launch_k1(void (*kernel)(Params...), int n_chains, int cb, int t, si
 extern "C" {
 
 // K1 forward; chains_per_block (1, 2, 4 or 8) and cluster (1-8) are the
-// geometry kernels/mog_field.py k1_geometry picked.
+// geometry kernels/mog_field.py k1_geometry picked; n_sets pixel sets of
+// n_pix each (1: the stamp's).
 int mog_field_loglik_fwd(const float* amp, const float* mx, const float* my,
                          const float* pa, const float* pb, const float* pc,
                          const float* px, const float* py, const float* counts,
                          const float* sky, const float* mask, float* out,
-                         int n_chains, int n_comp, int n_pix, int centered,
+                         int n_chains, int n_comp, int n_pix, int n_sets, int centered,
                          int chains_per_block, int cluster, void* stream) {
   const int cb = chains_per_block;
-  if (!valid_geometry(cb, cluster)) return static_cast<int>(cudaErrorInvalidValue);
+  const int r = rows_per_set(n_chains, n_sets, cb);
+  if (!valid_geometry(cb, cluster) || r == 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = fwd_smem_bytes(cb, n_comp);
   return static_cast<int>(centered
       ? launch_k1(loglik_fwd_kernel<true>, n_chains, cb, cluster, smem, stream, amp, mx, my,
-                  pa, pb, pc, px, py, counts, sky, mask, out, n_chains, n_comp, n_pix, cb)
+                  pa, pb, pc, px, py, counts, sky, mask, out, n_chains, n_comp, n_pix, cb, r)
       : launch_k1(loglik_fwd_kernel<false>, n_chains, cb, cluster, smem, stream, amp, mx, my,
-                  pa, pb, pc, px, py, counts, sky, mask, out, n_chains, n_comp, n_pix, cb));
+                  pa, pb, pc, px, py, counts, sky, mask, out, n_chains, n_comp, n_pix, cb, r));
 }
 
 // K1 backward: the six [B, C] plane cotangents; the one-pass kernel for
@@ -761,37 +811,38 @@ int mog_field_loglik_bwd(const float* amp, const float* mx, const float* my,
                          const float* sky, const float* mask, const float* g,
                          float* d_amp, float* d_mx, float* d_my,
                          float* d_pa, float* d_pb, float* d_pc,
-                         int n_chains, int n_comp, int n_pix, int chains_per_block,
-                         int cluster, void* stream) {
+                         int n_chains, int n_comp, int n_pix, int n_sets,
+                         int chains_per_block, int cluster, void* stream) {
   const int cb = chains_per_block;
   const int t = cluster;
-  if (!valid_geometry(cb, t)) return static_cast<int>(cudaErrorInvalidValue);
+  const int r = rows_per_set(n_chains, n_sets, cb);
+  if (!valid_geometry(cb, t) || r == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   switch (n_comp) {
     case 1:
       err = launch_k1(loglik_bwd_small_kernel<1>, n_chains, cb, t, kBwdSmallSmem, stream, amp,
                       mx, my, pa, pb, pc, px, py, counts, sky, mask, g, d_amp, d_mx, d_my, d_pa,
-                      d_pb, d_pc, n_chains, n_pix, cb);
+                      d_pb, d_pc, n_chains, n_pix, cb, r);
       break;
     case 2:
       err = launch_k1(loglik_bwd_small_kernel<2>, n_chains, cb, t, kBwdSmallSmem, stream, amp,
                       mx, my, pa, pb, pc, px, py, counts, sky, mask, g, d_amp, d_mx, d_my, d_pa,
-                      d_pb, d_pc, n_chains, n_pix, cb);
+                      d_pb, d_pc, n_chains, n_pix, cb, r);
       break;
     case 3:
       err = launch_k1(loglik_bwd_small_kernel<3>, n_chains, cb, t, kBwdSmallSmem, stream, amp,
                       mx, my, pa, pb, pc, px, py, counts, sky, mask, g, d_amp, d_mx, d_my, d_pa,
-                      d_pb, d_pc, n_chains, n_pix, cb);
+                      d_pb, d_pc, n_chains, n_pix, cb, r);
       break;
     case 4:
       err = launch_k1(loglik_bwd_small_kernel<4>, n_chains, cb, t, kBwdSmallSmem, stream, amp,
                       mx, my, pa, pb, pc, px, py, counts, sky, mask, g, d_amp, d_mx, d_my, d_pa,
-                      d_pb, d_pc, n_chains, n_pix, cb);
+                      d_pb, d_pc, n_chains, n_pix, cb, r);
       break;
     default:
       err = launch_k1(loglik_bwd_kernel, n_chains, cb, t, bwd_smem_bytes(cb, n_comp), stream,
                       amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g, d_amp, d_mx, d_my,
-                      d_pa, d_pb, d_pc, n_chains, n_comp, n_pix, cb);
+                      d_pa, d_pb, d_pc, n_chains, n_comp, n_pix, cb, r);
   }
   return static_cast<int>(err);
 }
@@ -801,11 +852,12 @@ int mog_field_loglik_bwd(const float* amp, const float* mx, const float* my,
 int mog_field_render(const float* amp, const float* mx, const float* my,
                      const float* pa, const float* pb, const float* pc,
                      const float* px, const float* py, const float* sky, float* out,
-                     int n_chains, int n_comp, int n_pix, int chains_per_block, int tiles,
-                     void* stream) {
+                     int n_chains, int n_comp, int n_pix, int n_sets, int chains_per_block,
+                     int tiles, void* stream) {
   const int cb = chains_per_block;
+  const int r = rows_per_set(n_chains, n_sets, cb);
   const long long blocks = static_cast<long long>((n_chains + cb - 1) / cb) * tiles;
-  if (!valid_geometry(cb, 1) || tiles < 1 || blocks > 0x7fffffffLL) {
+  if (!valid_geometry(cb, 1) || r == 0 || tiles < 1 || blocks > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = render_smem_bytes(cb, n_comp);
@@ -813,7 +865,7 @@ int mog_field_render(const float* amp, const float* mx, const float* my,
   if (err != cudaSuccess) return static_cast<int>(err);
   render_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
                   static_cast<cudaStream_t>(stream)>>>(
-      amp, mx, my, pa, pb, pc, px, py, sky, out, n_chains, n_comp, n_pix, cb, tiles);
+      amp, mx, my, pa, pb, pc, px, py, sky, out, n_chains, n_comp, n_pix, cb, tiles, r);
   return static_cast<int>(cudaGetLastError());
 }
 

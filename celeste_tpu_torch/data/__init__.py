@@ -1,4 +1,4 @@
-"""Data layer: synthetic stamp generation (counterpart of
-``celeste_tpu/data``; SDSS ingest is not ported yet)."""
+"""Data layer: synthetic stamp generation and SDSS ingest (counterpart of
+``celeste_tpu/data``)."""
 
 from celeste_tpu_torch.data.synthetic import make_synthetic_stamp, SyntheticScene  # noqa: F401

@@ -26,6 +26,14 @@ Ported so far:
                    switch, joint ChEES, catalog; ``ppc=true`` adds the
                    posterior-predictive check, ``type_switch=false`` keeps
                    the margin rule for every candidate).
+  field          — the field-scale catalog pipeline (``field.run_field_pipeline``)
+                   on a 96x96 frame with three isolated stars and a
+                   star/galaxy blend: detection, grouping, classification
+                   on cutouts, every fit group sampled in one batch.
+  field_survey   — the survey-realism frame (``bench/field_scale.py``):
+                   256x1024, ~60 mixed sources with blended pairs, the
+                   field pipeline and the accuracy report against the
+                   synthetic truth; ``sample=false`` runs the MAP scan.
 
 Samplers: mh, slice, hmc, nuts and chees; the gradient samplers after an
 adaptive HMC warmup; ``metric=dense`` samples in the whitened space.
@@ -33,8 +41,9 @@ adaptive HMC warmup; ``metric=dense`` samples in the whitened space.
 steps to ``out + ".ckpt.npz"`` and the samples so far beside it;
 ``resume=<ckpt>`` continues such a run bitwise, since every segment draws
 from its own stream (seed, segment) and the warmup from its own.  The
-configs ``field`` and ``field_survey`` of the JAX package are not yet
-ported (ROADMAP.md lists them).
+field configs take ``sample_segment=K`` (steps per sampling segment) and
+``resume=<path>``: the segmented sampling stage checkpoints there at every
+boundary, and a rerun with the same path resumes bitwise.
 
 Run:  python -m celeste_tpu_torch.run config=star_single n_chains=64 n_steps=2000
       python -m celeste_tpu_torch.run config=star_ugriz sampler=slice color_prior=gmm
@@ -42,6 +51,8 @@ Run:  python -m celeste_tpu_torch.run config=star_single n_chains=64 n_steps=200
       python -m celeste_tpu_torch.run config=crowded_field tiled=true n_galaxies=2
       python -m celeste_tpu_torch.run config=quasar_photoz
       python -m celeste_tpu_torch.run config=pipeline ppc=true
+      python -m celeste_tpu_torch.run config=field
+      python -m celeste_tpu_torch.run config=field_survey sample=false
       python -m celeste_tpu_torch.run config=star_single checkpoint_every=500 out=run1
       python -m celeste_tpu_torch.run config=star_single checkpoint_every=500 \
           resume=run1.ckpt.npz out=run2
@@ -63,7 +74,7 @@ import torch
 @dataclass
 class ExperimentConfig:
     name: str = "star_single"
-    sampler: str = "mh"            # mh | slice | hmc | nuts | chees | tempered_slice
+    sampler: str = "nuts"          # mh | slice | hmc | nuts | chees | tempered_slice
     n_chains: int = 64
     n_steps: int = 1000
     n_warmup: int = 300
@@ -85,6 +96,12 @@ class ExperimentConfig:
     # pipeline knobs
     ppc: bool = False              # posterior-predictive check stage
     type_switch: bool = True       # exact Carlin-Chib for ambiguous kinds
+    # field: sampling steps per segment (0 = one segment per phase); with
+    # ``resume=<path>`` the segmented stage checkpoints there at every
+    # boundary and a rerun resumes bitwise (celeste_tpu_torch/field.py)
+    sample_segment: int = 0
+    # field_survey: False -> MAP-only catalog scan
+    sample: bool = True
     # quasar
     n_temps: int = 8
     z_max: float = 6.0
@@ -140,6 +157,16 @@ CONFIGS = {
     # pass it on: the pipeline samples with its own default, ChEES
     "pipeline": ExperimentConfig(name="pipeline", sampler="nuts", n_chains=16, n_steps=400,
                                  n_warmup=200, shape=(33, 33), n_sources=3, bands=(2,)),
+    # the field-scale catalog pipeline: a synthetic frame with isolated
+    # sources and a blend; detection, grouping and classification are the
+    # frame's own, sampling one batch over groups x chains
+    "field": ExperimentConfig(name="field", sampler="chees", n_chains=32, n_steps=300,
+                              n_warmup=100, shape=(96, 96), n_sources=5, bands=(2,)),
+    # the survey-realism frame (bench/field_scale.py): 256x1024, ~60 mixed
+    # sources with blended pairs, the accuracy report against the truth
+    "field_survey": ExperimentConfig(name="field_survey", sampler="chees", n_chains=8,
+                                     n_steps=96, n_warmup=48, shape=(256, 1024),
+                                     n_sources=60, bands=(2,)),
 }
 
 
@@ -263,7 +290,7 @@ def _check_ported(cfg: ExperimentConfig):
             raise ValueError(f"quasar_photoz samples with sampler=tempered_slice, "
                              f"got {cfg.sampler!r}")
         return
-    if cfg.name == "pipeline":
+    if cfg.name in ("pipeline", "field", "field_survey"):
         return
     if cfg.name not in _PROBLEMS:
         raise NotImplementedError(f"config {cfg.name!r} is not yet ported to "
@@ -377,6 +404,74 @@ def _pipeline(cfg: ExperimentConfig, device, logger):
                     "sources": srcs, "priors": priors}
 
 
+_FIELD_PRIORS = dict(log_ref_mean=3.2, log_ref_std=2.0)
+
+
+def field_scene(cfg: ExperimentConfig, device):
+    """The ``field`` config's frame, as the JAX package makes it: three
+    isolated stars and a star/galaxy blend 2.4'' apart (the first
+    ``n_sources`` of the five), counts from seed + 11.  Returns (scene,
+    sources)."""
+    from celeste_tpu_torch.data.synthetic import galaxy_source, make_synthetic_stamp, star_source
+
+    cosd = np.cos(np.deg2rad(10.0))
+    asu = 1.0 / 3600.0
+    srcs = [
+        star_source(u=(30.0 - 14 * asu / cosd, 10.0 - 13 * asu), flux_r=60.0),
+        star_source(u=(30.0 + 15 * asu / cosd, 10.0 - 11 * asu), flux_r=30.0),
+        star_source(u=(30.0 - 12 * asu / cosd, 10.0 + 14 * asu), flux_r=45.0),
+        star_source(u=(30.0 + 10 * asu / cosd, 10.0 + 12 * asu), flux_r=40.0),
+        galaxy_source(u=(30.0 + 10 * asu / cosd, 10.0 + 14.4 * asu), flux_r=80.0, sigma=1.6,
+                      ab=0.7),
+    ][:max(cfg.n_sources, 1)]
+    scene = make_synthetic_stamp(srcs, shape=cfg.shape, bands=cfg.bands, seed=cfg.seed + 11,
+                                 device=device)
+    return scene, srcs
+
+
+def _field(cfg: ExperimentConfig, device, logger):
+    """The field pipeline on ``field_scene`` (``field``) or the survey frame
+    (``field_survey``), with the JAX package's settings, priors and result
+    keys; the run itself (catalog, artifacts, scene, sources, and for the
+    survey the accuracy report) comes back beside."""
+    from celeste_tpu_torch.field import FieldConfig, run_field_pipeline
+    from celeste_tpu_torch.model.priors import FluxPrior, SourcePriors
+
+    priors = SourcePriors(flux=FluxPrior(**_FIELD_PRIORS))
+    knobs = dict(n_chains=cfg.n_chains, n_warmup=cfg.n_warmup, n_steps=cfg.n_steps,
+                 seed=cfg.seed, sample_segment=cfg.sample_segment or None,
+                 checkpoint_path=cfg.resume or None)
+    if cfg.name == "field_survey":
+        from celeste_tpu_torch.bench.field_scale import (
+            accuracy_report, make_survey_scene, survey_scene_cfg,
+        )
+
+        scene, srcs = make_survey_scene(shape=cfg.shape, device=device)
+        fcfg = survey_scene_cfg(sample=cfg.sample, **knobs)
+    else:
+        scene, srcs = field_scene(cfg, device)
+        fcfg = FieldConfig(type_switch=cfg.type_switch, **knobs)
+    catalog, artifacts = run_field_pipeline(scene.stamps[0], band=0, n_bands=1, cfg=fcfg,
+                                            priors=priors, logger=logger)
+    du = np.stack([e.du_mean for e in catalog]) if catalog else np.zeros((0, 2))
+    result = {"kinds": np.asarray([e.kind for e in catalog]), "du_mean": du}
+    run = {"catalog": catalog, "artifacts": artifacts, "scene": scene, "sources": srcs,
+           "priors": priors}
+    if cfg.name == "field_survey":
+        rep = accuracy_report(catalog, scene, srcs)
+        logger.log("done", n_sources=len(catalog), n_groups=artifacts["n_groups"],
+                   completeness=rep["completeness"], purity=rep["purity"],
+                   pos_z_rms=rep["pos_z_rms"], flux_z_rms=rep["flux_z_rms"])
+        result["accuracy"] = run["accuracy"] = rep
+    else:
+        logger.log("done", n_sources=len(catalog), n_groups=artifacts["n_groups"],
+                   kinds=[e.kind for e in catalog])
+        result["group"] = np.asarray([e.extras["group"] for e in catalog])
+        result["flux_mean"] = (np.stack([e.flux_mean for e in catalog]) if catalog
+                               else np.zeros((0, 1)))
+    return result, run
+
+
 def _save_segments(ckpt: str, chunks):
     """The samples so far beside the checkpoint, one array per segment,
     written atomically."""
@@ -396,8 +491,10 @@ def run_experiment(cfg: ExperimentConfig):
     run bitwise.  A resume reruns the warmup, whose stream is its own, and
     reloads the stored segments, so the summary covers the whole chain.
     ``quasar_photoz`` and ``pipeline`` run unsegmented, as in the JAX
-    package; ``pipeline``'s result also holds the catalog and the run's
-    artifacts under ``"run"``.
+    package; ``field`` and ``field_survey`` segment their sampling stage
+    by ``sample_segment`` and checkpoint to ``resume``.  The results of
+    ``pipeline``, ``field`` and ``field_survey`` also hold the catalog and
+    the run's artifacts under ``"run"``.
     """
     from celeste_tpu_torch.inference import (
         chees_warmup, hmc_kernel, hmc_warmup, mh_init, mh_kernel, nuts_kernel,
@@ -412,16 +509,18 @@ def run_experiment(cfg: ExperimentConfig):
     logger = MetricsLogger(cfg.out + ".metrics.jsonl" if cfg.out else None)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     logger.log("start", config=dataclasses.asdict(cfg) | {"device_kind": kind})
-    if cfg.name in ("quasar_photoz", "pipeline"):
-        if cfg.checkpoint_every or cfg.resume:
+    if cfg.name in ("quasar_photoz", "pipeline", "field", "field_survey"):
+        if cfg.name in ("quasar_photoz", "pipeline") and (cfg.checkpoint_every or cfg.resume):
             logger.log("checkpoint_ignored", note=f"{cfg.name} runs unsegmented")
         if cfg.name == "quasar_photoz":
             result, run = _quasar_photoz(cfg, device, logger), None
-        else:
+        elif cfg.name == "pipeline":
             result, run = _pipeline(cfg, device, logger)
+        else:
+            result, run = _field(cfg, device, logger)
         logger.close()
         if cfg.out:
-            np.savez(cfg.out, **result)
+            np.savez(cfg.out, **{k: v for k, v in result.items() if k != "accuracy"})
         if run is not None:
             result["run"] = run
         return result

@@ -51,8 +51,9 @@ class CandidateStreams:
 
     def _draw(self, fn, like):
         shape = (like.shape[0] // len(self.gens),) + tuple(like.shape[1:])
-        return torch.cat([fn(shape, generator=g, dtype=like.dtype, device=like.device)
-                          for g in self.gens])
+        draws = [fn(shape, generator=g, dtype=like.dtype, device=like.device)
+                 for g in self.gens]
+        return draws[0] if len(draws) == 1 else torch.cat(draws)
 
     def normal(self, gen, like):
         return self._draw(torch.randn, like)

@@ -13,6 +13,12 @@ The D x D products (D = 44 on config 5) are taken in float64 and rounded
 back to float32: TF32, which a card may use for float32 matmuls, keeps about
 three decimal digits, and the JAX package computes them at
 ``Precision.HIGHEST`` for the same reason.
+
+Groups.  ``ensemble_covariance(..., groups=G)`` pools each of G ensembles
+stacked set-major (the field pipeline's fit groups) into its own moments,
+[G, D] and [G, D, D], and ``whiten_logdensity`` given such moments whitens
+each group's rows with its own factor, the products batched over groups in
+float64 all the same.  One ensemble is the case G = 1.
 """
 
 from __future__ import annotations
@@ -29,41 +35,49 @@ def _mm64(a, b):
     return torch.matmul(a.double(), b.double()).float()
 
 
-def ensemble_covariance(xs, ridge: float = 1e-6):
+def ensemble_covariance(xs, ridge: float = 1e-6, groups: int | None = None):
     """Pooled covariance of ensemble states ``xs`` [n_chains, D] or
     [n_chains, n_steps, D].  Returns (mean [D], cov [D, D]) with a relative
-    ridge on the diagonal, so that the Cholesky factor always exists."""
-    flat = xs.reshape(-1, xs.shape[-1]).to(torch.float32)
-    m = torch.mean(flat, dim=0)
-    c = flat - m[None, :]
-    cov = _mm64(c.T, c) / (flat.shape[0] - 1)
-    d = torch.diagonal(cov)
-    eye = torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
-    return m, cov + (ridge * torch.clamp(torch.max(d), min=1e-20)) * eye
+    ridge on the diagonal, so that the Cholesky factor always exists.  With
+    ``groups`` = G the chains are G ensembles stacked set-major, each pooled
+    alone: (mean [G, D], cov [G, D, D])."""
+    flat = xs.reshape(groups or 1, -1, xs.shape[-1]).to(torch.float32)
+    m = torch.mean(flat, dim=1)
+    c = flat - m[:, None, :]
+    cov = _mm64(c.mT, c) / (flat.shape[1] - 1)
+    d = torch.amax(torch.diagonal(cov, dim1=1, dim2=2), dim=1)
+    eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device)
+    cov = cov + (ridge * torch.clamp(d, min=1e-20))[:, None, None] * eye
+    return (m, cov) if groups is not None else (m[0], cov[0])
 
 
 def whiten_logdensity(logdensity_fn, mean, cov):
     """Wrap a batched ``logdensity_fn`` for the whitened space x = mean + L z.
 
     Returns ``(logd_z, to_x, to_z)``: the z-space log density ``[B, D] -> [B]``
-    and the affine maps between the spaces (any leading batch axes).
+    and the affine maps between the spaces (any leading batch axes).  With
+    per-group moments (mean [G, D], cov [G, D, D]) the rows, and any axes
+    after them, are G groups stacked set-major, each mapped by its own.
     """
     mean = torch.as_tensor(mean, dtype=torch.float32)
     chol = torch.linalg.cholesky(torch.as_tensor(cov, dtype=torch.float64, device=mean.device))
-    eye = torch.eye(chol.shape[0], dtype=chol.dtype, device=chol.device)
+    eye = torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device)
     chol_inv = torch.linalg.solve_triangular(chol, eye, upper=False)
-    chol_t, chol_inv_t = chol.T.contiguous(), chol_inv.T.contiguous()
+    chol_t, chol_inv_t = chol.mT.contiguous(), chol_inv.mT.contiguous()
+    d = mean.shape[-1]
+    m = mean.reshape(-1, 1, d)          # [G, 1, D]; one ensemble is G = 1
+
+    def by_group(fn, v):
+        return fn(v.reshape(m.shape[0], -1, d)).reshape(v.shape)
 
     def to_x(z):
-        return mean + _mm64(z, chol_t)
+        return by_group(lambda zg: m + _mm64(zg, chol_t), z)
 
     def to_z(x):
-        return _mm64(torch.as_tensor(x, dtype=torch.float32) - mean, chol_inv_t)
+        x = torch.as_tensor(x, dtype=torch.float32)
+        return by_group(lambda xg: _mm64(xg - m, chol_inv_t), x)
 
-    def logd_z(z):
-        return logdensity_fn(to_x(z))
-
-    return logd_z, to_x, to_z
+    return (lambda z: logdensity_fn(to_x(z))), to_x, to_z
 
 
 def dense_metric_from_probe(gen, logdensity_fn, states, step_size, inv_mass, probe_steps: int,

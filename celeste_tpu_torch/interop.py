@@ -14,7 +14,7 @@ import re
 import numpy as np
 import torch
 
-from celeste_tpu_torch.inference.chees import ChEESState
+from celeste_tpu_torch.inference.chees import ChEESAdaptState, ChEESInfo, ChEESState
 from celeste_tpu_torch.inference.ensemble_stretch import StretchState
 from celeste_tpu_torch.inference.gibbs import GibbsState
 from celeste_tpu_torch.inference.hmc import HMCState
@@ -216,3 +216,43 @@ def load_config5_prep(path, device="cpu"):
                 cls, fields = _NAMEDTUPLES[name]
                 out[key] = cls(**{fld: _t(next(leaves), device) for fld in fields})
     return out
+
+
+def field_checkpoint_from_numpy(phase: str, leaves, device="cpu"):
+    """The field group sampler's carry at ``phase`` (``field._SegCkpt.ORDER``)
+    from the leaves of a JAX field checkpoint, its ``leaf_0..leaf_N`` arrays
+    in order.  JAX holds the chains [G, B, ...]; the port stacks the groups
+    set-major, [G B, ...].  The per-group adaptation scalars and (eps, T)
+    stay [G] float32 on the host, as the port keeps them; the rest goes to
+    ``device``.  The result is what ``field._SegCkpt.load`` returns for the
+    same phase, so a JAX-made checkpoint can be written in the port's format
+    (``utils.checkpoint.save_checkpoint`` with the JAX file's step and
+    ``extra``) and resumed by the port."""
+    it = iter(leaves)
+
+    def dev():
+        return torch.as_tensor(np.array(next(it)), device=device)
+
+    def rows():
+        a = np.array(next(it))
+        return torch.as_tensor(a.reshape((-1,) + a.shape[2:]), device=device)
+
+    def host():
+        return torch.as_tensor(np.array(next(it), np.float32))
+
+    def state():
+        return ChEESState(xs=rows(), logps=rows(), grads=rows())
+
+    def adapt():
+        return ChEESAdaptState(*(host() for _ in range(8)))
+
+    if phase == "raw_warmup":
+        return state(), adapt()
+    if phase == "probe":
+        return state(), host(), host(), rows()
+    if phase == "z_warmup":
+        return dev(), dev(), (state(), adapt())
+    if phase == "run":
+        return (state(), host(), host(), dev(), dev(), rows(),
+                ChEESInfo(*(dev() for _ in range(5))))
+    raise ValueError(f"unknown field checkpoint phase {phase!r}")

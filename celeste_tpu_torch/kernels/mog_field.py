@@ -8,6 +8,11 @@ arrays from :func:`stamp_pixel_data`; padded pixels have mask 0 and sky 1.
 :func:`mog_field_loglik` returns one log-likelihood per chain, [B];
 :func:`mog_field_render` returns the expected-count images, [B, PIX_PAD].
 
+Pixel sets.  The five arrays may also be [S, PIX_PAD], one set per cutout
+or fit group (:func:`pad_pixel_sets`): the B rows split into S runs of
+R = B / S contiguous rows, and row b reads set b // R.  The stamp's [1, P]
+call is the case S = 1.
+
 Dispatch follows the tensors' device, with no switch and no fallback:
 
 - CUDA tensors launch the hand-written Hopper kernels of
@@ -63,6 +68,29 @@ def stamp_pixel_data(stamp):
     return px, py, counts, sky, mask
 
 
+def pad_pixel_sets(px, py, counts, sky, mask):
+    """Per-set pixel arrays [S, P] (tensors) -> the kernels' lane-padded
+    [S, PIX_PAD] float32 sets, PIX_PAD = P rounded up to 128; the padding
+    has x = y = 0, counts 0, sky 1 and mask 0, as :func:`stamp_pixel_data`
+    pads a stamp, so it adds exactly 0 to every log-likelihood, centered or
+    not, and renders as the sky."""
+    pad = -px.shape[-1] % LANE
+    return tuple(F.pad(t.to(torch.float32), (0, pad), value=v).contiguous()
+                 for t, v in ((px, 0.0), (py, 0.0), (counts, 0.0), (sky, 1.0), (mask, 0.0)))
+
+
+def rows_of_sets(pixels, n_rows: int):
+    """The plain versions' view of [S, P] pixel sets for ``n_rows`` rows:
+    each set repeated for its R = n_rows / S contiguous rows ([B, P]); one
+    set stays [1, P] and broadcasts."""
+    s = pixels[0].shape[0]
+    if s == 1:
+        return pixels
+    if n_rows % s:
+        raise ValueError(f"{n_rows} rows do not split into {s} pixel sets")
+    return tuple(t.repeat_interleave(n_rows // s, dim=0) for t in pixels)
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions of the two kernels
 # ---------------------------------------------------------------------------
@@ -80,18 +108,20 @@ def _loglik_torch(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask,
 
 
 def _render_torch(amp, mx, my, pa, pb, pc, px, py, sky):
-    """The render kernel's math, dense: [B, C] planes, [1, P] pixels ->
-    lambda [B, P], padded pixels included.  Chains go in chunks that keep
-    each [chunk, C, P] intermediate near 128 MB (a 48x128 field of 126
-    components at B=1024 is 3 GB per intermediate unchunked)."""
+    """The render kernel's math, dense: [B, C] planes, [1, P] pixels (or
+    [B, P], a pixel set per row) -> lambda [B, P], padded pixels included.
+    Chains go in chunks that keep each [chunk, C, P] intermediate near 128
+    MB (a 48x128 field of 126 components at B=1024 is 3 GB per intermediate
+    unchunked)."""
     chunk = max(1, 2**25 // (amp.shape[1] * px.shape[1]))
     out = []
     for c0 in range(0, amp.shape[0], chunk):
         a, x0, y0, qa, qb, qc = (t[c0:c0 + chunk, :, None] for t in (amp, mx, my, pa, pb, pc))
-        dx = px[:, None, :] - x0                 # [chunk, C, P]
-        dy = py[:, None, :] - y0
+        rows = slice(c0, c0 + chunk) if px.shape[0] > 1 else slice(None)
+        dx = px[rows, None, :] - x0              # [chunk, C, P]
+        dy = py[rows, None, :] - y0
         quad = qa * dx * dx + 2.0 * qb * dx * dy + qc * dy * dy
-        out.append(sky + torch.sum(a * torch.exp(-0.5 * quad), dim=1))
+        out.append(sky[rows] + torch.sum(a * torch.exp(-0.5 * quad), dim=1))
     return torch.cat(out) if out else sky.new_empty(0, sky.shape[1])
 
 
@@ -125,6 +155,49 @@ def random_render_problem(b: int, c: int, h: int, w: int, seed: int = 0):
     return tuple(f32[:6]), tuple(f32[6:])
 
 
+def random_pixel_set_problem(n_sets: int, rows_per_set: int, c: int, side: int, seed: int = 0):
+    """A random pixel-set problem as float32 NumPy arrays, for checks of the
+    pixel-set mode away from the field pipeline: planes (amp, mx, my, pa,
+    pb, pc) [S R, C] of C rotated Gaussians per row around its own set's
+    cutout (widths 0.5-4 pixels, every 9th row at zero amplitude), and S
+    cutouts of side x side pixels at different global origins, lane-padded
+    as :func:`pad_pixel_sets` lays them out: px, py, counts (Poisson draws
+    of each set's first row's lambda), sky (90-110 counts; 1 on the
+    padding) and mask (a few pixels masked; 0 on the padding), each
+    [S, PIX_PAD]."""
+    rng = np.random.default_rng(seed)
+    b = n_sets * rows_per_set
+    origins = rng.integers(0, 2000, (n_sets, 2)).astype(np.float64)
+    oxy = np.repeat(origins, rows_per_set, axis=0)                      # [B, 2]
+    sig = rng.uniform(0.5, 4.0, (2, b, c))
+    th = rng.uniform(0.0, np.pi, (b, c))
+    cs, sn = np.cos(th), np.sin(th)
+    ix, iy = sig[0] ** -2, sig[1] ** -2
+    pa, pb, pc = cs * cs * ix + sn * sn * iy, cs * sn * (ix - iy), sn * sn * ix + cs * cs * iy
+    flux = rng.uniform(2e3, 2e4, (b, 1)) * rng.dirichlet(np.ones(c), b)
+    amp = flux / (2 * np.pi * sig[0] * sig[1])
+    amp[::9] = 0.0
+    mx = oxy[:, :1] + rng.uniform(2.0, side - 3.0, (b, c))
+    my = oxy[:, 1:] + rng.uniform(2.0, side - 3.0, (b, c))
+    pix = side * side
+    px = origins[:, :1] + np.tile(np.arange(side), side)[None, :]      # [S, P]
+    py = origins[:, 1:] + np.repeat(np.arange(side), side)[None, :]
+    sky = rng.uniform(90.0, 110.0, (n_sets, pix))
+    first = slice(0, b, rows_per_set)
+    lam = sky + np.sum(amp[first, :, None] * np.exp(-0.5 * (
+        pa[first, :, None] * (px[:, None] - mx[first, :, None]) ** 2
+        + 2 * pb[first, :, None] * (px[:, None] - mx[first, :, None])
+        * (py[:, None] - my[first, :, None])
+        + pc[first, :, None] * (py[:, None] - my[first, :, None]) ** 2)), axis=1)
+    counts = rng.poisson(lam).astype(np.float64)
+    mask = (rng.uniform(size=(n_sets, pix)) > 0.02).astype(np.float64)
+    pad = -pix % LANE
+    sets = [np.pad(a, ((0, 0), (0, pad)), constant_values=v)
+            for a, v in ((px, 0.0), (py, 0.0), (counts, 0.0), (sky, 1.0), (mask, 0.0))]
+    f32 = [np.ascontiguousarray(a, dtype=np.float32) for a in (amp, mx, my, pa, pb, pc, *sets)]
+    return tuple(f32[:6]), tuple(f32[6:])
+
+
 def _loglik_bwd_torch(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
     """The backward kernel's algebra, dense: the cotangents of the six
     planes, given the cotangent ``g`` [B] of the output.  Independent of
@@ -150,14 +223,28 @@ def _loglik_bwd_torch(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
 # K1's and K7's launch geometry
 # ---------------------------------------------------------------------------
 
-def _split(n_chains: int, n_pix: int, max_t: int) -> tuple[int, int]:
-    """(CB, T): from CB = 8, T = 1 (pixel arrays staged once serve 8
-    chains), while the grid of ceil(B / CB) * T blocks is smaller than the
-    card's SM count, first give each chain more warps (CB 8 -> 4 -> 2 -> 1),
-    then more blocks (T doubling up to ``max_t``) while each block keeps at
-    least one 32-pixel group."""
+def _max_cb(n_chains: int, n_sets: int) -> int:
+    """The most chains a block may take: WARPS with one pixel set; with S
+    sets the largest power of two (at most WARPS) dividing the rows per set
+    R = B / S, so a block's chains, which share one staged pixel chunk, lie
+    in one set (CB = 1 at R = 1)."""
+    if n_sets <= 1:
+        return WARPS
+    r = n_chains // n_sets
+    cb = WARPS
+    while r % cb:
+        cb //= 2
+    return cb
+
+
+def _split(n_chains: int, n_pix: int, max_t: int, max_cb: int = WARPS) -> tuple[int, int]:
+    """(CB, T): from CB = ``max_cb`` (8 with one pixel set), T = 1 (pixel
+    arrays staged once serve CB chains), while the grid of ceil(B / CB) * T
+    blocks is smaller than the card's SM count, first give each chain more
+    warps (CB 8 -> 4 -> 2 -> 1), then more blocks (T doubling up to
+    ``max_t``) while each block keeps at least one 32-pixel group."""
     n_groups = -(-n_pix // 32)
-    cb, t = WARPS, 1
+    cb, t = max_cb, 1
     while -(-n_chains // cb) * t < N_SM:
         if cb > 1:
             cb //= 2
@@ -168,22 +255,25 @@ def _split(n_chains: int, n_pix: int, max_t: int) -> tuple[int, int]:
     return cb, t
 
 
-def k1_geometry(n_chains: int, n_pix: int) -> tuple[int, int]:
+def k1_geometry(n_chains: int, n_pix: int, n_sets: int = 1) -> tuple[int, int]:
     """(CB, T) for K1: chains per block and blocks per cluster (T <= 8, the
     portable cluster size).  B = 65536 launches 8192 blocks of 8 chains, and
     B = 32 or 64 one chain per block in clusters of 8 or 4: 256 blocks.  The
     component count does not enter: it sets the shared memory, not the
-    shape."""
-    return _split(n_chains, n_pix, MAX_CLUSTER)
+    shape.  With ``n_sets`` pixel sets CB divides the rows per set: the
+    field's detection and classify rows (R = 1, 2) run one chain per block,
+    its groups (R = 8, 32 chains) up to 8."""
+    return _split(n_chains, n_pix, MAX_CLUSTER, _max_cb(n_chains, n_sets))
 
 
-def k7_geometry(n_chains: int, n_pix: int) -> tuple[int, int]:
+def k7_geometry(n_chains: int, n_pix: int, n_sets: int = 1) -> tuple[int, int]:
     """(CB, T) for K7: chains per block and pixel tiles per chain.  K7 sums
     nothing over pixels, so its tiles are independent blocks with no cluster
     and no cap on T but the pixel groups.  B = 65536 launches 8192 blocks of
     8 chains; the PPC's B = 32 one chain per block in 8 tiles (256 blocks),
-    B = 64 in 4; config 5's field at B = 1024 4 chains per block (256)."""
-    return _split(n_chains, n_pix, n_pix)
+    B = 64 in 4; config 5's field at B = 1024 4 chains per block (256).
+    ``n_sets`` as in :func:`k1_geometry`."""
+    return _split(n_chains, n_pix, n_pix, _max_cb(n_chains, n_sets))
 
 
 def k1_pixel_slices(n_pix: int, cb: int, t: int) -> list[list[int]]:
@@ -214,11 +304,11 @@ def k1_pixel_slices(n_pix: int, cb: int, t: int) -> list[list[int]]:
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mog_field_loglik_fwd.argtypes = [p] * 12 + [i] * 6 + [p]
+    lib.mog_field_loglik_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
     lib.mog_field_loglik_fwd.restype = i
-    lib.mog_field_loglik_bwd.argtypes = [p] * 18 + [i] * 5 + [p]
+    lib.mog_field_loglik_bwd.argtypes = [p] * 18 + [i] * 6 + [p]
     lib.mog_field_loglik_bwd.restype = i
-    lib.mog_field_render.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.mog_field_render.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.mog_field_render.restype = i
     lib.mog_field_error_string.argtypes = [i]
     lib.mog_field_error_string.restype = ctypes.c_char_p
@@ -238,16 +328,21 @@ def build_kernels():
 
 def _check_inputs(planes, pixels, extra=()):
     """Raise unless every tensor is a contiguous float32 CUDA tensor on one
-    device with planes [B, C] and pixels [1, P]."""
+    device with planes [B, C] and pixels [S, P], S dividing B.  Returns (B,
+    C, P, S, device)."""
     amp = planes[0]
     if amp.dim() != 2:
         raise ValueError(f"planes must be [B, C], got {tuple(amp.shape)}")
-    n_pix = pixels[0].shape[-1]
+    if pixels[0].dim() != 2:
+        raise ValueError(f"pixel arrays must be [S, P], got {tuple(pixels[0].shape)}")
+    n_sets, n_pix = pixels[0].shape
+    if n_sets < 1 or amp.shape[0] % n_sets:
+        raise ValueError(f"{amp.shape[0]} rows do not split into {n_sets} pixel sets")
     device = amp.device
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
     named = ([(t, tuple(amp.shape), "plane") for t in planes]
-             + [(t, (1, n_pix), "pixel array") for t in pixels]
+             + [(t, (n_sets, n_pix), "pixel array") for t in pixels]
              + [(t, shape, name) for t, shape, name in extra])
     for t, shape, name in named:
         if t.device != device:
@@ -258,18 +353,20 @@ def _check_inputs(planes, pixels, extra=()):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    return amp.shape[0], amp.shape[1], n_pix, device
+    return amp.shape[0], amp.shape[1], n_pix, n_sets, device
 
 
 def _raise_on_error(lib, err, name, b, c):
     """Raise on a launch's error code.  Each of a block's chains stages its
     row's C components in shared memory, so a row of too many components
-    (about 400 for K1-bwd at 8 chains per block) is refused by the launch."""
+    (about 400 for K1-bwd at 8 chains per block, about 8 sources of a field
+    group) is refused by the launch."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed at B={b}, C={c}: "
                            f"{lib.mog_field_error_string(err).decode()} ({err}); a block stages "
                            f"its rows' components in shared memory, so past its size give each "
-                           f"row fewer components (the stamp pipeline: a lower max_sources)")
+                           f"row fewer components (the stamp pipeline: a lower max_sources; the "
+                           f"field: fewer sources per fit group, a smaller link_radius_px)")
 
 
 def _ptrs(ts):
@@ -281,7 +378,7 @@ def loglik_fwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask,
     """Launch the forward kernel: [B] log-likelihoods on the planes' card."""
     planes = (amp, mx, my, pa, pb, pc)
     pixels = (px, py, counts, sky, mask)
-    b, c, p, device = _check_inputs(planes, pixels)
+    b, c, p, s, device = _check_inputs(planes, pixels)
     out = torch.empty(b, dtype=torch.float32, device=device)
     if b == 0:
         return out
@@ -289,7 +386,8 @@ def loglik_fwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mog_field_loglik_fwd(*_ptrs(planes), *_ptrs(pixels), out.data_ptr(),
-                                       b, c, p, int(bool(centered)), *k1_geometry(b, p), stream)
+                                       b, c, p, s, int(bool(centered)), *k1_geometry(b, p, s),
+                                       stream)
     _raise_on_error(lib, err, "mog_field_loglik_fwd", b, c)
     loglik_fwd_cuda.launches += 1
     return out
@@ -302,7 +400,7 @@ def loglik_bwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
     """Launch the backward kernel: the six [B, C] plane cotangents."""
     planes = (amp, mx, my, pa, pb, pc)
     pixels = (px, py, counts, sky, mask)
-    b, c, p, device = _check_inputs(planes, pixels, extra=[(g, (amp.shape[0],), "g")])
+    b, c, p, s, device = _check_inputs(planes, pixels, extra=[(g, (amp.shape[0],), "g")])
     grads = tuple(torch.empty(b, c, dtype=torch.float32, device=device) for _ in range(6))
     if b == 0:
         return grads
@@ -310,7 +408,7 @@ def loglik_bwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mog_field_loglik_bwd(*_ptrs(planes), *_ptrs(pixels), g.data_ptr(),
-                                       *_ptrs(grads), b, c, p, *k1_geometry(b, p), stream)
+                                       *_ptrs(grads), b, c, p, s, *k1_geometry(b, p, s), stream)
     _raise_on_error(lib, err, "mog_field_loglik_bwd", b, c)
     loglik_bwd_cuda.launches += 1
     return grads
@@ -323,7 +421,7 @@ def render_cuda(amp, mx, my, pa, pb, pc, px, py, sky):
     """Launch the render kernel: lambda [B, P] on the planes' card."""
     planes = (amp, mx, my, pa, pb, pc)
     pixels = (px, py, sky)
-    b, c, p, device = _check_inputs(planes, pixels)
+    b, c, p, s, device = _check_inputs(planes, pixels)
     out = torch.empty(b, p, dtype=torch.float32, device=device)
     if b == 0 or p == 0:
         return out
@@ -331,7 +429,7 @@ def render_cuda(amp, mx, my, pa, pb, pc, px, py, sky):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mog_field_render(*_ptrs(planes), *_ptrs(pixels), out.data_ptr(),
-                                   b, c, p, *k7_geometry(b, p), stream)
+                                   b, c, p, s, *k7_geometry(b, p, s), stream)
     _raise_on_error(lib, err, "mog_field_render", b, c)
     render_cuda.launches += 1
     return out
@@ -375,27 +473,32 @@ def mog_field_loglik(amp, mx, my, pa, pb, pc, pixel_data, *, centered: bool = Fa
 
     ``amp..pc``: [B, C] float32 planes (amplitude with the normaliser folded
     in: ``amp = weight * exp(lognorm)``); ``pixel_data`` from
-    :func:`stamp_pixel_data`.  Returns [B].  Differentiable on both devices.
+    :func:`stamp_pixel_data`, or [S, P] pixel sets from
+    :func:`pad_pixel_sets` (row b reads set b // (B / S)).  Returns [B].
+    Differentiable on both devices.
     """
     px, py, counts, sky, mask = pixel_data
     if amp.device.type == "cuda":
         planes = [t.contiguous() for t in (amp, mx, my, pa, pb, pc)]
         return _LoglikKernel.apply(*planes, px, py, counts, sky, mask, bool(centered))
     if amp.device.type == "cpu":
-        return _loglik_torch(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, centered)
+        return _loglik_torch(amp, mx, my, pa, pb, pc,
+                             *rows_of_sets(pixel_data, amp.shape[0]), centered)
     raise ValueError(f"mog_field_loglik has no implementation on {amp.device}")
 
 
 def mog_field_render(amp, mx, my, pa, pb, pc, pixel_data):
     """Expected-count images lambda [B, PIX_PAD] of a batched MoG field,
     padded pixels included (they hold px = py = 0 and sky = 1).  The
-    likelihood never forms lambda; this is the posterior-predictive and
-    visualisation path.  Not differentiable."""
+    likelihood never forms lambda; this is the posterior-predictive,
+    CLEAN-subtraction and visualisation path.  ``pixel_data`` may be [S, P]
+    pixel sets, as in :func:`mog_field_loglik`.  Not differentiable."""
     px, py, _, sky, _ = pixel_data
     if amp.device.type == "cuda":
         planes = [t.contiguous() for t in (amp, mx, my, pa, pb, pc)]
         return render_cuda(*planes, px, py, sky)
     if amp.device.type == "cpu":
+        px, py, sky = rows_of_sets((px, py, sky), amp.shape[0])
         return _render_torch(amp, mx, my, pa, pb, pc, px, py, sky)
     raise ValueError(f"mog_field_render has no implementation on {amp.device}")
 

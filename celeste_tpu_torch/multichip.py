@@ -17,10 +17,13 @@ source shard on a 16x16 stamp, with 2 chains per chain shard, and runs:
 - the tempering ladder sharded over every rank (a ``temps`` mesh, two
   replicas each) on a bimodal 2-D target, two steps so that both swap
   parities run: the all-reduce of the [T] log densities and the edge
-  exchange cross ranks here; the ladder's log densities must be finite.
+  exchange cross ranks here; the ladder's log densities must be finite;
+- the field pipeline's group shard (``__graft_entry__.py:297-326``): two
+  disjoint fit groups of a 48x48 frame padded with dead groups to a
+  multiple of the ranks on a ``groups`` mesh over every rank, tiny
+  sampling knobs; the catalog's two sources and finite samples.
 
-The field pipeline's group mesh of the JAX dry run waits for its slice
-(ROADMAP.md).  Without ``torchrun`` the
+Without ``torchrun`` the
 ranks are spawned on this host (``parallel.mesh.launch``): NCCL where each
 rank has its own card, else gloo.
 """
@@ -113,7 +116,8 @@ def _dryrun_rank(device_type: str):
     _, eps, traj = chees_warmup(gen, lambda z: -0.5 * torch.sum(z * z, -1),
                                 z0[chains.rows], n_warmup=5, max_leapfrog=8, chains=chains)
     out = {k: float(v) for k, v in diag.items()}
-    out.update(eps=float(eps), traj=float(traj), **_dryrun_ladder(device_type, rng))
+    out.update(eps=float(eps), traj=float(traj), **_dryrun_ladder(device_type, rng),
+               **_dryrun_field(device_type))
     bad = [k for k, v in out.items() if not math.isfinite(v)]
     if bad:
         raise RuntimeError(f"dryrun_multichip: non-finite {bad} on rank {dist.get_rank()}")
@@ -157,6 +161,41 @@ def _dryrun_ladder(device_type: str, rng):
     if not bool(torch.isfinite(state.logps).all()):
         raise RuntimeError("dryrun_multichip: the sharded ladder's log densities are not finite")
     return {"pt_swaps_accepted": accepted, "pt_logp_cold": float(info.logp_cold)}
+
+
+def _dryrun_field(device_type: str):
+    """The field's fit groups sharded over every rank (a ``groups`` mesh),
+    the JAX dry run's frame and knobs; returns the groups, the sources and
+    the samples' mean."""
+    import torch.distributed as dist
+
+    from celeste_tpu_torch.data.synthetic import make_synthetic_stamp, star_source
+    from celeste_tpu_torch.field import FieldConfig, run_field_pipeline
+    from celeste_tpu_torch.model.priors import FluxPrior, SourcePriors
+    from celeste_tpu_torch.parallel import make_mesh
+    from celeste_tpu_torch.utils.metrics import MetricsLogger
+
+    mesh = make_mesh({"groups": dist.get_world_size()}, device_type)
+    device = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+              else torch.device("cpu"))
+    cosd = np.cos(np.deg2rad(10))
+    srcs = [star_source(u=(30.0 - 10 / 3600 / cosd, 10.0 - 10 / 3600), flux_r=60.0),
+            star_source(u=(30.0 + 10 / 3600 / cosd, 10.0 + 10 / 3600), flux_r=45.0)]
+    scene = make_synthetic_stamp(srcs, shape=(48, 48), bands=(2,), seed=9, device=device)
+    cfg = FieldConfig(sample=True, seed=5, n_chains=4, probe_warmup=4, probe_steps=4, n_warmup=4,
+                      n_steps=8, max_leapfrog=8, map_steps=30, type_switch=False, group_cut=16,
+                      group_margin_px=6, detection_rounds=1)
+    with open(os.devnull, "w") as quiet:
+        cat, art = run_field_pipeline(scene.stamps[0], band=0, n_bands=1, cfg=cfg,
+                                      priors=SourcePriors(flux=FluxPrior(log_ref_mean=3.2,
+                                                                         log_ref_std=2.0)),
+                                      logger=MetricsLogger(stream=quiet), mesh=mesh)
+    if art["n_groups"] < 2 or len(cat) < 2 or not np.isfinite(art["samples"]).all():
+        raise RuntimeError(f"dryrun_multichip: the field's group shard found {art['n_groups']} "
+                           f"groups, {len(cat)} sources, finite samples "
+                           f"{bool(np.isfinite(art['samples']).all())}")
+    return {"field_groups": art["n_groups"], "field_sources": len(cat),
+            "field_samples_mean": float(np.mean(art["samples"]))}
 
 
 def dryrun_multichip(world: int, device: str = "cuda"):

@@ -139,6 +139,25 @@ def _sigmoid(x: float) -> float:
     return 0.5 * (1.0 + math.tanh(0.5 * x))
 
 
+def kind_logprior(priors: SourcePriors, n_bands: int, kind: str, x, flags=None):
+    """Prior + log|det J| of [N, D] source vectors of one kind: "star" (D =
+    2 + B), "galaxy" (D = 6 + B) or "mixed" (the rectangular 6 + B layout,
+    each row's kind in ``flags``, a star's shape slots inert)."""
+    def star(v):
+        return (priors.star_logpdf(StarParams.from_vector(v, n_bands))
+                + StarParams.log_det_jacobian(v, n_bands))
+
+    def galaxy(v):
+        return (priors.galaxy_logpdf(GalaxyParams.from_vector(v, n_bands))
+                + GalaxyParams.log_det_jacobian(v, n_bands))
+
+    if kind == "star":
+        return star(x)
+    if kind == "galaxy":
+        return galaxy(x)
+    return torch.where(flags, star(x[..., :2 + n_bands]), galaxy(x))
+
+
 class Conditional:
     """The candidates' conditional posteriors on a set of stamps: the
     others folded in as fixed components (module docstring).
@@ -176,23 +195,6 @@ class Conditional:
             out.append((tuple(p[rows_t, cols_t] for p in planes), rows_t))
         return out
 
-    def _prior(self, kind, x, flags):
-        nb = self.n_bands
-
-        def star(v):
-            return (self.priors.star_logpdf(StarParams.from_vector(v, nb))
-                    + StarParams.log_det_jacobian(v, nb))
-
-        def galaxy(v):
-            return (self.priors.galaxy_logpdf(GalaxyParams.from_vector(v, nb))
-                    + GalaxyParams.log_det_jacobian(v, nb))
-
-        if kind == "star":
-            return star(x)
-        if kind == "galaxy":
-            return galaxy(x)
-        return torch.where(flags, star(x[:, :2 + nb]), galaxy(x))
-
     def _own_planes(self, kind, x, st, b, flags):
         if kind == "mixed":
             return mixed_field_planes(x, st, b, self.n_bands, flags)
@@ -224,7 +226,7 @@ class Conditional:
                     f.expand(x.shape[0], -1) for f in fixed[1:])
                 planes = [torch.cat([o, f], dim=-1) for o, f in zip(own, others)]
                 ll = ll + mog_field_loglik(*planes, pd)
-            return ll + self._prior(kind, x, rows_flags)
+            return ll + kind_logprior(self.priors, self.n_bands, kind, x, rows_flags)
 
         return logd
 
@@ -257,7 +259,7 @@ class Conditional:
             ll = 0.0
             for st, b, pd in zip(self.stamps, self.bands, pds_res):
                 ll = ll + mog_field_loglik(*_field_planes(x, st, b, "star", nb), pd)
-            return ll + self._prior("star", x, None)
+            return ll + kind_logprior(self.priors, nb, "star", x)
 
         x_map, _ = map_fit(logd, x0[None], n_steps=map_steps)
         lams = []

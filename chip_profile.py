@@ -80,7 +80,7 @@ def config5_calls(device):
         build_config5, build_config5_multiband, build_config5_sharded,
     )
     from celeste_tpu_torch.inference import ensemble_covariance, whiten_logdensity
-    from celeste_tpu_torch.inference.chees import _ensemble_step, chees_init
+    from celeste_tpu_torch.inference.chees import Groups, _ensemble_step, chees_init
     from celeste_tpu_torch.inference.hmc import value_and_grad
 
     logd, _, vec, info = build_config5(device=device)
@@ -95,13 +95,14 @@ def config5_calls(device):
     state = [chees_init(to_z(vecs), logd_z)]
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
+    ensemble, h = Groups([gen], CONFIG5_CHAINS), torch.tensor(0.3)
     logd3, _, vec3, _ = build_config5_multiband(device=device)
     vecs3 = vec3[None] + torch.as_tensor(0.01 * rng.normal(size=(CONFIG5_CHAINS, vec3.shape[0])),
                                          dtype=torch.float32, device=device)
 
     def chees_step():
         with torch.no_grad():
-            state[0] = _ensemble_step(gen, state[0], logd_z, 0.3, CHEES_LEAPFROGS)[0]
+            state[0] = _ensemble_step(state[0], logd_z, h, [CHEES_LEAPFROGS], ensemble)[0]
 
     def no_grad():
         with torch.no_grad():

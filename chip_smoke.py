@@ -43,7 +43,12 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    centered both ways, full and holed masks, values rtol 2e-6, atol 0.5,
    cotangents against the plain backward and torch autograd rtol 5e-4,
    atol 5e-2, finite for zero-amplitude components, two calls bitwise
-   equal;
+   equal; the pixel-set mode of K1-fwd, K1-bwd and K7 ([S, P] pixel sets,
+   row b on set b // R) at the field's shapes (PIXEL_SET_SHAPES: 24x24
+   candidate cutouts at R = 1 and 2, 48x48 and 32x32 group cutouts at R = 8
+   and 32, padding lanes included) against their plain versions on the
+   sets expanded to rows, K1-fwd rtol 2e-6 + atol 0.5, K1-bwd rtol 5e-4 +
+   atol 5e-2, K7 rtol 1e-5 + atol 1e-3, twice bitwise;
 6. the card's log-likelihood at the truth against the fp64 NumPy oracle,
    for config 1 (25x25 stamp), config 2 (each of the five bands), config 3
    (31x31 galaxy) and config 5 (tiled, 48x128 field), and the config-5
@@ -108,10 +113,11 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    source's log-flux at -8.  Then ``batched_stamp_loglik(impl="sep")`` and
    its gradient at B=65536 on config 1's stamp (K8's counters set to 0
    just before), against the general kernel.  Phase f, the stamp pipeline:
-   ``run_experiment`` of ``pipeline`` with ``ppc=true`` as the config has it
+   ``run_experiment`` of ``pipeline`` with ``ppc=true``, its sampler cut in
+   steps by PIPELINE_ENTRY
    (a 33x33 r-band stamp with two stars and a galaxy; detection, three
    classify sweeps of 300-step MAP fits with Laplace evidence, the type
-   switch, 16 chains of dense-metric ChEES with 200 warmup and 400 steps,
+   switch, 16 chains of dense-metric ChEES with 100 warmup and 200 steps,
    the catalog, the PPC), every counter set to 0 just before and read just
    after, K1's and K7's launches printed per stage and per classify Adam
    step and counted by shape; gates: 3 sources, kinds [galaxy, star, star],
@@ -119,7 +125,26 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    arcsec, |flux bias| < 0.2, PPC p in (0.01, 0.99), max R-hat <= 1.1, each
    sweep one K1-fwd and one K1-bwd launch per Adam step (two more forwards
    and one backward for its Hessians and source-free evidences), the same
-   at 1, 3 and 6 candidates in a 10-step sweep;
+   at 1, 3 and 6 candidates in a 10-step sweep.  Phase g, the field
+   catalog pipeline, every counter set to 0 just before each run and read
+   just after, K1's and K7's launches printed per stage (detection rounds,
+   classify sweeps, the type switch, the group sampler) and counted by
+   shape: ``run_experiment`` of ``field`` as the config has it (96x96, 5
+   sources, 32 chains, 100 + 300 steps, ``FieldConfig`` defaults, the type
+   switch on), gates those of tests/test_field.py's detection and grouping
+   tests (5 sources, kinds 4 stars and a galaxy, each within 0.5 arcsec of
+   a distinct truth, 4 groups with s_max 2, the pair a star and the
+   galaxy) and every group's max R-hat < 1.1 and divergence < 0.05; then
+   ``field_survey`` as its config has it (256x1024, ~60 sources, 8 chains,
+   48 + 96 steps, sampled): completeness, purity and kind accuracy >= 0.9,
+   matches >= 0.9 of the sources, position RMS < 0.1 arcsec, |flux bias| <
+   0.05, position and flux z-RMS in [0.7, 1.4], the groups' R-hat and
+   divergence as ``field``'s; each classify sweep one K1-fwd and one
+   K1-bwd launch per Adam step (plus its Hessian batch) at any candidate
+   count; then the field's checkpoint and resume on ``field``'s frame at
+   FIELD_RESUME (tests/test_field.py's resume test's cut): a run stopped
+   after its first sampling segment and resumed equals the unbroken one
+   bitwise;
 11. drive the source-sharded config 5 at full width (12 sources, 48x128,
    1024 chains, per-source radii), every tiled counter set to 0 just
    before and read just after: on a one-rank NCCL mesh (1, 1), in this
@@ -131,7 +156,8 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    posterior (D = 84), gates finite samples, accept >= 0.4, divergence <=
    0.05; fail if K5 or K6 was never launched.  Then two spawned gloo ranks
    on this one card, mesh (1, 2), must give the one-rank value and gradient
-   at the same tolerances, and ``dryrun_multichip(1)`` runs (its tempering
+   at the same tolerances, and ``dryrun_multichip(1)`` runs (the field's
+   group shard and its tempering
    part: the ladder sharded over the ranks, two steps, finite logps).
    Phase e: the tempering ladder sharded over a ``temps`` mesh, on one NCCL
    rank in this process and on two spawned gloo ranks on the one card,
@@ -158,11 +184,16 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    this run's launches at that shape; K1 and K7 at every shape the pipeline
    launched them, on its inputs there, held against their plain versions
    (K1-fwd rtol 2e-6, atol 1.0, K1-bwd rtol 5e-4, atol 5e-2, K7 rtol 1e-5,
-   atol 1e-3) and timed likewise;
+   atol 1e-3) and timed likewise, and so where the field's two runs launch
+   them (their pixel sets expanded to rows for the plain versions); the
+   pixel-set mode at PIXEL_SET_SHAPES, kernel and plain;
 13. print K1's rows by shape as a JSON line (``k1_shapes``, with the time
     lost, launches x (ms - bound), summed per kernel in ``k1_lost_s``), K7's
     likewise (``k7_shapes``, ``k7_lost_s``), then the kernels' JSON line
-    (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd), each kernel's ms per wrapper
+    (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd, and K1-fwd, K1-bwd and K7 in
+    the pixel-set mode: the field runs' launches, timed at the ``field``
+    group sampler's shape [128, 96] x 4 sets of 2304 pixels and at the
+    candidate cutouts' [16, 48] x 16 sets of 576), each kernel's ms per wrapper
     call (K2-K4: both buckets timed together, divided by their two
     launches; their launches those of both config-5 paths, one band and
     three; K1's those of config 1's path and the pipeline's, K7's those of
@@ -176,11 +207,12 @@ Before its last lines, and on any failure, the script stops every process
 it started that still runs (the resource tracker that the spawned ranks'
 queues start, and any other child).
 
-Config 5's one-band flow runs the bench's step counts (the defaults of
-``celeste_tpu_torch/bench/config5.py``) but for its NUTS arm.  That arm,
-the three-band flow, the entry-point runs and the sharded ChEES run are
-cut in steps only so that the script fits its time, by the constants
-below (PERF.md lists them).
+The samplers of phases 7-11 are cut in steps only (chains, bands, sources
+and fields stay at their width), by the constants below (PERF.md lists
+them), so that the script fits its time on a slow host: every sampler is
+bound by the host's ~20 us an op, not by the card.  Phase g's field runs
+stay as their configs have them.  Each phase's wall is printed as a
+``[wall]`` line.
 """
 
 from __future__ import annotations
@@ -211,19 +243,24 @@ C5_CHAINS = 1024
 TIMING_CHAINS = (1024, 4096)   # the config-5 kernel timings
 # the entry point's crowded_field run (defaults: 300 warmup, 500 steps, 16
 # leapfrog), in 4 segments with checkpoints: phase a's unbroken ChEES run
-ENTRY_CROWDED = dict(n_warmup=32, n_steps=32, n_leapfrog=8, checkpoint_every=8)
+ENTRY_CROWDED = dict(n_warmup=16, n_steps=16, n_leapfrog=8, checkpoint_every=4)
 # phase a: star_single MH as configured (64 chains) and HMC cut in steps (the
 # config: 300 warmup, 500 steps, 16 leapfrog), each in 4 segments
 RESUME_MH = dict(n_steps=400, checkpoint_every=100)
-RESUME_HMC = dict(sampler="hmc", n_warmup=100, n_steps=200, n_leapfrog=8, checkpoint_every=50)
-C5_CHEES_WARMUP = 60            # config 5's ChEES adaptation (measure_chees_z's)
+RESUME_HMC = dict(sampler="hmc", n_warmup=100, n_steps=100, n_leapfrog=8, checkpoint_every=25)
+# config 5's preparation and ChEES arm, cut in steps (the bench's defaults,
+# bench/config5.py: HMC warmup 150, probe 16, z-space warmup 30; ChEES
+# warmup 60, 240 steps in segments of 48): the three-band flow's counts
+C5_PREP = dict(n_warmup=50, warmup_window=50, probe_steps=4, n_zwarm=10)
+C5_CHEES_WARMUP = 20            # config 5's ChEES adaptation (measure_chees_z's)
+C5_CHEES = dict(warmup_iters=C5_CHEES_WARMUP, n_steps=96, run_segment=48)
 # phase c: config 4 through run_experiment (the config: 8 systems x 8
 # temperatures, 1500 steps after 500 of warmup), cut in steps only
-QUASAR_ENTRY = dict(n_steps=240, n_warmup=80)
+QUASAR_ENTRY = dict(n_steps=160, n_warmup=60)
 PHOTOZ_TARGETS = 256            # phase d: the bench's photo-z batch
 LADDER_TEMPS, LADDER_STEPS = 8, 20   # phase e: the bimodal ladder
 # config 5's NUTS arm (the JAX bench: 64 steps in segments of 16)
-C5_NUTS = dict(n_steps=32, run_segment=16)
+C5_NUTS = dict(n_steps=16, run_segment=16)
 # config 5 in three bands (g, r, i), cut in steps only (chains, bands,
 # sources and field as the JAX bench has them), against the JAX bench's
 # stage (bench.py _bench_config5_multiband): HMC warmup 150 in windows of 50
@@ -231,20 +268,20 @@ C5_NUTS = dict(n_steps=32, run_segment=16)
 # windows of 20, 192 steps in segments of 48
 MULTIBAND_PREP = dict(n_warmup=50, warmup_window=50, init_step_size=0.03, probe_steps=4,
                       n_zwarm=10)
-MULTIBAND_CHEES = dict(warmup_iters=20, warmup_window=20, n_steps=48, run_segment=48)
+MULTIBAND_CHEES = dict(warmup_iters=20, warmup_window=20, n_steps=24, run_segment=24)
 MULTIBAND_ARTIFACTS = ("config5_multiband_prep", "config5_multiband_chees_prep")
 # config 1's HMC run (the config: 300 warmup, 500 steps)
-STAR_HMC = dict(n_steps=250, n_warmup=300)
+STAR_HMC = dict(n_steps=100, n_warmup=300)
 # the sharded ChEES run on config 5's rectangular posterior (the JAX
 # helper's defaults: 100 warmup, 400 steps, trajectory cap 256)
-SHARDED_CHEES = dict(n_warmup=100, n_steps=100, max_leapfrog=32)
+SHARDED_CHEES = dict(n_warmup=100, n_steps=40, max_leapfrog=32)
 # configs 2 and 3 through the entry point, cut in steps only (chains, bands
 # and stamps as the configs have them): star_ugriz HMC (JAX defaults: 300
 # warmup, 1000 steps) and slice (1000 sweeps); galaxy NUTS (300 warmup, 800
 # steps)
-UGRIZ_HMC = dict(n_warmup=300, n_steps=150)
-UGRIZ_SLICE = dict(n_steps=100)
-GALAXY_NUTS = dict(n_warmup=150, n_steps=150)
+UGRIZ_HMC = dict(n_warmup=300, n_steps=75)
+UGRIZ_SLICE = dict(n_steps=50)
+GALAXY_NUTS = dict(n_warmup=150, n_steps=75)
 SEP_TOL = (2e-6, 0.5)           # K8 against its plain version and against K1
 # phase 5: K8 on random problems at widths below, at and above a warp's 32
 # columns and over several column blocks (H != W), C on both sides of the
@@ -265,13 +302,27 @@ K7_COMPONENTS = (3, 48, 126)
 K7_SHAPES = ((25, 25), (31, 31), (48, 128), (128, 128))
 DENSE_CHAINS = 64               # phase 6: config 5's dense gradient
 PPC_DRAWS = 32
-# phase f: the stamp pipeline through run_experiment as the config has it
-# (16 chains, 200 warmup, 400 ChEES steps; the type switch's 300 steps of 8
-# chains; 300-step MAP fits) with the PPC; max R-hat at the entry runs' gate;
-# then classify sweeps of 10 Adam steps at 1, 3 and 6 candidates
-PIPELINE_ENTRY = dict(ppc=True)
+# phase f: the stamp pipeline through run_experiment with the PPC, its
+# sampler cut in steps (the config: 16 chains, 200 warmup, 400 ChEES steps;
+# the type switch's 300 steps of 8 chains and the 300-step MAP fits as they
+# are); max R-hat at the entry runs' gate; then classify sweeps of 10 Adam
+# steps at 1, 3 and 6 candidates
+PIPELINE_ENTRY = dict(ppc=True, n_warmup=100, n_steps=200)
 PIPELINE_RHAT = 1.1
 PIPELINE_SWEEP_N, PIPELINE_SWEEP_STEPS = (1, 3, 6), 10
+# phase g: the pixel-set mode at the field's shapes (name, sets, rows per
+# set, components, cutout side): the detection MAPs' and the classify
+# batch's candidate cutouts (a galaxy-wide row, 48 components, as
+# mixed_field_planes gives it), and the groups' cutouts at R = 8 and 32
+# chains with two and three galaxy-wide slots
+PIXEL_SET_SHAPES = (("cutout R=1", 16, 1, 48, 24), ("cutout R=2", 16, 2, 48, 24),
+                    ("group 48x48 R=8", 4, 8, 96, 48), ("group 48x48 R=32", 4, 32, 96, 48),
+                    ("group 32x32 R=8", 53, 8, 144, 32), ("group 32x32 R=32", 4, 32, 144, 32))
+FIELD_RHAT, FIELD_DIVERGENCE = 1.1, 0.05
+# the field's resume check, at the cut of tests/test_field.py's resume test
+FIELD_RESUME = dict(n_chains=8, probe_warmup=20, probe_steps=8, n_warmup=20, n_steps=20,
+                    map_steps=60, sample_segment=8, warmup_window=9, type_switch=False,
+                    group_cut=32, group_margin_px=8, seed=4)
 # the card's peaks (H100 SXM at 700 W, NVIDIA's data sheet: HBM3 rate, float32
 # outside the tensor cores; 67 TFLOP/s is 132 SMs x 128 lanes x 2 x 1.98 GHz)
 HBM_BYTES_PER_S = 3.35e12
@@ -1025,7 +1076,7 @@ def config5_path(device, tmp):
     prep = cached_prep(logd, vec, tmp)
     t_prep = time.perf_counter() - t0
     chees_cache, chees_saved = cached_chees_warm(prep, tmp)
-    chees = measure_chees_z(prep, warmup_iters=C5_CHEES_WARMUP, warm_cache_path=chees_cache)
+    chees = measure_chees_z(prep, warm_cache_path=chees_cache, **C5_CHEES)
     chees_cache_shift_miss(prep, chees_cache, chees_saved)
     nuts = measure_nuts_z(prep, **C5_NUTS)
     wall = time.perf_counter() - t0
@@ -1470,7 +1521,7 @@ def sep_entry_path(device):
 class ShapeLaunches:
     """K1's and K7's launches by shape inside a ``with`` block: the wrappers
     of ``kernels.mog_field`` are wrapped so that each call adds, under
-    (kernel, chains, components, padded pixels), what it added to the
+    (kernel, chains, components, pixel sets, padded pixels), what it added to the
     wrapper's own launch counter (a call that launched nothing adds 0), and
     the first inputs of a launch at each shape are kept (cloned) to time
     the kernel there afterwards.  ``check_totals`` holds the sums by kernel
@@ -1491,7 +1542,7 @@ class ShapeLaunches:
             out = fn(*args, **kw)
             n = mf.launch_counts()[counter] - before
             if n:
-                key = (kernel, args[0].shape[0], args[0].shape[1], args[6].shape[1])
+                key = (kernel, args[0].shape[0], args[0].shape[1], *args[6].shape)
                 self.counts[key] = self.counts.get(key, 0) + n
                 if key not in self.inputs:
                     self.inputs[key] = ([a.clone() if torch.is_tensor(a) else a for a in args],
@@ -1647,8 +1698,9 @@ def pipeline_path(device):
 
 def shape_rows(card, shapes, tag, pix):
     """K1-fwd, K1-bwd and K7 at every shape a path launched them
-    (``ShapeLaunches``) on a stamp of ``pix`` pixels, on the first inputs
-    seen there: held against the plain version (K1-fwd rtol 2e-6, atol 1.0;
+    (``ShapeLaunches``) on pixel sets of ``pix`` real pixels each (an int,
+    or {padded: real} where the sets differ), on the first inputs seen
+    there: held against the plain version, the sets expanded to rows (K1-fwd rtol 2e-6, atol 1.0;
     K1-bwd rtol 5e-4, atol 5e-2; K7 rtol 1e-5, atol 1e-3), device ms per
     call (a CUDA graph of 20 calls, best of 3), the bound per call, the
     launches and the time lost, launches x (ms - bound).  Returns (K1 rows,
@@ -1661,27 +1713,31 @@ def shape_rows(card, shapes, tag, pix):
            "K7": (mf.render_cuda, mf._render_torch, LAM_TOL)}
     k1, k7 = [], []
     for key in sorted(shapes.counts, key=lambda k: -shapes.counts[k]):
-        kernel, b, c, pix_pad = key
+        kernel, b, c, n_sets, pix_pad = key
+        real = pix[pix_pad] if isinstance(pix, dict) else pix
         n = shapes.counts[key]
         args, kw = shapes.inputs[key]
         fn, plain, tol = fns[kernel]
-        got, want = fn(*args, **kw), plain(*args, **kw)
+        n_pix_args = 3 if kernel == "K7" else 5
+        rows = list(mf.rows_of_sets(tuple(args[6:6 + n_pix_args]), b))
+        got, want = fn(*args, **kw), plain(*args[:6], *rows, *args[6 + n_pix_args:], **kw)
         if kernel == "K1-bwd":
             err = max(max_abs_err(g, w, *tol, f"{tag} {kernel} B={b} C={c}")
                       for g, w in zip(got, want))
         else:
             err = max_abs_err(got, want, *tol, f"{tag} {kernel} B={b} C={c}")
         ms = graph_ms(lambda: fn(*args, **kw))
-        bound_ms, bound_by = (k7_bound(b, c, pix, pix_pad) if kernel == "K7"
-                              else k1_bounds(b, c, pix, pix_pad)[kernel])
-        row = {"kernel": kernel, "shape": f"{tag} B={b} C={c}", "chains": b, "components": c,
-               "pixels": pix, "pixels_padded": pix_pad, "launches": n, "max_abs_err": err,
-               "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
-               "lost_s": n * (ms - bound_ms) * 1e-3}
+        bound_ms, bound_by = (k7_bound(b, c, real, pix_pad, n_sets) if kernel == "K7"
+                              else k1_bounds(b, c, real, pix_pad, n_sets)[kernel])
+        sets = f" S={n_sets}" if n_sets > 1 else ""
+        row = {"kernel": kernel, "shape": f"{tag} B={b} C={c}{sets}", "chains": b,
+               "components": c, "sets": n_sets, "pixels": real, "pixels_padded": pix_pad,
+               "launches": n, "max_abs_err": err, "ms": ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "lost_s": n * (ms - bound_ms) * 1e-3}
         if kernel == "K7":
             k7.append(row)
         else:
-            row["cb_t"] = list(mf.k1_geometry(b, pix_pad))
+            row["cb_t"] = list(mf.k1_geometry(b, pix_pad, n_sets))
             k1.append(row)
     print(f"[timing] K1 and K7 where the {tag} launches them (device ms per call: a CUDA graph "
           f"of 20 calls, best of 3), card: {card}", flush=True)
@@ -1690,6 +1746,310 @@ def shape_rows(card, shapes, tag, pix):
               f"ms={r['ms']:.6f} bound={r['bound_ms']:.6f} ({r['bound_by']}) "
               f"launches={r['launches']} lost={r['lost_s']:.6f} s", flush=True)
     return k1, k7
+
+
+# ---------------------------------------------------------------------------
+# the field catalog pipeline (phase g)
+# ---------------------------------------------------------------------------
+
+def pixel_set_checks(device):
+    """K1-fwd, K1-bwd and K7 in their pixel-set mode at the field's shapes
+    (PIXEL_SET_SHAPES: candidate cutouts of 24x24 = 576 pixels at R = 1
+    and 2, group cutouts of 48x48 and 32x32 at R = 8 and 32; random planes
+    around each set's cutout, ``random_pixel_set_problem``, padding
+    included) against their plain versions on the sets expanded to rows:
+    K1-fwd (centered and not) rtol 2e-6 + atol 0.5, K1-bwd rtol 5e-4 + atol
+    5e-2, K7 LAM_TOL; each call twice, bitwise.  Returns the largest errors
+    by kernel and the problems, to time them."""
+    from celeste_tpu_torch.kernels import mog_field as mf
+
+    errs = {"K1-fwd": 0.0, "K1-bwd": 0.0, "K7": 0.0}
+    problems = {}
+    for name, n_sets, r, c, side in PIXEL_SET_SHAPES:
+        planes, sets = mf.random_pixel_set_problem(n_sets, r, c, side, seed=n_sets * r)
+        planes = [torch.as_tensor(a, device=device) for a in planes]
+        sets = [torch.as_tensor(a, device=device) for a in sets]
+        b = n_sets * r
+        rows = mf.rows_of_sets(tuple(sets), b)
+        g = torch.as_tensor(np.random.default_rng(b).normal(size=b).astype(np.float32),
+                            device=device)
+        what = f"pixel sets {name} B={b} C={c} S={n_sets} P={side * side}"
+        for centered in (False, True):
+            got = mf.loglik_fwd_cuda(*planes, *sets, centered=centered)
+            check(torch.equal(got, mf.loglik_fwd_cuda(*planes, *sets, centered=centered)),
+                  f"{what}: K1-fwd not bitwise repeatable")
+            errs["K1-fwd"] = max(errs["K1-fwd"], max_abs_err(
+                got, mf._loglik_torch(*planes, *rows, centered=centered), *FWD_TOL["star"],
+                f"{what} K1-fwd"))
+        got = mf.loglik_bwd_cuda(*planes, *sets, g)
+        again = mf.loglik_bwd_cuda(*planes, *sets, g)
+        check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+              f"{what}: K1-bwd not bitwise repeatable")
+        want = mf._loglik_bwd_torch(*planes, *rows, g)
+        errs["K1-bwd"] = max([errs["K1-bwd"]] + [max_abs_err(a, w, *BWD_TOL, f"{what} K1-bwd")
+                                                 for a, w in zip(got, want)])
+        lam = mf.render_cuda(*planes, sets[0], sets[1], sets[3])
+        check(torch.equal(lam, mf.render_cuda(*planes, sets[0], sets[1], sets[3])),
+              f"{what}: K7 not bitwise repeatable")
+        errs["K7"] = max(errs["K7"], max_abs_err(
+            lam, mf._render_torch(*planes, rows[0], rows[1], rows[3]), *LAM_TOL, f"{what} K7"))
+        problems[name] = (planes, sets, g, side * side)
+    print(f"[pixel sets] K1-fwd, K1-bwd, K7 at {[s_[0] for s_ in PIXEL_SET_SHAPES]} match their "
+          f"plain versions (max abs err {errs}), bitwise repeatable", flush=True)
+    return errs, problems
+
+
+def pixel_set_timings(card, problems):
+    """The pixel-set mode at PIXEL_SET_SHAPES: device ms per call of each
+    kernel (a CUDA graph of 20 calls, best of 3), the plain version's (CUDA
+    events, the sets expanded to rows) and the bound per call.  Returns
+    {(kernel, shape): row}."""
+    from celeste_tpu_torch.bench.timing import graph_ms
+    from celeste_tpu_torch.kernels import mog_field as mf
+
+    out = {}
+    for name, (planes, sets, g, pix) in problems.items():
+        b, c = planes[0].shape
+        n_sets, pix_pad = sets[0].shape
+        rows = mf.rows_of_sets(tuple(sets), b)
+        calls = {"K1-fwd": (lambda: mf.loglik_fwd_cuda(*planes, *sets, centered=True),
+                            lambda: mf._loglik_torch(*planes, *rows, centered=True)),
+                 "K1-bwd": (lambda: mf.loglik_bwd_cuda(*planes, *sets, g),
+                            lambda: mf._loglik_bwd_torch(*planes, *rows, g)),
+                 "K7": (lambda: mf.render_cuda(*planes, sets[0], sets[1], sets[3]),
+                        lambda: mf._render_torch(*planes, rows[0], rows[1], rows[3]))}
+        bounds = k1_bounds(b, c, pix, pix_pad, n_sets)
+        bounds["K7"] = k7_bound(b, c, pix, pix_pad, n_sets)
+        for kernel, (fn, plain) in calls.items():
+            ms, plain_ms = graph_ms(fn), time_ms(plain, 3)
+            geometry = (mf.k7_geometry if kernel == "K7" else mf.k1_geometry)(b, pix_pad, n_sets)
+            out[(kernel, name)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[kernel][0],
+                                   "bound_by": bounds[kernel][1], "cb_t": list(geometry)}
+    print(f"[timing] pixel-set mode (device ms per call: a CUDA graph of 20 calls, best of 3; "
+          f"plain: CUDA events), card: {card}", flush=True)
+    for (kernel, name), r in out.items():
+        print(f"    {kernel} {name}: (CB, T)={tuple(r['cb_t'])} ms={r['ms']:.6f} "
+              f"plain={r['plain_ms']:.6f} bound={r['bound_ms']:.6f} ({r['bound_by']})",
+              flush=True)
+    return out
+
+
+def field_stages():
+    """Wrap the field pipeline's stage functions to record each call's K1
+    and K7 launches and wall time: returns (the stage list, a function that
+    restores them)."""
+    from celeste_tpu_torch import field as tfield
+    from celeste_tpu_torch.inference import type_switch as tts
+    from celeste_tpu_torch.kernels import mog_field as mf
+
+    stages = []
+
+    def staged(name, fn):
+        def call(*args, **kw):
+            before, t0 = dict(mf.launch_counts()), time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            after = mf.launch_counts()
+            rows = args[2].shape[0] if name == "classify" else None
+            stages.append((name, {k: after[k] - before[k] for k in after},
+                           time.perf_counter() - t0, rows))
+            return out
+        return call
+
+    targets = ((tfield, "_det_fit_batch", "detect"), (tfield, "_classify_batch", "classify"),
+               (tts, "sample_source_type_core", "type_switch"),
+               (tfield, "_sample_groups", "sample"))
+    orig = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+    for mod, attr, name in targets:
+        setattr(mod, attr, staged(name, getattr(mod, attr)))
+
+    def restore():
+        for mod, attr, fn in orig:
+            setattr(mod, attr, fn)
+
+    return stages, restore
+
+
+def report_stages(tag, stages, map_steps):
+    """Print each stage's launches and wall; fail unless every classify
+    sweep launched K1 once each way per Adam step (plus one Hessian batch)
+    whatever its candidate count."""
+    for name, c, secs, rows in stages:
+        k1 = (c["mog_field_loglik_fwd"], c["mog_field_loglik_bwd"])
+        extra = ""
+        if name == "classify":
+            extra = (f" ({rows} candidates, {2 * rows} rows; per Adam step K1 "
+                     f"{(k1[0] - 1) / map_steps:g} fwd, {(k1[1] - 1) / map_steps:g} bwd)")
+            check(k1 == (map_steps + 1, map_steps + 1),
+                  f"{tag}: a classify sweep of {rows} candidates launched K1 {k1} times, not "
+                  f"{(map_steps + 1, map_steps + 1)}")
+        print(f"[{tag}] {name}: K1 fwd {k1[0]} bwd {k1[1]}, K7 {c['mog_field_render']}, "
+              f"{secs:.3f} s{extra}", flush=True)
+
+
+def field_entry(device, name, overrides, map_steps):
+    """One ``run_experiment`` of a field config with its stages and K1/K7
+    launches by shape recorded; fails on a stamp kernel never launched and
+    on launches by shape that do not sum to the counters."""
+    stages, restore = field_stages()
+    try:
+        with ShapeLaunches() as shapes:
+            cfg, res, seconds, counts = entry_run(name, overrides, device)
+    finally:
+        restore()
+    report_stages(name, stages, map_steps)
+    for kernel, n in counts.items():
+        check(n > 0, f"{name} never launched {kernel}")
+    shapes.check_totals(counts)
+    return cfg, res, seconds, counts, shapes
+
+
+def field_diagnostics(tag, art):
+    """Print the groups' diagnostics and gate finite samples, max R-hat <
+    FIELD_RHAT and divergence < FIELD_DIVERGENCE over every group."""
+    diag = art["diagnostics"]
+    rhat = max(d["rhat_max"] for d in diag)
+    div = max(d["divergence_rate"] for d in diag)
+    print(f"[{tag}] groups {art['n_groups']} (sizes {[len(m) for m in art['groups']]}, s_max "
+          f"{art['s_max']}, cut {art['group_cut']}), samples {art['samples'].shape}; max R-hat "
+          f"{rhat:.4f}, max divergence {div:.4f}, min ESS {min(d['ess_min'] for d in diag):.1f}, "
+          f"accept {[round(d['accept_rate'], 3) for d in diag]}", flush=True)
+    check(bool(np.isfinite(art["samples"]).all()), f"{tag}: non-finite samples")
+    check(rhat < FIELD_RHAT, f"{tag}: max R-hat {rhat:.4f} >= {FIELD_RHAT}")
+    check(div < FIELD_DIVERGENCE, f"{tag}: divergence {div:.4f} >= {FIELD_DIVERGENCE}")
+
+
+def field_pixels(cut, gcut):
+    """{padded pixels: real pixels} of a field run's candidate and group
+    cutouts."""
+    return {-(-side * side // 128) * 128: side * side for side in (cut, gcut)}
+
+
+def field_path(device):
+    """Phase g, ``field``: ``run_experiment`` as the config has it (96x96,
+    5 sources, 32 chains, 100 + 300 steps, ``FieldConfig`` defaults, the
+    type switch on), every counter set to 0 just before and read just
+    after; the gates of tests/test_field.py's detection, classification and
+    grouping tests (5 sources, kinds 4 stars and a galaxy, each entry within
+    0.5 arcsec of a distinct truth, 4 groups with s_max 2, the pair a star
+    and the galaxy) and the groups' max R-hat < 1.1 and divergence < 0.05.
+    Returns (launches, ShapeLaunches, {padded pixels: real pixels})."""
+    from celeste_tpu_torch.field import FieldConfig
+
+    fc = FieldConfig()
+    cfg, res, seconds, counts, shapes = field_entry(device, "field", {}, fc.map_steps)
+    run = res["run"]
+    catalog, art, scene, srcs = run["catalog"], run["artifacts"], run["scene"], run["sources"]
+    truth = np.array([scene.wcs.equa2duas(s_["u"]) for s_ in srcs])
+    est = np.array([e.du_mean for e in catalog])
+    d = np.hypot(truth[:, None, 0] - est[None, :, 0], truth[:, None, 1] - est[None, :, 1])
+    match = np.argmin(d, axis=1)
+    groups = [e.extras["group"] for e in catalog]
+    pair = [g for g in set(groups) if groups.count(g) == 2]
+    print(f"[field] run_experiment field: {seconds:.3f} s, chains {cfg.n_chains}, warmup "
+          f"{cfg.n_warmup}, steps {cfg.n_steps}; kinds {[e.kind for e in catalog]}, p_star "
+          f"{[round(e.p_star, 4) for e in catalog]}, groups {groups}; offsets to the truth "
+          f"{np.round(d[np.arange(len(truth)), match], 4).tolist()} arcsec; flux "
+          f"{[np.round(e.flux_mean, 3).tolist() for e in catalog]} (truth "
+          f"{[round(float(s_['flux'][2]), 3) for s_ in srcs]}); launches {counts}", flush=True)
+    field_diagnostics("field", art)
+    check(art["n_sources"] == 5, f"field: {art['n_sources']} sources, not 5")
+    check(sorted(e.kind for e in catalog) == ["galaxy", "star", "star", "star", "star"],
+          f"field kinds {[e.kind for e in catalog]}")
+    check(len(set(match.tolist())) == 5, f"field: entries match {match.tolist()}, not 5 truths")
+    check(float(d[np.arange(5), match].max()) < 0.5, "field: an entry 0.5 arcsec off its truth")
+    check(art["n_groups"] == 4 and art["s_max"] == 2,
+          f"field: {art['n_groups']} groups, s_max {art['s_max']}")
+    check(len(pair) == 1 and sorted(e.kind for e in catalog if e.extras["group"] == pair[0])
+          == ["galaxy", "star"], f"field: the blended pair's groups {groups}")
+    return counts, shapes, field_pixels(fc.cut, art["group_cut"]), seconds
+
+
+def field_survey_path(device):
+    """Phase g, ``field_survey``: ``run_experiment`` as the config has it
+    (256x1024, ~60 sources, 8 chains, 48 + 96 steps, sampled), counters as
+    in ``field_path``; gates: completeness, purity and kind accuracy >= 0.9,
+    matches >= 0.9 of the sources, position RMS < 0.1 arcsec, |flux bias| <
+    0.05, position and flux z-RMS in [0.7, 1.4] and the groups' max R-hat <
+    1.1 and divergence < 0.05.
+    Returns (launches, ShapeLaunches, {padded pixels: real pixels}, wall)."""
+    from celeste_tpu_torch.bench.field_scale import survey_scene_cfg
+
+    fc = survey_scene_cfg()
+    cfg, res, seconds, counts, shapes = field_entry(device, "field_survey", {}, fc.map_steps)
+    run = res["run"]
+    rep, art, srcs = run["accuracy"], run["artifacts"], run["sources"]
+    print(f"[field_survey] run_experiment field_survey: {seconds:.3f} s, {len(srcs)} sources, "
+          f"chains {cfg.n_chains}, warmup {cfg.n_warmup}, steps {cfg.n_steps}; catalog {art['n_sources']}, matched {rep['n_matched']}, completeness "
+          f"{rep['completeness']}, purity {rep['purity']}, kind accuracy "
+          f"{rep['kind_accuracy']}, pos rms {rep['pos_rms_arcsec']:.4f} arcsec, flux bias "
+          f"{rep['flux_rel_bias']:.4f}, pos z rms {rep['pos_z_rms']}, flux z rms "
+          f"{rep['flux_z_rms']}; {len(srcs) / seconds:.4f} sources/s; launches {counts}",
+          flush=True)
+    for key in ("completeness", "purity", "kind_accuracy"):
+        check(rep[key] >= 0.9, f"field_survey {key} {rep[key]}")
+    check(rep["n_matched"] >= 0.9 * len(srcs),
+          f"field_survey: {rep['n_matched']} matched of {len(srcs)}")
+    check(rep["pos_rms_arcsec"] < 0.1, f"field_survey position RMS {rep['pos_rms_arcsec']}")
+    check(abs(rep["flux_rel_bias"]) < 0.05, f"field_survey flux bias {rep['flux_rel_bias']}")
+    field_diagnostics("field_survey", art)
+    for key in ("pos_z_rms", "flux_z_rms"):
+        check(0.7 <= rep[key] <= 1.4, f"field_survey {key} {rep[key]} outside [0.7, 1.4]")
+    return counts, shapes, field_pixels(fc.cut, art["group_cut"]), seconds
+
+
+def field_resume_check(device, tmp):
+    """Phase g, the field's checkpoint and resume: ``run_field_pipeline`` on
+    the ``field`` config's frame at FIELD_RESUME (the cut of
+    tests/test_field.py's resume test: 8 chains, 20 + 8 probe and 20 + 20
+    steps, segments of 8, warmup windows of 9, 60-step MAP fits), once
+    unbroken and once stopped by its logger after the first sampling
+    segment and rerun on the checkpoint: samples and catalog bitwise equal.
+    The stamp kernels' counters set to 0 before; K1 must launch."""
+    from celeste_tpu_torch.experiments import CONFIGS, field_scene
+    from celeste_tpu_torch.field import FieldConfig, run_field_pipeline
+    from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.model.priors import FluxPrior, SourcePriors
+    from celeste_tpu_torch.utils.metrics import MetricsLogger
+
+    class Stop(Exception):
+        pass
+
+    class StopAfterFirstSegment(MetricsLogger):
+        def log(self, event, **kw):
+            super().log(event, **kw)
+            if event == "field_sample_segment":
+                raise Stop
+
+    mf.reset_launch_counts()
+    t0 = time.perf_counter()
+    scene, _ = field_scene(CONFIGS["field"], device)
+    priors = SourcePriors(flux=FluxPrior(log_ref_mean=3.2, log_ref_std=2.0))
+    ck = os.path.join(tmp, "field_ck.npz")
+
+    def run(path=None, logger=None):
+        return run_field_pipeline(scene.stamps[0], band=0, n_bands=1,
+                                  cfg=FieldConfig(checkpoint_path=path, **FIELD_RESUME),
+                                  priors=priors, logger=logger)
+
+    cat_u, art_u = run()
+    stopped = False
+    try:
+        run(ck, StopAfterFirstSegment())
+    except Stop:
+        stopped = True
+    check(stopped, "field resume: the stopped run did not stop")
+    cat_r, art_r = run(ck)
+    torch.cuda.synchronize()
+    counts = mf.launch_counts()
+    same = (np.array_equal(art_u["samples"], art_r["samples"])
+            and all(np.array_equal(a.du_mean, b.du_mean)
+                    and np.array_equal(a.flux_mean, b.flux_mean) for a, b in zip(cat_u, cat_r)))
+    print(f"[field resume] unbroken, stopped after one segment, resumed: samples "
+          f"{art_u['samples'].shape} bitwise equal: {same}; launches {counts}; wall "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    check(same, "field resume: the resumed run differs from the unbroken one")
+    check(counts["mog_field_loglik_fwd"] > 0, "field resume never launched K1")
 
 
 # ---------------------------------------------------------------------------
@@ -1772,12 +2132,12 @@ def cached_prep(logd, vec, tmp):
 
     path = str(Path(tmp) / "config5_prep.npz")
     t0 = time.perf_counter()
-    prep = config5_warmup_and_whiten_cached(logd, vec, path, n_chains=C5_CHAINS)
+    prep = config5_warmup_and_whiten_cached(logd, vec, path, n_chains=C5_CHAINS, **C5_PREP)
     t_miss = time.perf_counter() - t0
     check(os.path.exists(path) and "probe_gap" not in prep, "the first cached prep did not miss")
     t0 = time.perf_counter()
     k2_before = tf.launch_counts()["tiled_field_fwd"]
-    hit = config5_warmup_and_whiten_cached(logd, vec, path, n_chains=C5_CHAINS)
+    hit = config5_warmup_and_whiten_cached(logd, vec, path, n_chains=C5_CHAINS, **C5_PREP)
     t_hit = time.perf_counter() - t0
     check("probe_gap" in hit, "the second cached prep did not hit")
     check(tf.launch_counts()["tiled_field_fwd"] > k2_before, "the live probe never launched K2")
@@ -2279,14 +2639,14 @@ def k7_shape_timings(card, shapes):
     return rows
 
 
-def k7_bound(b, c, pix, pix_pad):
+def k7_bound(b, c, pix, pix_pad, n_sets=1):
     """K7's bound per call for b chains of c components over pix real
-    pixels (pix_pad rendered): a term's form and sum and its exponential per
-    (chain, pixel, component); the planes and the pixel arrays read once,
-    the [B, P] images written once."""
+    pixels (pix_pad rendered) of each of n_sets pixel sets: a term's form
+    and sum and its exponential per (chain, pixel, component); the planes
+    and the pixel arrays read once, the [B, P] images written once."""
     f4 = 4
     return bound(b * pix * c * (FLOPS_TERM_FORM + FLOPS_TERM_SUM),
-                 6 * b * c * f4 + 3 * pix_pad * f4 + b * pix_pad * f4, b * pix * c)
+                 6 * b * c * f4 + 3 * n_sets * pix_pad * f4 + b * pix_pad * f4, b * pix * c)
 
 
 def bound(flops, nbytes, special):
@@ -2299,13 +2659,13 @@ def bound(flops, nbytes, special):
     return times[by] * 1e3, by
 
 
-def k1_bounds(b, c, pix, pix_pad):
+def k1_bounds(b, c, pix, pix_pad, n_sets=1):
     """K1-fwd's and K1-bwd's bounds per call for b chains of c components
-    on pix real pixels (pix_pad staged): the terms and pixels this data
-    needs, the planes and pixel arrays read once, the outputs written
-    once."""
+    on pix real pixels (pix_pad staged) of each of n_sets pixel sets: the
+    terms and pixels this data needs, the planes and pixel arrays read once,
+    the outputs written once."""
     f4 = 4
-    planes, pixel_arrays, terms = 6 * b * c * f4, 5 * pix_pad * f4, b * pix * c
+    planes, pixel_arrays, terms = 6 * b * c * f4, 5 * n_sets * pix_pad * f4, b * pix * c
     return {
         "K1-fwd": bound(terms * (FLOPS_TERM_FORM + FLOPS_TERM_SUM) + b * pix * FLOPS_PIXEL_LOGLIK,
                         planes + pixel_arrays + b * f4, terms + b * pix),
@@ -2482,6 +2842,14 @@ def main() -> int:
     libs = [mf.build_kernels(), tf.build_kernels(), ms.build_kernels()]
     print(f"[build] {', '.join(lib.name for lib in libs)} built and loaded in "
           f"{time.perf_counter() - t_start:.3f} s", flush=True)
+    laps = [t_start]
+
+    def lap(phase):
+        laps.append(time.perf_counter())
+        print(f"[wall] {phase}: {laps[-1] - laps[-2]:.3f} s (script {laps[-1] - t_start:.3f} s)",
+              flush=True)
+
+    lap("build")
 
     k1_errs = stamp_kernel_checks(device)
     config5 = build_config5(device=device)
@@ -2489,9 +2857,11 @@ def main() -> int:
     render_errs = render_kernel_checks(device, build_config5_sharded(config5[3], None))
     k7_err = stamp_render_checks(device, config5)
     k8_errs = sep_kernel_checks(device)
+    set_errs, set_problems = pixel_set_checks(device)
     oracle_checks(device, config5)
     dense_gradient_check(device, config5)
     oracle_checks_23(device)
+    lap("kernel and oracle checks")
 
     mf.reset_launch_counts()
     runs = config1_path(device)
@@ -2501,6 +2871,7 @@ def main() -> int:
     check(runs[0][4]["mog_field_loglik_fwd"] > 0, "MH run never launched the forward kernel")
     for name in ("mog_field_loglik_fwd", "mog_field_loglik_bwd"):
         check(k1_counts[name] > 0, f"the config-1 path never launched {name}")
+    lap("config 1")
 
     mf.reset_launch_counts()
     tf.reset_launch_counts()
@@ -2509,6 +2880,7 @@ def main() -> int:
     print(f"[config 5] launches: {c5_counts} (stamp kernels: {mf.launch_counts()})", flush=True)
     for name in ("tiled_field_fwd", "tiled_field_fwd_lam", "tiled_field_bwd"):
         check(c5_counts[name] > 0, f"the config-5 path never launched {name}")
+    lap("config 5 and the crowded_field entry run")
 
     mf.reset_launch_counts()
     tf.reset_launch_counts()
@@ -2518,15 +2890,27 @@ def main() -> int:
           flush=True)
     for name in ("tiled_field_fwd", "tiled_field_fwd_lam", "tiled_field_bwd"):
         check(mb_counts[name] > 0, f"the three-band config-5 path never launched {name}")
+    lap("config 5 in three bands")
 
     resume_path(device, tmp, crowded_unbroken)
+    lap("phase a, resume")
     quasar_entry(device)
     photoz_bench_batch(device, card)
+    lap("config 4")
 
     runs23 = configs23_path(device)
     k7_launches, k7_shapes = ppc_path(device, runs23)
     k8_counts, k1_65536 = sep_entry_path(device)
+    lap("configs 2 and 3, the PPC, K8's entry")
     pipe_counts, pipe_shapes, pipe_pix = pipeline_path(device)
+    lap("phase f, the stamp pipeline")
+    t_g = time.perf_counter()
+    field_counts, field_shapes, field_pix, field_s = field_path(device)
+    survey_counts, survey_shapes, survey_pix, survey_s = field_survey_path(device)
+    field_resume_check(device, tmp)
+    print(f"[phase g] field {field_s:.3f} s, field_survey {survey_s:.3f} s; phase wall "
+          f"{time.perf_counter() - t_g:.3f} s", flush=True)
+    lap("phase g, the field")
     k1_launches = {"config 1": k1_counts, "config 5 dense": dense_counts, "B=65536": k1_65536,
                    "config 2": {k: runs23["ugriz hmc"][3][k] + runs23["ugriz slice"][3][k]
                                 for k in k1_counts},
@@ -2545,6 +2929,7 @@ def main() -> int:
             check(sh_counts[name] > 0, f"the sharded config-5 path never launched {name}")
         sharded_world2(world1)
         sharded_ladder_path(device)
+        lap("sharded config 5, the two-rank checks, the sharded ladder")
 
         t1 = config1_timings(device, card)
         t5 = config5_timings(device, card, config5)
@@ -2557,7 +2942,14 @@ def main() -> int:
         pipe_k1_rows, pipe_k7_rows = shape_rows(card, pipe_shapes, "pipeline", pipe_pix)
         k1_rows += pipe_k1_rows
         k7_rows += pipe_k7_rows
+        for tag, shapes_, pix_ in (("field", field_shapes, field_pix),
+                                   ("field_survey", survey_shapes, survey_pix)):
+            rows_k1, rows_k7 = shape_rows(card, shapes_, tag, pix_)
+            k1_rows += rows_k1
+            k7_rows += rows_k7
+        t_sets = pixel_set_timings(card, set_problems)
         bounds = kernel_bounds(config5, sharded5)
+        lap("timings")
     tiled = "celeste_tpu/kernels/tiled_field.py"
     t5b, trb = t5[TIMING_CHAINS[0]], tr[TIMING_CHAINS[0]]
     # K1's launches: config 1's path and the pipeline's; K7's: the PPC's and
@@ -2592,6 +2984,16 @@ def main() -> int:
          "K8-bwd", k8_counts["mog_field_sep_bwd"], k8_errs["bwd"], t8["K8_bwd_ms"],
          t8["K8_bwd_plain_ms"]),
     ]
+    # the pixel-set mode: launches of both field paths, timed at the field's
+    # group sampling shape (K1) and its candidate cutouts (K7)
+    for key, shape in (("K1-fwd", "group 48x48 R=32"), ("K1-bwd", "group 48x48 R=32"),
+                       ("K7", "cutout R=1")):
+        name, src, replaces = next((r[0], r[1], r[2]) for r in rows if r[3] == key)
+        t = t_sets[(key, shape)]
+        bounds[f"{key} sets"] = (t["bound_ms"], t["bound_by"])
+        rows.append((f"{name} [S, P] pixel sets, {shape}", src, replaces, f"{key} sets",
+                     field_counts[name] + survey_counts[name], set_errs[key], t["ms"],
+                     t["plain_ms"]))
     kernels = []
     for name, src, replaces, key, launches, err, ms, plain_ms in rows:
         bound_ms, bound_by = bounds[key]

@@ -148,10 +148,10 @@ def test_cli_and_not_yet_ported_paths(tmp_path):
     with open(out + ".metrics.jsonl") as fh:
         assert [json.loads(line)["event"] for line in fh] == ["start", "done"]
     with pytest.raises(SystemExit, match="not yet ported"):
-        main(["config=field", "device=cpu"])
+        main(["config=no_such_config", "device=cpu"])
     with pytest.raises(SystemExit, match="unknown config key"):
-        main(["config=star_single", "sample_segment=8"])
-    for bad in (dict(name="field"), dict(name="crowded_field", color_prior="gmm")):
+        main(["config=star_single", "no_such_key=8"])
+    for bad in (dict(name="no_such_config"), dict(name="crowded_field", color_prior="gmm")):
         with pytest.raises(NotImplementedError):
             run_experiment(_cfg(**bad))
     for bad in (dict(sampler="tempered_slice"), dict(name="quasar_photoz", sampler="mh"),

@@ -1046,6 +1046,8 @@ def _per_row_sky_logdensity(cond, kind, probs, folded, is_star, x):
     """The plain per-row-sky form of the folded conditional: each row's
     others rendered by K7's plain version into its own sky, the row's own
     components through K1's plain version against that [R, P] sky."""
+    from celeste_tpu_torch.pipeline import kind_logprior
+
     (fixed, owner), = folded
     px, py, counts, sky, mask = cond.pds[0]
     k = x.shape[0] // len(probs)
@@ -1057,7 +1059,8 @@ def _per_row_sky_logdensity(cond, kind, probs, folded, is_star, x):
     flags = (torch.as_tensor(np.repeat(is_star, k), device=x.device)
              if kind == "mixed" else None)
     own = cond._own_planes(kind, x, cond.stamps[0], 0, flags)
-    return mf._loglik_torch(*own, px, py, counts, eff, mask) + cond._prior(kind, x, flags)
+    return (mf._loglik_torch(*own, px, py, counts, eff, mask)
+            + kind_logprior(cond.priors, cond.n_bands, kind, x, flags))
 
 
 # (kind, extra galaxies, extra stars, rows per problem): the classify
@@ -1193,3 +1196,244 @@ def test_k1_component_cap_is_the_kernels(cuda, n_rows):
         with pytest.raises(RuntimeError,
                            match=r"loglik_bwd launch failed at B=1100, C=486.*max_sources"):
             torch.autograd.grad(val.sum(), x)
+
+
+# ---------------------------------------------------------------------------
+# the pixel-set mode and the field pipeline (ROADMAP §1 items 1-2)
+# ---------------------------------------------------------------------------
+
+# (sets, rows per set, components, cutout side): the field's candidate
+# cutouts (24x24) at R = 1 (detection, K7's cutout lambdas) and R = 2 (the
+# classify batch), and its group cutouts (48x48 for ``field``, 32x32 for
+# ``field_survey``) at R = 8 and 32 chains with two and three galaxy-wide
+# slots; a set count that leaves a partial block of chains
+PIXEL_SET_CASES = [(16, 1, 48, 24), (16, 2, 48, 24), (7, 1, 3, 24), (4, 8, 96, 48),
+                   (4, 32, 96, 48), (53, 8, 144, 32), (4, 32, 144, 32), (3, 6, 48, 24)]
+LAM_TOL = dict(rtol=1e-5, atol=1e-3)
+
+
+def _set_problem(cuda, s, r, c, side):
+    planes, sets = mf.random_pixel_set_problem(s, r, c, side, seed=s * r + c)
+    planes = [torch.as_tensor(a, device=cuda) for a in planes]
+    sets = [torch.as_tensor(a, device=cuda) for a in sets]
+    return planes, sets, mf.rows_of_sets(tuple(sets), s * r)
+
+
+@pytest.mark.parametrize("s,r,c,side", PIXEL_SET_CASES)
+def test_pixel_set_kernels_match_plain(cuda, s, r, c, side):
+    """K1-fwd (centered and not), K1-bwd and K7 on [S, P] pixel sets
+    against their plain versions on the sets expanded to rows, padding
+    lanes included, each twice bitwise; the geometry keeps a block's chains
+    in one set."""
+    planes, sets, rows = _set_problem(cuda, s, r, c, side)
+    b = s * r
+    cb, _ = mf.k1_geometry(b, sets[0].shape[1], s)
+    assert r % cb == 0 and mf.k7_geometry(b, sets[0].shape[1], s)[0] in (1, 2, 4, 8)
+    for centered in (False, True):
+        got = mf.loglik_fwd_cuda(*planes, *sets, centered=centered)
+        assert torch.equal(got, mf.loglik_fwd_cuda(*planes, *sets, centered=centered))
+        torch.testing.assert_close(got, mf._loglik_torch(*planes, *rows, centered=centered),
+                                   **TOL["galaxy"])
+    g = torch.as_tensor(np.random.default_rng(b).normal(size=b).astype(np.float32), device=cuda)
+    got = mf.loglik_bwd_cuda(*planes, *sets, g)
+    again = mf.loglik_bwd_cuda(*planes, *sets, g)
+    for a, a2, w in zip(got, again, mf._loglik_bwd_torch(*planes, *rows, g)):
+        assert torch.equal(a, a2)
+        torch.testing.assert_close(a, w, **GRAD_TOL)
+    lam = mf.render_cuda(*planes, sets[0], sets[1], sets[3])
+    assert torch.equal(lam, mf.render_cuda(*planes, sets[0], sets[1], sets[3]))
+    torch.testing.assert_close(lam, mf._render_torch(*planes, rows[0], rows[1], rows[3]),
+                               **LAM_TOL)
+    assert bool((lam[:, side * side:] == 1.0).all())
+
+
+def test_pixel_set_entry_points_launch_the_kernels(cuda):
+    """``mog_field_loglik`` and ``mog_field_render`` take [S, P] pixel data
+    through the same functions: one K1-fwd and one K1-bwd launch (autograd)
+    and one K7, equal to the CPU's plain mode."""
+    planes, sets, _ = _set_problem(cuda, 5, 4, 48, 24)
+    before = mf.launch_counts()
+    leaves = [p.clone().requires_grad_(True) for p in planes]
+    val = mf.mog_field_loglik(*leaves, sets, centered=True)
+    grads = torch.autograd.grad(val.sum(), leaves)
+    lam = mf.mog_field_render(*planes, sets)
+    after = mf.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "mog_field_loglik_fwd": 1, "mog_field_loglik_bwd": 1, "mog_field_render": 1}
+    cpu = [p.cpu().requires_grad_(True) for p in planes]
+    cpu_sets = [t.cpu() for t in sets]
+    want = mf.mog_field_loglik(*cpu, cpu_sets, centered=True)
+    want_g = torch.autograd.grad(want.sum(), cpu)
+    torch.testing.assert_close(val.detach().cpu(), want.detach(), **TOL["galaxy"])
+    for a, w in zip(grads, want_g):
+        torch.testing.assert_close(a.cpu(), w, **GRAD_TOL)
+    torch.testing.assert_close(lam.cpu(), mf.mog_field_render(*(p.cpu() for p in planes),
+                                                              cpu_sets), **LAM_TOL)
+
+
+def test_pixel_set_wrappers_reject_bad_sets(cuda):
+    planes, sets, _ = _set_problem(cuda, 3, 2, 3, 24)
+    with pytest.raises(ValueError, match="pixel sets"):
+        mf.loglik_fwd_cuda(*(p[:5].contiguous() for p in planes), *sets)
+    with pytest.raises(ValueError, match="shape"):
+        mf.loglik_fwd_cuda(*planes, sets[0][:2].contiguous(), *sets[1:])
+    with pytest.raises(ValueError, match="pixel sets"):
+        mf.render_cuda(*(p[:4].contiguous() for p in planes), sets[0], sets[1], sets[3])
+
+
+@pytest.mark.parametrize("kind", ["star", "galaxy", "mixed"])
+def test_field_conditional_rows_through_k1_match_the_cpu(cuda, kind):
+    """The field's conditional log densities (``field._Frames``) on the
+    mixed frame's candidate cutouts, at the type switch's row layout (8
+    chains a candidate, R = 8) and the classify batch's (a star and a galaxy
+    row a candidate, R = 2): value and gradient through K1 on the card
+    against the CPU's plain pixel-set mode."""
+    from celeste_tpu_torch.field import _cut_origin, _Frames, _gather_cutouts
+    from celeste_tpu_torch.kernels.mog_field import pad_pixel_sets
+    from celeste_tpu_torch.model.priors import FluxPrior, SourcePriors
+
+    import torch_field_workers as w
+
+    scene, srcs = w.two_group_frame(cuda)
+    priors = SourcePriors(flux=FluxPrior(log_ref_mean=3.2, log_ref_std=2.0))
+    stamp = scene.stamps[0]
+    du = np.stack([scene.wcs.equa2duas(s_["u"]) for s_ in srcs])
+    pos = stamp.duas2pixel(torch.as_tensor(du, dtype=torch.float32, device=cuda)).cpu().numpy()
+    origins = np.array([_cut_origin(x_, y_, 24, *stamp.counts.shape) for x_, y_ in pos])
+    counts, sky, mask = (t.cpu().numpy().astype(np.float64) for t in (stamp.counts, stamp.sky,
+                                                                       stamp.mask))
+    cut = _gather_cutouts(origins, 24, counts, sky, mask, device=cuda)
+    rng = np.random.default_rng(3)
+    rect = np.concatenate([du, np.log([[s_["flux"][2]] for s_ in srcs]),
+                           np.tile([0.0, 0.0, 0.0, 0.5], (3, 1))], axis=1).astype(np.float32)
+    if kind == "mixed":
+        x = np.repeat(rect, 2, axis=0)
+        is_star = [True, False] * 3
+    else:
+        x = np.repeat(rect[:, :3] if kind == "star" else rect, 8, axis=0)
+        is_star = None
+    x = (x + 0.01 * rng.normal(size=x.shape)).astype(np.float32)
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        fr = _Frames([stamp.to(device)], [0], 1, priors)
+        sets = [pad_pixel_sets(*(t.to(device) for t in cut))]
+        xt = torch.as_tensor(x, device=device).requires_grad_(True)
+        val = fr.logdensity(kind, sets, is_star)(xt)
+        (grad,) = torch.autograd.grad(val.sum(), xt)
+        out[device.type] = (val.detach().cpu(), grad.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=2e-6, atol=1.0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=5e-4, atol=5e-2)
+
+
+def _small_field(cuda, **over):
+    """tests/test_field.py's two-group frame through the field pipeline at
+    that file's ``_small_cfg`` settings, uncut."""
+    from celeste_tpu_torch.field import FieldConfig, run_field_pipeline
+
+    import torch_field_workers as w
+
+    scene, srcs = w.two_group_frame(cuda)
+    base = dict(sample=True, seed=4, n_chains=12, probe_warmup=32, probe_steps=16, n_warmup=48,
+                n_steps=96, max_leapfrog=24, map_steps=150, type_switch=False, group_cut=32,
+                group_margin_px=8)
+    cat, art = run_field_pipeline(scene.stamps[0], band=0, n_bands=1,
+                                  cfg=FieldConfig(**(base | over)), priors=w.PRIORS)
+    return scene, srcs, cat, art
+
+
+def _recovered(scene, srcs, cat, slots=(2,), pos_tol=0.4, flux_tol=0.15):
+    truth = sorted((tuple(np.round(scene.wcs.equa2duas(s_["u"]), 1)),
+                    tuple(s_["flux"][b] for b in slots)) for s_ in srcs)
+    est = sorted((tuple(np.round(e.du_mean, 1)), tuple(float(f) for f in e.flux_mean))
+                 for e in cat)
+    for (tu, tf), (eu, ef) in zip(truth, est):
+        assert np.hypot(tu[0] - eu[0], tu[1] - eu[1]) < pos_tol, (truth, est)
+        for t, e in zip(tf, ef):
+            assert abs(e - t) / t < flux_tol, (truth, est)
+
+
+def test_field_posterior_recovery_at_full_settings(cuda):
+    """tests/test_field.py:206 uncut on the card: 2 groups, 3 sources,
+    positions within 0.4'', fluxes within 15%, each group's R-hat < 1.1
+    and divergence < 0.05; K1 launched."""
+    before = mf.launch_counts()["mog_field_loglik_fwd"]
+    scene, srcs, cat, art = _small_field(cuda)
+    assert mf.launch_counts()["mog_field_loglik_fwd"] > before
+    assert art["n_groups"] == 2 and len(cat) == 3
+    _recovered(scene, srcs, cat)
+    for d in art["diagnostics"]:
+        assert d["rhat_max"] < 1.1 and d["divergence_rate"] < 0.05, d
+
+
+def test_field_multiband_joint_at_full_settings(cuda):
+    """tests/test_field.py:350 uncut on the card: two bands jointly recover
+    each band's fluxes and tighten the positions against band 2 alone."""
+    from celeste_tpu_torch.data.synthetic import make_synthetic_stamp, star_source
+    from celeste_tpu_torch.field import FieldConfig, run_field_pipeline
+
+    import torch_field_workers as w
+
+    srcs = [star_source(u=(30.0 - 8 * w.ASU / w.COSD, 10.0 - 8 * w.ASU), flux_r=55.0),
+            star_source(u=(30.0 + 8 * w.ASU / w.COSD, 10.0 + 8 * w.ASU), flux_r=45.0)]
+    scene = make_synthetic_stamp(srcs, shape=(64, 64), bands=(1, 2), seed=31, device=cuda)
+    cfg = FieldConfig(sample=True, seed=4, n_chains=12, probe_warmup=32, probe_steps=16,
+                      n_warmup=48, n_steps=96, max_leapfrog=24, map_steps=150,
+                      type_switch=False, group_cut=32, group_margin_px=8)
+    cat2, art2 = run_field_pipeline(scene.stamps, band=[0, 1], n_bands=2, cfg=cfg,
+                                    priors=w.PRIORS)
+    assert len(cat2) == 2 and all(e.kind == "star" for e in cat2)
+    _recovered(scene, srcs, cat2, slots=(1, 2))
+    for d in art2["diagnostics"]:
+        assert d["rhat_max"] < 1.1 and d["divergence_rate"] < 0.05, d
+    cat1, _ = run_field_pipeline(scene.stamps[1], band=0, n_bands=1, cfg=cfg, priors=w.PRIORS)
+    assert len(cat1) == 2
+    du_std2 = np.mean([np.mean(e.du_std) for e in cat2])
+    du_std1 = np.mean([np.mean(e.du_std) for e in cat1])
+    assert du_std2 < du_std1, (du_std2, du_std1)
+
+
+def test_field_segmented_sampling_matches_unsegmented_in_distribution(cuda):
+    """tests/test_field.py:386's settings on the card.  In the port a
+    segmented run draws from its segments' streams and an unsegmented one
+    from one stream per phase, so the two agree in distribution only (JAX
+    pins its key streams across segments): the same catalog kinds, means
+    within the larger posterior sd, spreads within a factor 1.34, R-hat <
+    1.15 and divergence < 0.05 per group."""
+    kw = dict(n_chains=8, probe_warmup=20, probe_steps=8, n_warmup=20, n_steps=20, map_steps=60)
+    _, _, cat_m, art_m = _small_field(cuda, **kw)
+    _, _, cat_s, art_s = _small_field(cuda, sample_segment=8, warmup_window=9, **kw)
+    assert art_m["samples"].shape == art_s["samples"].shape and len(cat_m) == len(cat_s)
+    for em, es in zip(cat_m, cat_s):
+        assert em.kind == es.kind
+        sf = max(float(em.flux_std[0]), float(es.flux_std[0]))
+        assert abs(float(em.flux_mean[0]) - float(es.flux_mean[0])) < sf
+        du_tol = max(float(np.max(em.du_std)), float(np.max(es.du_std)), 0.005)
+        assert np.hypot(*(np.asarray(em.du_mean) - es.du_mean)) < du_tol
+        assert 1 / 1.34 < float(em.flux_std[0]) / max(float(es.flux_std[0]), 1e-9) < 1.34
+    for d in art_s["diagnostics"]:
+        assert d["rhat_max"] < 1.15 and d["divergence_rate"] < 0.05, d
+
+
+def test_field_scale_accuracy_sampled(cuda):
+    """tests/test_field.py:487 on the card with the posterior stage the JAX
+    CPU lane could not afford: the 256x1024 survey frame, ~60 sources,
+    ``survey_scene_cfg()``; completeness, purity and kind accuracy >= 0.9,
+    matches >= 0.9 of the sources (the JAX test asks for all), position RMS
+    < 0.1'', |flux bias| < 0.05, position and flux z-RMS in [0.7, 1.4]."""
+    from celeste_tpu_torch.bench.field_scale import (
+        accuracy_report, make_survey_scene, survey_scene_cfg,
+    )
+    from celeste_tpu_torch.field import run_field_pipeline
+
+    import torch_field_workers as w
+
+    scene, srcs = make_survey_scene(device=cuda)
+    assert len(srcs) >= 50 and tuple(scene.stamps[0].counts.shape) == (256, 1024)
+    cat, art = run_field_pipeline(scene.stamps[0], band=0, n_bands=1, cfg=survey_scene_cfg(),
+                                  priors=w.PRIORS)
+    rep = accuracy_report(cat, scene, srcs)
+    assert rep["completeness"] >= 0.9 and rep["purity"] >= 0.9, rep
+    assert rep["kind_accuracy"] >= 0.9, rep
+    assert rep["pos_rms_arcsec"] < 0.1 and abs(rep["flux_rel_bias"]) < 0.05, rep
+    assert rep["n_matched"] >= 0.9 * len(srcs), rep
+    assert 0.7 <= rep["pos_z_rms"] <= 1.4 and 0.7 <= rep["flux_z_rms"] <= 1.4, rep

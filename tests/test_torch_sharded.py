@@ -383,6 +383,8 @@ def test_sharded_chees_adapts_as_one_process(worlds):
 def test_dryrun_multichip_on_four_cpu_ranks():
     out = dryrun_multichip(4, device="cpu")
     assert set(out) == {"accept_rate", "mean_state_abs", "logp_mean", "grad_abs_max", "eps",
-                        "traj", "pt_swaps_accepted", "pt_logp_cold"}
+                        "traj", "pt_swaps_accepted", "pt_logp_cold", "field_groups",
+                        "field_sources", "field_samples_mean"}
     assert all(np.isfinite(v) for v in out.values())
     assert out["grad_abs_max"] > 0.0 and 0.0 <= out["accept_rate"] <= 1.0
+    assert out["field_groups"] >= 2 and out["field_sources"] >= 2
