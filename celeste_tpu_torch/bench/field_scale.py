@@ -18,6 +18,7 @@ in a calibrated band.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from celeste_tpu_torch.data.synthetic import (
     galaxy_source,
@@ -25,7 +26,8 @@ from celeste_tpu_torch.data.synthetic import (
     star_source,
 )
 
-__all__ = ["make_survey_scene", "survey_scene_cfg", "accuracy_report"]
+__all__ = ["make_survey_scene", "survey_scene_cfg", "accuracy_report", "cluster_specs",
+           "cluster_group"]
 
 _COSD = np.cos(np.deg2rad(10.0))
 
@@ -100,3 +102,56 @@ def accuracy_report(catalog, scene, srcs):
 
     ref = reference_from_sources(srcs, scene.wcs, band_slots=[2])
     return catalog_accuracy(catalog, ref, max_sep_arcsec=1.0)
+
+
+def cluster_specs():
+    """A galaxy cluster on a 64x64 r-band frame: 10 stars and 10 galaxies
+    on a 5 x 4 grid 5 pixels apart (2.0''), inside the field's default
+    ``link_radius_px`` = 12 of each other, so they link into one fit group
+    of 20 sources (960 components a row).  (kind, constructor keywords)
+    pairs, for either package's ``star_source`` and ``galaxy_source``."""
+    rng = np.random.default_rng(20)
+    specs = []
+    for i in range(20):
+        x, y = 21.5 + 5.0 * (i % 5), 24.0 + 5.0 * (i // 5)
+        u = (30.0 + (x - 31.5) * 0.396 / 3600 / _COSD, 10.0 + (y - 31.5) * 0.396 / 3600)
+        if i % 2:
+            specs.append(("galaxy", dict(u=u, flux_r=float(rng.uniform(40.0, 80.0)),
+                                         sigma=float(rng.uniform(0.8, 1.6)),
+                                         ab=float(rng.uniform(0.5, 0.9)),
+                                         phi=float(rng.uniform(0.0, np.pi)))))
+        else:
+            specs.append(("star", dict(u=u, flux_r=float(rng.uniform(20.0, 50.0)))))
+    return specs
+
+
+CLUSTER_SEED = 37
+
+
+def cluster_group(device="cpu"):
+    """The cluster frame as one fit group at the field's layout: the scene,
+    the sources' pixel positions [20, 2], their rectangular states at the
+    truth [20, 7] (one band: a star's 3 slots then zeros; a galaxy's
+    position, log-flux, logit theta, log sigma, logit ab, phi), their kinds
+    (True: star), and the frame's pixel set (px, py, counts, sky, mask),
+    each [P] NumPy float32, the sky as the group's effective sky."""
+    srcs = [star_source(**kw) if kind == "star" else galaxy_source(**kw)
+            for kind, kw in cluster_specs()]
+    scene = make_synthetic_stamp(srcs, shape=(64, 64), bands=(2,), seed=CLUSTER_SEED,
+                                 device=device)
+    stamp = scene.stamps[0]
+    rects = np.zeros((len(srcs), 7), np.float32)
+    is_star = np.array([kind == "star" for kind, _ in cluster_specs()])
+    for i, s in enumerate(srcs):
+        rects[i, :3] = np.concatenate([scene.wcs.equa2duas(s["u"]), [np.log(s["flux"][2])]])
+        if not is_star[i]:
+            t, ab = s["theta_dev"], s["ab"]
+            rects[i, 3:] = [np.log(t / (1 - t)), np.log(s["sigma"]), np.log(ab / (1 - ab)),
+                            s["phi"]]
+    pos = np.stack([stamp.duas2pixel(torch.as_tensor(scene.wcs.equa2duas(s["u"]),
+                                                     dtype=torch.float32, device=device))
+                    .cpu().numpy() for s in srcs]).astype(np.float64)
+    px, py = stamp.pixel_grid()
+    pixels = tuple(t.reshape(-1).cpu().numpy().astype(np.float32)
+                   for t in (px, py, stamp.counts, stamp.sky, stamp.mask))
+    return scene, pos, rects, is_star, pixels

@@ -3,7 +3,7 @@
 built and timed in turns in one process on one card.
 
     python -m celeste_tpu_torch.bench.stamp_turns --parent DIR
-        [--parent-geometry none|k1|k7|all] [--out FILE]
+        [--parent-geometry none|k1|k7|sets|all] [--out FILE]
 
 ``DIR`` holds the earlier ``mog_field.cu`` and ``mog_common.cuh`` (for
 example ``git show <rev>:celeste_tpu_torch/csrc/mog_field.cu``) and, to
@@ -11,10 +11,12 @@ compare K8 too, the earlier ``mog_field_sep.cu``.  ``--parent-geometry``
 says which of the parent's entries take their launch geometry (CB, T) as
 this tree's do: ``none`` (before K1's cluster launch), ``k1`` (K1 but not
 K7: the sources before K7's redesign), ``k7`` (K1 and K7, but no pixel-set
-count: the sources before the pixel-set mode) or ``all`` (the default:
-this tree's interface, for a variant of it).  Every call here has one
-pixel set, so against a ``k7`` parent the outputs show whether the stamp's
-[1, P] calls kept their bits.  The script
+count: the sources before the pixel-set mode), ``sets`` (the pixel-set
+count, but no ``staged`` flag and no backward scratch: the sources before
+the staged path) or ``all`` (the default: this tree's interface, for a
+variant of it).  Against a ``k7`` parent the [1, P] outputs show whether
+the stamp's calls kept their bits; against ``sets`` or ``all`` the
+field's pixel-set shapes are compared too.  The script
 
 1. builds both sources with the package's nvcc flags plus ``-Xptxas -v``
    and prints each kernel's registers and spills;
@@ -23,7 +25,9 @@ pixel set, so against a ``k7`` parent the outputs show whether the stamp's
    its body) by opcode;
 3. times K1-fwd and K1-bwd of both at the shapes where the samplers call
    K1, K7 at the PPC's two launch shapes and over config 5's 48x128 field
-   at B=1024, and K8-fwd and K8-bwd at config 1's stamp (B=4096 and 65536)
+   at B=1024, K1-fwd, K1-bwd and K7 at the field's pixel-set shapes
+   (SET_SHAPES, a parent with the pixel-set count only), and K8-fwd and
+   K8-bwd at config 1's stamp (B=4096 and 65536)
    and at B=64 on a 128x128 stamp, in turns (parent, new, new, parent),
    each turn the best of 3 replays of a CUDA graph of 20 calls
    (``bench/timing.py``), so that a few-microsecond kernel is timed on the
@@ -71,6 +75,13 @@ K8_SHAPES = ((25, 4096), (25, 65536), (128, 64))
 # 48x128 field with its dense planes (C=126) at 1024 chains
 K7_SHAPES = (("star [32, 640]", "star", 25, 32), ("galaxy [32, 1024]", "galaxy", 31, 32),
              ("config-5 field B=1024", "field", None, 1024))
+
+# the field's pixel-set shapes (name, sets, rows per set, components, cutout
+# side): chip_smoke.py's PIXEL_SET_SHAPES, the detection and classify
+# cutouts and the groups of field and field_survey
+SET_SHAPES = (("cutout R=1", 16, 1, 48, 24), ("cutout R=2", 16, 2, 48, 24),
+              ("group 48x48 R=8", 4, 8, 96, 48), ("group 48x48 R=32", 4, 32, 96, 48),
+              ("group 32x32 R=8", 53, 8, 144, 32), ("group 32x32 R=32", 4, 32, 144, 32))
 
 
 def build(src: Path, out: Path) -> str:
@@ -133,11 +144,17 @@ def sass_loops(lib: Path, listing: Path) -> dict:
 
 def declare_parent(lib, geometry):
     """Declare the parent's entries: this tree's (``geometry="all"``), or
-    without the pixel-set count (``"k7"``), and also without the geometry
-    arguments of K7 (``"k1"``) or of K1 and K7 (``"none"``)."""
+    without the staged flag and scratch (``"sets"``), also without the
+    pixel-set count (``"k7"``), and also without the geometry arguments of
+    K7 (``"k1"``) or of K1 and K7 (``"none"``)."""
     mf._declare(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
     if geometry == "all":
+        return
+    if geometry == "sets":
+        lib.mog_field_loglik_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
+        lib.mog_field_loglik_bwd.argtypes = [p] * 18 + [i] * 6 + [p]
+        lib.mog_field_render.argtypes = [p] * 10 + [i] * 6 + [p]
         return
     lib.mog_field_loglik_fwd.argtypes = [p] * 12 + [i] * (4 if geometry == "none" else 6) + [p]
     lib.mog_field_loglik_bwd.argtypes = [p] * 18 + [i] * (3 if geometry == "none" else 5) + [p]
@@ -168,17 +185,20 @@ def shape_inputs(kind, side, b, device):
     return planes, mf.stamp_pixel_data(stamp), g, vecs, stamp
 
 
-def calls(lib, planes, pixels, g, geometry, sets=True):
+def calls(lib, planes, pixels, g, geometry, sets=True, staged=True):
     """(forward, backward) closures over preallocated outputs; ``geometry``
     is None for the parent's interface without it, ``sets`` False for one
-    without the pixel-set count (one set here)."""
+    without the pixel-set count (then one set), ``staged`` False for one
+    without the staged flag and the backward's scratch (every shape here
+    takes the whole-row path)."""
     b, c = planes[0].shape
-    p = pixels[0].shape[1]
+    s, p = pixels[0].shape
     out = torch.empty(b, device=g.device)
     grads = [torch.empty(b, c, device=g.device) for _ in range(6)]
     ptrs = [t.data_ptr() for t in (*planes, *pixels)]
-    extra = list(geometry) if geometry else []
-    n_sets = [1] if sets else []
+    extra = (list(geometry) if geometry else []) + ([0] if staged else [])
+    n_sets = [s] if sets else []
+    scratch = [None] if staged else []
 
     def fwd():
         stream = torch.cuda.current_stream().cuda_stream
@@ -190,23 +210,25 @@ def calls(lib, planes, pixels, g, geometry, sets=True):
     def bwd():
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mog_field_loglik_bwd(*ptrs, g.data_ptr(), *(t.data_ptr() for t in grads),
-                                       b, c, p, *n_sets, *extra, stream)
+                                       *scratch, b, c, p, *n_sets, *extra, stream)
         assert err == 0, err
         return grads
 
     return fwd, bwd
 
 
-def render_call(lib, planes, pixels, geometry, sets=True):
+def render_call(lib, planes, pixels, geometry, sets=True, staged=True):
     """A K7 closure over a preallocated output; ``geometry`` (CB, T), or
     None for a parent's interface without it (and without the pixel-set
-    count); ``sets`` False for one without the count."""
+    count); ``sets`` False for one without the count, ``staged`` False for
+    one without the staged flag."""
     b, c = planes[0].shape
     px, py, _, sky, _ = pixels
-    p = px.shape[1]
+    s, p = px.shape
     out = torch.empty(b, p, device=px.device)
     ptrs = [t.data_ptr() for t in (*planes, px, py, sky)]
-    extra = ([1] if sets else []) + (list(geometry) if geometry else [])
+    extra = (([s] if sets else []) + (list(geometry) if geometry else [])
+             + ([0] if staged else []))
 
     def fn():
         stream = torch.cuda.current_stream().cuda_stream
@@ -242,8 +264,9 @@ def k7_turns(report, libs, parent_geometry, device):
         p = pixels[0].shape[1]
         chosen = mf.k7_geometry(b, p)
         fns = {"parent": render_call(libs["parent"], planes, pixels,
-                                     chosen if parent_geometry in ("k7", "all") else None,
-                                     sets=parent_geometry == "all"),
+                                     chosen if parent_geometry in ("k7", "sets", "all") else None,
+                                     sets=parent_geometry in ("sets", "all"),
+                                     staged=parent_geometry == "all"),
                "new": render_call(libs["new"], planes, pixels, chosen)}
         want = fns["parent"]().clone()
         got = fns["new"]().clone()
@@ -277,6 +300,43 @@ def k7_turns(report, libs, parent_geometry, device):
               f"{row['new vs plain max abs']:.4g} (parent vs plain "
               f"{row['parent vs plain max abs']:.4g}); fastest geometry {best}: "
               f"{sweep[best]:.6f} ms; sweep {sweep}", flush=True)
+
+
+def set_turns(report, libs, parent_geometry, device):
+    """K1-fwd, K1-bwd and K7 at the field's pixel-set shapes (SET_SHAPES,
+    ``mog_field.random_pixel_set_problem``) in turns with the parent."""
+    for name, n_sets, r, c, side in SET_SHAPES:
+        planes, sets = mf.random_pixel_set_problem(n_sets, r, c, side, seed=n_sets * r)
+        planes = [torch.as_tensor(a, device=device) for a in planes]
+        sets = [torch.as_tensor(a, device=device) for a in sets]
+        b, p = n_sets * r, sets[0].shape[1]
+        g = torch.as_tensor(np.random.default_rng(b).normal(size=b).astype(np.float32),
+                            device=device)
+        k1 = mf.k1_geometry(b, p, n_sets)
+        fns = {"parent": calls(libs["parent"], planes, sets, g, k1,
+                               staged=parent_geometry == "all"),
+               "new": calls(libs["new"], planes, sets, g, k1)}
+        row = {"kernel": "K1", "sets": n_sets, "chains": b, "n_comp": c, "n_pix": p,
+               "geometry (CB, T)": k1}
+        report_row(report, f"sets {name}", f"K1 sets {name} B={b} C={c} S={n_sets} (CB, T)={k1}",
+                   row, *in_turns(fns))
+        k7 = mf.k7_geometry(b, p, n_sets)
+        fns = {"parent": render_call(libs["parent"], planes, sets, k7,
+                                     staged=parent_geometry == "all"),
+               "new": render_call(libs["new"], planes, sets, k7)}
+        want, got = fns["parent"]().clone(), fns["new"]().clone()
+        times = {"parent": [], "new": []}
+        for tag in ("parent", "new", "new", "parent"):
+            times[tag].append(graph_ms(fns[tag]))
+        row = {"kernel": "K7", "sets": n_sets, "chains": b, "n_comp": c, "n_pix": p,
+               "geometry (CB, T)": k7, "parent_ms": min(times["parent"]),
+               "new_ms": min(times["new"]), "turns_ms": times,
+               "new vs parent max abs": float((got - want).abs().max())}
+        report["shapes"][f"K7 sets {name}"] = row
+        print(f"[turns] K7 sets {name}: B={b} C={c} S={n_sets} P={p} (CB, T)={k7}: parent "
+              f"{row['parent_ms']:.6f} -> new {row['new_ms']:.6f} ms (turns {times['parent']} / "
+              f"{times['new']}); max abs vs parent {row['new vs parent max abs']:.4g}",
+              flush=True)
 
 
 def sep_calls(lib, planes, pixels, g):
@@ -338,11 +398,13 @@ def report_row(report, name, what, row, diff, times):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
-    ap.add_argument("--parent-geometry", choices=("none", "k1", "k7", "all"), default="all",
+    ap.add_argument("--parent-geometry", choices=("none", "k1", "k7", "sets", "all"),
+                    default="all",
                     help="which of the parent's entries take (CB, T) as this tree's do: none, "
                          "K1 only (the sources before K7's redesign), K1 and K7 with no "
-                         "pixel-set count (before the pixel-set mode), or all (a variant of "
-                         "this tree)")
+                         "pixel-set count (before the pixel-set mode), K1 and K7 with the "
+                         "count but no staged flag (before the staged path), or all (a "
+                         "variant of this tree)")
     ap.add_argument("--out", type=Path,
                     default=_build.BUILD_DIR / "stamp_turns" / "stamp_turns.json")
     args = ap.parse_args()
@@ -374,7 +436,8 @@ def main() -> int:
         geometry = mf.k1_geometry(b, pixels[0].shape[1])
         fns = {"parent": calls(libs["parent"], planes, pixels, g,
                                None if args.parent_geometry == "none" else geometry,
-                               sets=args.parent_geometry == "all"),
+                               sets=args.parent_geometry in ("sets", "all"),
+                               staged=args.parent_geometry == "all"),
                "new": calls(libs["new"], planes, pixels, g, geometry)}
         row = {"kernel": "K1", "kind": kind, "stamp": f"{side}x{side}", "chains": b,
                "n_comp": planes[0].shape[1], "n_pix": pixels[0].shape[1],
@@ -382,6 +445,8 @@ def main() -> int:
         report_row(report, name, f"K1 {kind} {side}x{side} B={b} (CB, T)={geometry}", row,
                    *in_turns(fns))
     k7_turns(report, libs, args.parent_geometry, device)
+    if args.parent_geometry in ("sets", "all"):
+        set_turns(report, libs, args.parent_geometry, device)
 
     if (args.parent / "mog_field_sep.cu").exists():
         from celeste_tpu_torch.kernels import mog_field_sep as ms

@@ -40,12 +40,12 @@ serves a whole stage, its rows set-major.  The row order per call site:
   group sampling          group g's chains, R = n_chains (32 for ``field``),
                           centered likelihood.
 
-On the card K1 stages a row's components in shared memory: about 800 a
-row forward and 400 for K1-bwd at 8 chains a block.  A group row carries
-S_max galaxy-wide slots of 48 components (a star's inert past 3), so a
-group of more than ~8 sources is refused by the launch, whose error names
-B and C; JAX's plain path has no such cap.  The configs here have S_max
-2-3.
+A group row carries S_max galaxy-wide slots of 48 components (a star's
+inert past 3): a cluster linked into one group of 20 sources is 960
+components a row.  On the card K1 stages a row's components in shared
+memory whole where they fit (about 800 a row forward and 400 for K1-bwd
+at 8 chains a block) and 96 at a time past that, with the same bits, so
+any group runs, as on JAX's plain path.  The configs here have S_max 2-3.
 
 The effective skies and the bookkeeping (ownership, origins, canvases) are
 JAX's, in float64 NumPy on the host.  Pixel coordinates stay global: a

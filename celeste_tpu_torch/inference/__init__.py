@@ -42,7 +42,7 @@ from celeste_tpu_torch.inference.whiten import (  # noqa: F401
     whiten_logdensity,
     whitened_chees_run,
 )
-from celeste_tpu_torch.inference.runner import run_chains_ensemble  # noqa: F401
+from celeste_tpu_torch.inference.runner import run_chains, run_chains_ensemble  # noqa: F401
 from celeste_tpu_torch.inference.gibbs import (  # noqa: F401
     GibbsInfo,
     GibbsState,

@@ -49,6 +49,11 @@ WARPS = 8
 MAX_CLUSTER = 8
 N_SM = 132                  # the H100's streaming multiprocessors
 CHUNK_GROUPS = 32
+# A row's components are staged in shared memory whole where they fit the
+# SMEM_OPTIN bytes a block may take (the H100's 227 KB), else 96 at a time
+# (csrc/mog_field.cu: the staged path, no component cap)
+SMEM_OPTIN = 232448
+BWD_ENTRIES = 8             # the general backward's components per moment pass
 
 
 def stamp_pixel_data(stamp):
@@ -183,12 +188,13 @@ def random_pixel_set_problem(n_sets: int, rows_per_set: int, c: int, side: int, 
     px = origins[:, :1] + np.tile(np.arange(side), side)[None, :]      # [S, P]
     py = origins[:, 1:] + np.repeat(np.arange(side), side)[None, :]
     sky = rng.uniform(90.0, 110.0, (n_sets, pix))
-    first = slice(0, b, rows_per_set)
-    lam = sky + np.sum(amp[first, :, None] * np.exp(-0.5 * (
-        pa[first, :, None] * (px[:, None] - mx[first, :, None]) ** 2
-        + 2 * pb[first, :, None] * (px[:, None] - mx[first, :, None])
-        * (py[:, None] - my[first, :, None])
-        + pc[first, :, None] * (py[:, None] - my[first, :, None]) ** 2)), axis=1)
+    lam = np.empty_like(sky)
+    for k in range(n_sets):                     # a set at a time: [C, P] temporaries
+        i = k * rows_per_set
+        dx, dy = px[k] - mx[i, :, None], py[k] - my[i, :, None]
+        lam[k] = sky[k] + np.sum(amp[i, :, None] * np.exp(-0.5 * (
+            pa[i, :, None] * dx ** 2 + 2 * pb[i, :, None] * dx * dy
+            + pc[i, :, None] * dy ** 2)), axis=0)
     counts = rng.poisson(lam).astype(np.float64)
     mask = (rng.uniform(size=(n_sets, pix)) > 0.02).astype(np.float64)
     pad = -pix % LANE
@@ -276,6 +282,34 @@ def k7_geometry(n_chains: int, n_pix: int, n_sets: int = 1) -> tuple[int, int]:
     return _split(n_chains, n_pix, n_pix, _max_cb(n_chains, n_sets))
 
 
+def whole_row_smem(kernel: str, cb: int, n_comp: int) -> int:
+    """Shared-memory bytes of a block that stages its CB rows' ``n_comp``
+    components whole (``csrc/mog_field.cu`` fwd_smem_bytes, bwd_smem_bytes,
+    render_smem_bytes): ``kernel`` is "fwd", "bwd" or "render"."""
+    chunk = 32 * CHUNK_GROUPS
+    comps = 32 * cb * n_comp                # two float4 a component
+    if kernel == "fwd":
+        return comps + chunk * 20 + (chunk + WARPS + cb) * 4
+    if kernel == "bwd":
+        n_pad = -(-n_comp // BWD_ENTRIES) * BWD_ENTRIES
+        return 32 * cb * n_pad + chunk * 20 + (cb * chunk + WARPS * n_pad * 6) * 4
+    if kernel == "render":
+        return comps + chunk * 12
+    raise ValueError(kernel)
+
+
+def components_staged(kernel: str, cb: int, n_comp: int) -> bool:
+    """Whether ``kernel`` ("fwd", "bwd" or "render") at CB chains a block
+    takes the staged path: only where the whole rows would not fit a
+    block's shared memory, so that every shape that fits keeps the
+    whole-row path.  The one-pass backward (C <= 4) stages no component.
+    The wrappers look it up at each call (the card tests and the smoke
+    replace it to hold the two paths bitwise equal where both fit)."""
+    if kernel == "bwd" and n_comp <= 4:
+        return False
+    return whole_row_smem(kernel, cb, n_comp) > SMEM_OPTIN
+
+
 def k1_pixel_slices(n_pix: int, cb: int, t: int) -> list[list[int]]:
     """The pixels each of a chain's T * (8 / CB) warps takes in K1 and K7,
     in the order a lane meets them (the kernels' slicing, written out): rank
@@ -304,11 +338,11 @@ def k1_pixel_slices(n_pix: int, cb: int, t: int) -> list[list[int]]:
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mog_field_loglik_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
+    lib.mog_field_loglik_fwd.argtypes = [p] * 12 + [i] * 8 + [p]
     lib.mog_field_loglik_fwd.restype = i
-    lib.mog_field_loglik_bwd.argtypes = [p] * 18 + [i] * 6 + [p]
+    lib.mog_field_loglik_bwd.argtypes = [p] * 19 + [i] * 7 + [p]
     lib.mog_field_loglik_bwd.restype = i
-    lib.mog_field_render.argtypes = [p] * 10 + [i] * 6 + [p]
+    lib.mog_field_render.argtypes = [p] * 10 + [i] * 7 + [p]
     lib.mog_field_render.restype = i
     lib.mog_field_error_string.argtypes = [i]
     lib.mog_field_error_string.restype = ctypes.c_char_p
@@ -357,16 +391,11 @@ def _check_inputs(planes, pixels, extra=()):
 
 
 def _raise_on_error(lib, err, name, b, c):
-    """Raise on a launch's error code.  Each of a block's chains stages its
-    row's C components in shared memory, so a row of too many components
-    (about 400 for K1-bwd at 8 chains per block, about 8 sources of a field
-    group) is refused by the launch."""
+    """Raise on a launch's error code, naming the kernel, B, C and the
+    error."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed at B={b}, C={c}: "
-                           f"{lib.mog_field_error_string(err).decode()} ({err}); a block stages "
-                           f"its rows' components in shared memory, so past its size give each "
-                           f"row fewer components (the stamp pipeline: a lower max_sources; the "
-                           f"field: fewer sources per fit group, a smaller link_radius_px)")
+                           f"{lib.mog_field_error_string(err).decode()} ({err})")
 
 
 def _ptrs(ts):
@@ -375,19 +404,21 @@ def _ptrs(ts):
 
 def loglik_fwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask,
                     centered: bool = False):
-    """Launch the forward kernel: [B] log-likelihoods on the planes' card."""
+    """Launch the forward kernel: [B] log-likelihoods on the planes' card,
+    on the path :func:`components_staged` picks."""
     planes = (amp, mx, my, pa, pb, pc)
     pixels = (px, py, counts, sky, mask)
     b, c, p, s, device = _check_inputs(planes, pixels)
     out = torch.empty(b, dtype=torch.float32, device=device)
     if b == 0:
         return out
+    cb, t = k1_geometry(b, p, s)
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mog_field_loglik_fwd(*_ptrs(planes), *_ptrs(pixels), out.data_ptr(),
-                                       b, c, p, s, int(bool(centered)), *k1_geometry(b, p, s),
-                                       stream)
+                                       b, c, p, s, int(bool(centered)), cb, t,
+                                       int(components_staged("fwd", cb, c)), stream)
     _raise_on_error(lib, err, "mog_field_loglik_fwd", b, c)
     loglik_fwd_cuda.launches += 1
     return out
@@ -397,18 +428,24 @@ loglik_fwd_cuda.launches = 0
 
 
 def loglik_bwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
-    """Launch the backward kernel: the six [B, C] plane cotangents."""
+    """Launch the backward kernel: the six [B, C] plane cotangents.  The
+    staged path keeps each pixel's g_lam in a [B, P] float32 scratch that
+    this wrapper allocates."""
     planes = (amp, mx, my, pa, pb, pc)
     pixels = (px, py, counts, sky, mask)
     b, c, p, s, device = _check_inputs(planes, pixels, extra=[(g, (amp.shape[0],), "g")])
     grads = tuple(torch.empty(b, c, dtype=torch.float32, device=device) for _ in range(6))
     if b == 0:
         return grads
+    cb, t = k1_geometry(b, p, s)
+    staged = components_staged("bwd", cb, c)
+    glam = torch.empty(b, p, dtype=torch.float32, device=device) if staged else None
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mog_field_loglik_bwd(*_ptrs(planes), *_ptrs(pixels), g.data_ptr(),
-                                       *_ptrs(grads), b, c, p, s, *k1_geometry(b, p, s), stream)
+                                       *_ptrs(grads), None if glam is None else glam.data_ptr(),
+                                       b, c, p, s, cb, t, int(staged), stream)
     _raise_on_error(lib, err, "mog_field_loglik_bwd", b, c)
     loglik_bwd_cuda.launches += 1
     return grads
@@ -418,18 +455,21 @@ loglik_bwd_cuda.launches = 0
 
 
 def render_cuda(amp, mx, my, pa, pb, pc, px, py, sky):
-    """Launch the render kernel: lambda [B, P] on the planes' card."""
+    """Launch the render kernel: lambda [B, P] on the planes' card, on the
+    path :func:`components_staged` picks."""
     planes = (amp, mx, my, pa, pb, pc)
     pixels = (px, py, sky)
     b, c, p, s, device = _check_inputs(planes, pixels)
     out = torch.empty(b, p, dtype=torch.float32, device=device)
     if b == 0 or p == 0:
         return out
+    cb, t = k7_geometry(b, p, s)
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mog_field_render(*_ptrs(planes), *_ptrs(pixels), out.data_ptr(),
-                                   b, c, p, s, *k7_geometry(b, p, s), stream)
+                                   b, c, p, s, cb, t, int(components_staged("render", cb, c)),
+                                   stream)
     _raise_on_error(lib, err, "mog_field_render", b, c)
     render_cuda.launches += 1
     return out

@@ -13,6 +13,8 @@ import torch
 
 from celeste_tpu_torch.likelihood._pixel import LAMBDA_MIN, pixel_loglik  # noqa: F401
 from celeste_tpu_torch.model.render import expected_image
+from celeste_tpu_torch.model.stamp import Stamp
+from celeste_tpu_torch.mog import MoG2D
 
 
 def poisson_loglik(lam, counts, mask=None, normalized: bool = False,
@@ -32,3 +34,18 @@ def stamp_loglik(sources, stamp, band=None, normalized: bool = False,
     end; the fused path is ``kernels.mog_field.batched_stamp_loglik``."""
     lam = expected_image(sources, stamp, band)
     return poisson_loglik(lam, stamp.counts, stamp.mask, normalized, centered)
+
+
+def multi_stamp_loglik(sources, stamps, normalized: bool = False,
+                       centered: bool = False):
+    """Sum of the per-band stamp log-likelihoods: ``stamps`` is a stacked
+    Stamp (``model.stamp.stack_stamps``) with a leading band axis, each
+    band's stamp rendered with its own band index."""
+    total = 0.0
+    for i in range(stamps.counts.shape[0]):
+        st = Stamp(stamps.counts[i], stamps.sky[i], stamps.iota[i], stamps.mask[i],
+                   MoG2D(stamps.psf.w[i], stamps.psf.mu[i], stamps.psf.cov[i]),
+                   stamps.wcs_A[i], stamps.wcs_p0[i], int(stamps.band[i]))
+        total = total + stamp_loglik(sources, st, band=st.band, normalized=normalized,
+                                     centered=centered)
+    return total

@@ -16,6 +16,10 @@ import torch
 import torch.nn.functional as F
 
 
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
 def logit(p):
     return torch.log(p) - torch.log1p(-p)
 

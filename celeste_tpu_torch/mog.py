@@ -50,6 +50,12 @@ def _f32(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def mog(w, mu, cov, device="cpu") -> MoG2D:
+    """Convenience constructor casting inputs to float32 tensors on
+    ``device``."""
+    return MoG2D(_f32(w, device), _f32(mu, device), _f32(cov, device))
+
+
 def precision_form(m: MoG2D):
     """Flatten a MoG to the (amp, mu, prec, half-log-det) tuple the fused
     kernel consumes.
@@ -82,6 +88,16 @@ def eval_grid(m: MoG2D, px, py):
             + prec[..., :, 2] * dy * dy)
     comp = torch.exp(lognorm - 0.5 * quad)
     return torch.sum(amp * comp, dim=-1)
+
+
+def logpdf_grid(m: MoG2D, px, py):
+    """Log density at (px, py) by a logsumexp over components (safe for tail
+    pixels; for priors and tests, not the hot path)."""
+    amp, mu, prec, lognorm = precision_form(m)
+    dx = px[..., None] - mu[..., :, 0]
+    dy = py[..., None] - mu[..., :, 1]
+    quad = prec[..., :, 0] * dx * dx + 2.0 * prec[..., :, 1] * dx * dy + prec[..., :, 2] * dy * dy
+    return torch.logsumexp(torch.log(amp) + lognorm - 0.5 * quad, dim=-1)
 
 
 def convolve(f: MoG2D, g: MoG2D) -> MoG2D:

@@ -22,6 +22,7 @@ from celeste_tpu_torch.parallel.mesh import (  # noqa: F401
     launch,
     make_mesh,
     process_group,
+    replicated,
 )
 from celeste_tpu_torch.parallel.ensemble import (  # noqa: F401
     ChainShard,

@@ -101,6 +101,12 @@ def chain_sharding(mesh: DeviceMesh | None, n_chains: int) -> slice:
     return slice(start, start + per)
 
 
+def replicated(mesh: DeviceMesh | None) -> slice:
+    """The rows of an axis that every rank holds whole (counterpart of the
+    JAX package's replicated ``NamedSharding``): all of them, on any mesh."""
+    return slice(None)
+
+
 @contextlib.contextmanager
 def process_group(backend: str, rank: int = 0, world: int = 1, init_file: str | None = None):
     """Initialise the default process group for the body, and destroy it after.

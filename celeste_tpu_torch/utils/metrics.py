@@ -1,5 +1,8 @@
 """Structured metrics as JSONL (counterpart of
-``celeste_tpu/utils/metrics.py``): one object per event, host side only."""
+``celeste_tpu/utils/metrics.py``): one object per event, host side only.
+PyTorch runs eagerly, so the JAX package's ``device_log`` (a callback out of
+jitted code) is a plain call here: it writes the tensors' values through
+the process's default logger (``get_logger``)."""
 
 from __future__ import annotations
 
@@ -34,3 +37,21 @@ class MetricsLogger:
     def close(self):
         if self._owns:
             self._fh.close()
+
+
+_DEFAULT_LOGGER: MetricsLogger | None = None
+
+
+def get_logger() -> MetricsLogger:
+    """The process's default logger (JSONL to stderr), made at first use."""
+    global _DEFAULT_LOGGER
+    if _DEFAULT_LOGGER is None:
+        _DEFAULT_LOGGER = MetricsLogger()
+    return _DEFAULT_LOGGER
+
+
+def device_log(event: str, **fields):
+    """Emit a metrics record of tensor fields through the default logger;
+    each tensor is read to the host, so call it sparingly (per adaptation
+    window, not per step)."""
+    get_logger().log(event, **fields)

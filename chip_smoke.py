@@ -144,7 +144,15 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    count; then the field's checkpoint and resume on ``field``'s frame at
    FIELD_RESUME (tests/test_field.py's resume test's cut): a run stopped
    after its first sampling segment and resumed equals the unbroken one
-   bitwise;
+   bitwise; then K1-fwd, K1-bwd and K7 on rows of LARGE_C = 400, 960 and
+   2400 components (past the whole-row staging: the staged path) in the
+   stamp mode at B = 64 and 1024 on 48x48 and on field_survey's and
+   field's group pixel sets, against their plain versions at the
+   tolerances above, one launch a call, twice bitwise, the staged and
+   whole-row paths bitwise equal where both fit, timed at 960 and 2400;
+   and the field's group log density of a galaxy cluster linked into one
+   group of 20 sources (960 components a row) at 32 chains through K1,
+   value and gradient against the CPU's plain mode;
 11. drive the source-sharded config 5 at full width (12 sources, 48x128,
    1024 chains, per-source radii), every tiled counter set to 0 just
    before and read just after: on a one-rank NCCL mesh (1, 1), in this
@@ -189,7 +197,8 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    pixel-set mode at PIXEL_SET_SHAPES, kernel and plain;
 13. print K1's rows by shape as a JSON line (``k1_shapes``, with the time
     lost, launches x (ms - bound), summed per kernel in ``k1_lost_s``), K7's
-    likewise (``k7_shapes``, ``k7_lost_s``), then the kernels' JSON line
+    likewise (``k7_shapes``, ``k7_lost_s``), the rows of many components
+    (``large_c``; no main-path run launches them), then the kernels' JSON line
     (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd, and K1-fwd, K1-bwd and K7 in
     the pixel-set mode: the field runs' launches, timed at the ``field``
     group sampler's shape [128, 96] x 4 sets of 2304 pixels and at the
@@ -217,6 +226,7 @@ stay as their configs have them.  Each phase's wall is printed as a
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -319,6 +329,16 @@ PIXEL_SET_SHAPES = (("cutout R=1", 16, 1, 48, 24), ("cutout R=2", 16, 2, 48, 24)
                     ("group 48x48 R=8", 4, 8, 96, 48), ("group 48x48 R=32", 4, 32, 96, 48),
                     ("group 32x32 R=8", 53, 8, 144, 32), ("group 32x32 R=32", 4, 32, 144, 32))
 FIELD_RHAT, FIELD_DIVERGENCE = 1.1, 0.05
+# phase g: K1 and K7 on rows of many components (the staged path past the
+# whole-row staging): 400 (K1-bwd's whole-row limit at 8 chains a block), a
+# field group of 20 sources (960) and of 50 (2400), in the stamp mode at B =
+# 64 and 1024 on 48x48 and on the field's group pixel sets (field_survey's
+# [424, C] x 53 sets of 32x32, field's [128, C] x 4 of 48x48); timed at
+# LARGE_C_TIMED
+LARGE_C = (400, 960, 2400)
+LARGE_C_TIMED = (960, 2400)
+LARGE_C_LAYOUTS = (("stamp B=64 48x48", 1, 64, 48), ("stamp B=1024 48x48", 1, 1024, 48),
+                   ("field_survey groups", 53, 8, 32), ("field groups", 4, 32, 48))
 # the field's resume check, at the cut of tests/test_field.py's resume test
 FIELD_RESUME = dict(n_chains=8, probe_warmup=20, probe_steps=8, n_warmup=20, n_steps=20,
                     map_steps=60, sample_segment=8, warmup_window=9, type_switch=False,
@@ -370,6 +390,17 @@ def max_abs_err(got, want, rtol, atol, what):
           f"{what}: {int(bad.sum())} values outside rtol={rtol} atol={atol}, "
           f"max abs err {float(err.max()):.4g}")
     return float(err.max())
+
+
+def once_ms(fn):
+    """(fn(), ms of that one call), timed with CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def time_ms(fn, reps):
@@ -1834,6 +1865,153 @@ def pixel_set_timings(card, problems):
     return out
 
 
+def plain_rows(plain, planes, pixels, extra=(), chunk=32, **kw):
+    """A plain version over chunks of rows (a [1024, 2400, 2304]
+    intermediate is 22 GB whole), the pixel sets expanded to rows."""
+    from celeste_tpu_torch.kernels import mog_field as mf
+
+    b = planes[0].shape[0]
+    rows = mf.rows_of_sets(tuple(pixels), b)
+    outs = []
+    for c0 in range(0, b, chunk):
+        sl = slice(c0, c0 + chunk)
+        pix = [t if t.shape[0] == 1 else t[sl] for t in rows]
+        outs.append(plain(*(p[sl] for p in planes), *pix, *(e[sl] for e in extra), **kw))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+@contextlib.contextmanager
+def forced_path(staged):
+    """The stamp kernels' wrappers take the staged (or the whole-row) path
+    at any C inside the block."""
+    from celeste_tpu_torch.kernels import mog_field as mf
+
+    real = mf.components_staged
+    mf.components_staged = lambda kernel, cb, c: staged
+    try:
+        yield
+    finally:
+        mf.components_staged = real
+
+
+def large_c_checks(device, card):
+    """Phase g, rows of LARGE_C components at LARGE_C_LAYOUTS (random planes
+    around each set's cutout, the first C of 2400 components): K1-fwd
+    (centered), K1-bwd and K7 against their plain versions (fwd rtol 2e-6 +
+    atol 0.5, bwd rtol 5e-4 + atol 5e-2, K7 rtol 1e-5 + atol 1e-3), one
+    launch a call, twice bitwise; where both paths fit, the staged and
+    whole-row paths bitwise equal.  Then the field's group log density of
+    a galaxy cluster linked into one group of 20 sources
+    (``bench.field_scale.cluster_group``, 960 components a row) at 32
+    chains: one K1-fwd and one K1-bwd launch, value and gradient against
+    the CPU's plain mode on 4 of the chains.  Device ms per call at
+    LARGE_C_TIMED (a CUDA graph of 5 calls, best of 3), the plain version's
+    (its one call above, CUDA events), the bound.  Returns the rows."""
+    from celeste_tpu_torch import field as tfield
+    from celeste_tpu_torch.bench.field_scale import cluster_group
+    from celeste_tpu_torch.bench.timing import graph_ms
+    from celeste_tpu_torch.kernels import mog_field as mf
+    from celeste_tpu_torch.model.priors import FluxPrior, SourcePriors
+
+    rows = []
+    kernels = {"K1-fwd": ("fwd", mf.loglik_fwd_cuda, mf._loglik_torch, FWD_TOL["star"],
+                          "mog_field_loglik_fwd"),
+               "K1-bwd": ("bwd", mf.loglik_bwd_cuda, mf._loglik_bwd_torch, BWD_TOL,
+                          "mog_field_loglik_bwd"),
+               "K7": ("render", mf.render_cuda, mf._render_torch, LAM_TOL, "mog_field_render")}
+    for name, n_sets, r, side in LARGE_C_LAYOUTS:
+        planes_np, sets_np = mf.random_pixel_set_problem(n_sets, r, max(LARGE_C), side, seed=r)
+        sets = [torch.as_tensor(a, device=device) for a in sets_np]
+        b, pix_pad = n_sets * r, sets[0].shape[1]
+        g = torch.as_tensor(np.random.default_rng(b).normal(size=b).astype(np.float32),
+                            device=device)
+        for c in LARGE_C:
+            planes = [torch.as_tensor(np.ascontiguousarray(a[:, :c]), device=device)
+                      for a in planes_np]
+            args = {"K1-fwd": ((*planes, *sets), {"centered": True}, ()),
+                    "K1-bwd": ((*planes, *sets, g), {}, (g,)),
+                    "K7": ((*planes, sets[0], sets[1], sets[3]), {}, ())}
+            bounds = k1_bounds(b, c, side * side, pix_pad, n_sets)
+            bounds["K7"] = k7_bound(b, c, side * side, pix_pad, n_sets)
+            for kernel, (kind, fn, plain, tol, counter) in kernels.items():
+                a, kw, extra = args[kernel]
+                what = f"large C {name} {kernel} B={b} C={c}"
+                before = mf.launch_counts()[counter]
+                got = fn(*a, **kw)
+                check(mf.launch_counts()[counter] == before + 1, f"{what}: not one launch")
+                again = fn(*a, **kw)
+                pix = a[6:6 + (3 if kernel == "K7" else 5)]
+                want, plain_ms = once_ms(lambda: plain_rows(plain, planes, pix, extra, **kw))
+                cb = (mf.k7_geometry if kernel == "K7" else mf.k1_geometry)(b, pix_pad, n_sets)[0]
+                staged = mf.components_staged(kind, cb, c)
+                both = mf.whole_row_smem(kind, cb, c) <= mf.SMEM_OPTIN
+                other = None
+                if both:
+                    with forced_path(not staged):
+                        other = fn(*a, **kw)
+                if kernel == "K1-bwd":
+                    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                          f"{what}: not bitwise repeatable")
+                    if both:
+                        check(all(torch.equal(x, y) for x, y in zip(got, other)),
+                              f"{what}: the staged and whole-row paths differ")
+                    err = max(max_abs_err(x, w, *tol, what) for x, w in zip(got, want))
+                else:
+                    check(torch.equal(got, again), f"{what}: not bitwise repeatable")
+                    check(other is None or torch.equal(got, other),
+                          f"{what}: the staged and whole-row paths differ")
+                    err = max_abs_err(got, want, *tol, what)
+                row = {"kernel": kernel, "shape": f"{name} B={b} C={c}" + (
+                           f" S={n_sets}" if n_sets > 1 else ""), "chains": b,
+                       "components": c, "sets": n_sets, "pixels": side * side,
+                       "pixels_padded": pix_pad, "cb": cb, "staged": staged,
+                       "both_paths_bitwise": both, "max_abs_err": err, "launches": 0}
+                if c in LARGE_C_TIMED:
+                    row["ms"] = graph_ms(lambda: fn(*a, **kw), reps=5)
+                    row["bound_ms"], row["bound_by"] = bounds[kernel]
+                    row["plain_ms"] = plain_ms
+                    row["lost_s"] = 0.0
+                rows.append(row)
+    priors = SourcePriors(flux=FluxPrior(log_ref_mean=3.2, log_ref_std=2.0))
+    out = {}
+    for dev, n in (("cpu", 4), (device, 32)):
+        scene, _, rects, is_star, pixels = cluster_group(dev)
+        fr = tfield._Frames([scene.stamps[0]], [0], 1, priors)
+        sets = [mf.pad_pixel_sets(*(torch.as_tensor(a[None], device=dev) for a in pixels))]
+        logd = tfield._group_logdensity(fr, sets, torch.as_tensor(is_star[None], device=dev),
+                                        torch.ones(1, len(is_star), dtype=torch.bool,
+                                                   device=dev))
+        x = (rects.reshape(1, -1)
+             + 0.01 * np.random.default_rng(3).normal(size=(32, rects.size))).astype(np.float32)
+        xt = torch.tensor(x[:n], device=dev, requires_grad=True)
+        before = mf.launch_counts()
+        val = logd(xt)
+        (grad,) = torch.autograd.grad(val.sum(), xt)
+        after = mf.launch_counts()
+        out[str(dev)] = (val.detach().cpu()[:4], grad.cpu()[:4],
+                         {k: after[k] - before[k] for k in after})
+    check(out[str(device)][2] == {"mog_field_loglik_fwd": 1, "mog_field_loglik_bwd": 1,
+                                  "mog_field_render": 0},
+          f"the 20-source group's launches {out[str(device)][2]}")
+    err_v = max_abs_err(out[str(device)][0], out["cpu"][0], *FWD_TOL["star"],
+                        "the 20-source group's log density")
+    err_g = max_abs_err(out[str(device)][1], out["cpu"][1], *BWD_TOL,
+                        "the 20-source group's gradient")
+    print(f"[large C] K1-fwd, K1-bwd, K7 at C={LARGE_C} on {[n for n, *_ in LARGE_C_LAYOUTS]} "
+          f"match their plain versions, one launch a call, bitwise repeatable, staged == "
+          f"whole-row where both fit; the 20-source group (960 components a row) at 32 chains: "
+          f"value err {err_v:.4g}, gradient err {err_g:.4g} against the CPU ({card})", flush=True)
+    for r in rows:
+        if "ms" in r:
+            print(f"    {r['kernel']} {r['shape']}: CB={r['cb']} staged={r['staged']} "
+                  f"ms={r['ms']:.6f} plain={r['plain_ms']:.6f} bound={r['bound_ms']:.6f} "
+                  f"({r['bound_by']}) "
+                  f"max abs err {r['max_abs_err']:.4g}", flush=True)
+    return rows
+
+
 def field_stages():
     """Wrap the field pipeline's stage functions to record each call's K1
     and K7 launches and wall time: returns (the stage list, a function that
@@ -2911,6 +3089,8 @@ def main() -> int:
     print(f"[phase g] field {field_s:.3f} s, field_survey {survey_s:.3f} s; phase wall "
           f"{time.perf_counter() - t_g:.3f} s", flush=True)
     lap("phase g, the field")
+    large_c = large_c_checks(device, card)
+    lap("phase g, rows of 400-2400 components")
     k1_launches = {"config 1": k1_counts, "config 5 dense": dense_counts, "B=65536": k1_65536,
                    "config 2": {k: runs23["ugriz hmc"][3][k] + runs23["ugriz slice"][3][k]
                                 for k in k1_counts},
@@ -3010,6 +3190,7 @@ def main() -> int:
     print(json.dumps({"k1_shapes": k1_rows, "k1_lost_s": lost}), flush=True)
     print(json.dumps({"k7_shapes": k7_rows, "k7_lost_s": sum(r["lost_s"] for r in k7_rows)}),
           flush=True)
+    print(json.dumps({"large_c": large_c}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

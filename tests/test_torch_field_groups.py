@@ -26,12 +26,15 @@ import jax.numpy as jnp
 
 from celeste_tpu import field as jfield
 from celeste_tpu.data.synthetic import make_synthetic_stamp as j_make_synthetic_stamp
+from celeste_tpu.data.synthetic import galaxy_source as j_galaxy_source
 from celeste_tpu.data.synthetic import star_source as j_star_source
+from celeste_tpu.kernels import mog_field as jmf
 from celeste_tpu.model.priors import FluxPrior as JFluxPrior
 from celeste_tpu.model.priors import SourcePriors as JSourcePriors
 
 from celeste_tpu_torch import field as tfield
-from celeste_tpu_torch.kernels.mog_field import pad_pixel_sets
+from celeste_tpu_torch.bench.field_scale import CLUSTER_SEED, cluster_group, cluster_specs
+from celeste_tpu_torch.kernels.mog_field import mixed_field_planes, pad_pixel_sets
 from celeste_tpu_torch.model.priors import FluxPrior, SourcePriors
 
 import torch_field_workers as w
@@ -197,3 +200,54 @@ def test_sampled_catalog_matches_jax(runs):
         assert 0.65 < ratio < 1.55, ratio
     for d in tart["diagnostics"] + jart["diagnostics"]:
         assert d["rhat_max"] < 1.1 and d["divergence_rate"] < 0.05, d
+
+
+def test_crowded_group_of_20_sources_matches_jax():
+    """A galaxy cluster (10 stars, 10 galaxies 2'' apart) links into one fit
+    group of 20 sources, 960 components a row, past the old whole-row
+    staging of K1 and K7 on the card: ``union_groups`` gives JAX's labels at
+    the default link radius, and the port's group log density
+    (``field._group_logdensity``) equals JAX's ``group_logd``
+    (``celeste_tpu/field.py:903-916``, rebuilt here on its own pieces for the
+    one frame) at 4 chains around the truth, value and gradient at K1's
+    gates, as ``test_group_logdensity_matches_jax``."""
+    tscene, pos, rects, is_star, pixels = cluster_group()
+    link = tfield.FieldConfig().link_radius_px
+    labels = tfield.union_groups(pos, link)
+    np.testing.assert_array_equal(labels, jfield.union_groups(pos, link))
+    assert set(labels.tolist()) == {0}
+
+    jsrcs = [j_star_source(**kw) if kind == "star" else j_galaxy_source(**kw)
+             for kind, kw in cluster_specs()]
+    jstamp = j_make_synthetic_stamp(jsrcs, shape=(64, 64), bands=(2,),
+                                    seed=CLUSTER_SEED).stamps[0]
+    s_max, gd = rects.shape
+    flg, alv = is_star, np.ones(s_max, bool)
+    x = (rects.reshape(1, -1)
+         + 0.01 * np.random.default_rng(3).normal(size=(4, s_max * gd))).astype(np.float32)
+
+    def group_logd(xv, fl, al, pxg, pyg, ctsg, effg, mkg):
+        rect = xv.reshape(s_max, gd)
+        planes = jax.vmap(lambda v, f: jmf.mixed_field_planes(v, jstamp, 0, 1, f))(rect, fl)
+        amp = planes[0] * al[:, None]
+        flat = tuple(p.reshape(1, -1) for p in (amp,) + planes[1:])
+        ll = jmf._loglik_jnp(*flat, pxg[None], pyg[None], ctsg[None], effg[None], mkg[None],
+                             centered=True)[0]
+        return ll + jfield._mixed_rect_logprior(rect, fl, al, J_PRIORS, 1)
+
+    j_fn = jax.jit(jax.vmap(jax.value_and_grad(group_logd), in_axes=(0,) + (None,) * 7))
+    want, want_g = (np.asarray(a) for a in j_fn(*(jnp.asarray(a) for a in (x, flg, alv,
+                                                                           *pixels))))
+
+    fr = tfield._Frames([tscene.stamps[0]], [0], 1, w.PRIORS)
+    sets = [pad_pixel_sets(*(torch.as_tensor(a[None]) for a in pixels))]
+    rows = mixed_field_planes(torch.as_tensor(rects), tscene.stamps[0], 0, 1,
+                              torch.as_tensor(is_star))[0]
+    assert rows.shape[0] * rows.shape[1] == 960
+    logd = tfield._group_logdensity(fr, sets, torch.as_tensor(flg[None]),
+                                    torch.as_tensor(alv[None]))
+    xt = torch.tensor(x, requires_grad=True)
+    got = logd(xt)
+    (got_g,) = torch.autograd.grad(got.sum(), xt)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=LL_TOL[0], atol=LL_TOL[1])
+    np.testing.assert_allclose(got_g.numpy(), want_g, rtol=GRAD_TOL[0], atol=GRAD_TOL[1])

@@ -132,17 +132,25 @@ def test_wrapper_rejects_bad_inputs(cuda):
         mf.loglik_fwd_cuda(planes[0], *planes[1:], pd[0].cpu(), *pd[1:])
 
 
-def test_launch_error_raises_and_does_not_leak(cuda):
-    """More components than a block's shared memory can stage (K1 stages
-    the components, so C, not the stamp, has a limit) are refused by the C
-    side; the wrapper raises, counts no launch, and the next launch works."""
+def _force_path(monkeypatch, staged: bool):
+    """Make the wrappers take the staged (or the whole-row) path at any C."""
+    monkeypatch.setattr(mf, "components_staged", lambda kernel, cb, c: staged)
+
+
+def test_launch_error_raises_and_does_not_leak(cuda, monkeypatch):
+    """A launch the C side refuses (here the whole-row path forced at 8000
+    components, more than a block's shared memory can stage at once) makes
+    the wrapper raise, naming B and C, and count no launch; the next launch
+    works.  Such a row takes the staged path otherwise."""
     planes, pd, _, _ = _planes("star", 8, cuda)
     wide = [p[:, :1].repeat(1, 8000).contiguous() for p in planes]
     before = mf.launch_counts()
-    with pytest.raises(RuntimeError, match="launch failed"):
-        mf.loglik_fwd_cuda(*wide, *pd)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        mf.loglik_bwd_cuda(*wide, *pd, torch.ones(8, device=cuda))
+    with monkeypatch.context() as m:
+        _force_path(m, False)
+        with pytest.raises(RuntimeError, match="launch failed at B=8, C=8000"):
+            mf.loglik_fwd_cuda(*wide, *pd)
+        with pytest.raises(RuntimeError, match="launch failed at B=8, C=8000"):
+            mf.loglik_bwd_cuda(*wide, *pd, torch.ones(8, device=cuda))
     assert mf.launch_counts() == before
     out = mf.loglik_fwd_cuda(*planes, *pd)
     torch.testing.assert_close(out, mf._loglik_torch(*planes, *pd), **TOL["star"])
@@ -717,16 +725,22 @@ def test_render_kernel_at_every_geometry(cuda, b, c, h, w):
     assert torch.equal(got[::9], sky.expand(got[::9].shape[0], -1))
 
 
-def test_render_kernel_component_cap_fails_loudly(cuda):
-    """At 8 chains per block (B=4096) K7 stages up to ~800 components; above
-    that the launch is refused and the wrapper raises, counting nothing."""
+def test_render_kernel_component_cap_fails_loudly(cuda, monkeypatch):
+    """At 8 chains per block (B=4096) K7 stages up to ~800 components of a
+    row whole; past that it takes the staged path, which matches the plain
+    version, and the whole-row path asked for there is refused by the
+    launch: the wrapper raises, counting nothing."""
     assert mf.k7_geometry(4096, 640)[0] == 8
+    assert not mf.components_staged("render", 8, 800) and mf.components_staged("render", 8, 900)
     planes, (px, py, sky) = _render_problem(4096, 800, 25, 25, cuda)
     torch.testing.assert_close(mf.render_cuda(*planes, px, py, sky),
                                mf._render_torch(*planes, px, py, sky), **LAM_TOL)
     planes, _ = _render_problem(4096, 900, 25, 25, cuda)
+    torch.testing.assert_close(mf.render_cuda(*planes, px, py, sky),
+                               mf._render_torch(*planes, px, py, sky), **LAM_TOL)
     before = mf.launch_counts()
-    with pytest.raises(RuntimeError, match="launch failed"):
+    _force_path(monkeypatch, False)
+    with pytest.raises(RuntimeError, match="launch failed at B=4096, C=900"):
         mf.render_cuda(*planes, px, py, sky)
     assert mf.launch_counts() == before
 
@@ -1168,13 +1182,13 @@ def test_pipeline_catalog_at_full_settings(cuda):
 
 @pytest.mark.parametrize("n_rows", [8, 1100])
 def test_k1_component_cap_is_the_kernels(cuda, n_rows):
-    """The cap on a row's components is K1's own: the pipeline's galaxy
-    conditional with 8 extra galaxies folded in (486 components a row: its
-    own 48, 9 galaxies' 432 and 2 stars' 6) runs at 8 rows (one chain per
-    block) both ways, against the plain per-row-sky form within the gates
-    of the folded test.  At 1100 rows (8 chains per block) K1-fwd still
-    takes it, equal to the 8-row values, and K1-bwd's launch refuses it with
-    the wrapper's message."""
+    """A row's components have no cap: the pipeline's galaxy conditional
+    with 8 extra galaxies folded in (486 components a row: its own 48, 9
+    galaxies' 432 and 2 stars' 6) runs at 8 rows (one chain per block) both
+    ways, against the plain per-row-sky form within the gates of the folded
+    test.  At 1100 rows (8 chains per block) K1-fwd stages the rows whole
+    and K1-bwd, past its whole-row staging there, takes the staged path;
+    values and gradients equal the 8-row ones within the same gates."""
     _, rects, flags, cond = _pipeline_field(cuda, n_extra_gal=8)
     folded = cond.fold(rects, flags, np.ones(len(rects), bool))
     logd = cond.logdensity("galaxy", [2], folded)
@@ -1191,11 +1205,13 @@ def test_k1_component_cap_is_the_kernels(cuda, n_rows):
         torch.testing.assert_close(val.detach(), want.detach(), rtol=2e-6, atol=0.5)
         torch.testing.assert_close(grad, gwant, **GRAD_TOL)
     else:
-        with torch.no_grad():
-            torch.testing.assert_close(val[:8], logd(x8), rtol=2e-6, atol=0.5)
-        with pytest.raises(RuntimeError,
-                           match=r"loglik_bwd launch failed at B=1100, C=486.*max_sources"):
-            torch.autograd.grad(val.sum(), x)
+        assert mf.k1_geometry(1100, 1024)[0] == 8 and mf.components_staged("bwd", 8, 486)
+        (grad,) = torch.autograd.grad(val.sum(), x)
+        x8 = x8.clone().requires_grad_(True)
+        val8 = logd(x8)
+        (grad8,) = torch.autograd.grad(val8.sum(), x8)
+        torch.testing.assert_close(val[:8].detach(), val8.detach(), rtol=2e-6, atol=0.5)
+        torch.testing.assert_close(grad[:8], grad8, **GRAD_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -1437,3 +1453,156 @@ def test_field_scale_accuracy_sampled(cuda):
     assert rep["pos_rms_arcsec"] < 0.1 and abs(rep["flux_rel_bias"]) < 0.05, rep
     assert rep["n_matched"] >= 0.9 * len(srcs), rep
     assert 0.7 <= rep["pos_z_rms"] <= 1.4 and 0.7 <= rep["flux_z_rms"] <= 1.4, rep
+
+
+# ---------------------------------------------------------------------------
+# K1 and K7 past the whole-row staging: the staged path (no component cap)
+# ---------------------------------------------------------------------------
+
+# a row's components: 400 is K1-bwd's whole-row limit at 8 chains a block;
+# 960 is a field group of 20 sources (S_max galaxy-wide slots of 48), 2400
+# one of 50
+LARGE_C = (400, 960, 2400)
+# (sets, rows per set, cutout side): the stamp mode ([1, P]) at B = 64 and
+# 1024 on 48x48, and the pixel sets of field_survey's groups ([424, C] x 53
+# sets of 32x32) and field's ([128, C] x 4 sets of 48x48)
+LARGE_C_LAYOUTS = ((1, 64, 48), (1, 1024, 48), (53, 8, 32), (4, 32, 48))
+
+
+def _plain_rows(plain, planes, pixels, extra=(), chunk=32, **kw):
+    """A plain version over chunks of rows (a [1024, 2400, 2304]
+    intermediate is 22 GB whole), the pixel sets expanded to rows."""
+    b = planes[0].shape[0]
+    rows = mf.rows_of_sets(tuple(pixels), b)
+    outs = []
+    for c0 in range(0, b, chunk):
+        sl = slice(c0, c0 + chunk)
+        pix = [t if t.shape[0] == 1 else t[sl] for t in rows]
+        outs.append(plain(*(p[sl] for p in planes), *pix, *(e[sl] for e in extra), **kw))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def _large_c_problem(cuda, n_sets, r, c, side):
+    planes, sets = mf.random_pixel_set_problem(n_sets, r, c, side, seed=n_sets + r + c)
+    return ([torch.as_tensor(a, device=cuda) for a in planes],
+            [torch.as_tensor(a, device=cuda) for a in sets])
+
+
+def _other_path_bitwise(monkeypatch, fn, kernel, b, c, n_sets, pix_pad, args, got, **kw):
+    """Where both paths fit, the path the wrapper did not take gives the
+    same bits (each pixel adds its components in index order either way)."""
+    geometry = mf.k7_geometry if kernel == "render" else mf.k1_geometry
+    cb = geometry(b, pix_pad, n_sets)[0]
+    if mf.whole_row_smem(kernel, cb, c) > mf.SMEM_OPTIN or (kernel == "bwd" and c <= 4):
+        return False
+    with monkeypatch.context() as m:
+        _force_path(m, not mf.components_staged(kernel, cb, c))
+        other = fn(*args, **kw)
+    if isinstance(got, tuple):
+        assert all(torch.equal(a, o) for a, o in zip(got, other)), kernel
+    else:
+        assert torch.equal(got, other), kernel
+    return True
+
+
+@pytest.mark.parametrize("layout", LARGE_C_LAYOUTS)
+@pytest.mark.parametrize("c", LARGE_C)
+def test_large_component_rows_match_plain(cuda, monkeypatch, c, layout):
+    """K1-fwd (centered both ways), K1-bwd and K7 at 400, 960 and 2400
+    components a row, in stamp mode and on the field's pixel sets, against
+    their plain versions (fwd rtol 2e-6 + atol 0.5, bwd rtol 5e-4 + atol
+    5e-2, K7 rtol 1e-5 + atol 1e-3); one launch a call; two calls bitwise
+    equal; where the whole-row path also fits, the other path's bits."""
+    n_sets, r, side = layout
+    planes, sets = _large_c_problem(cuda, n_sets, r, c, side)
+    b, pix_pad = n_sets * r, sets[0].shape[1]
+    g = torch.as_tensor(np.random.default_rng(c).normal(size=b).astype(np.float32), device=cuda)
+    render_sets = (sets[0], sets[1], sets[3])
+    for centered in (False, True):
+        before = mf.launch_counts()["mog_field_loglik_fwd"]
+        got = mf.loglik_fwd_cuda(*planes, *sets, centered=centered)
+        assert mf.launch_counts()["mog_field_loglik_fwd"] == before + 1
+        assert torch.equal(got, mf.loglik_fwd_cuda(*planes, *sets, centered=centered))
+        torch.testing.assert_close(got, _plain_rows(mf._loglik_torch, planes, sets,
+                                                    centered=centered), **TOL["star"])
+        _other_path_bitwise(monkeypatch, mf.loglik_fwd_cuda, "fwd", b, c, n_sets, pix_pad,
+                            (*planes, *sets), got, centered=centered)
+    before = mf.launch_counts()["mog_field_loglik_bwd"]
+    got = mf.loglik_bwd_cuda(*planes, *sets, g)
+    assert mf.launch_counts()["mog_field_loglik_bwd"] == before + 1
+    again = mf.loglik_bwd_cuda(*planes, *sets, g)
+    want = _plain_rows(mf._loglik_bwd_torch, planes, sets, extra=(g,))
+    for name, a, a2, w in zip("amp mx my pa pb pc".split(), got, again, want):
+        assert torch.equal(a, a2), name
+        torch.testing.assert_close(a, w, **GRAD_TOL, msg=name)
+    _other_path_bitwise(monkeypatch, mf.loglik_bwd_cuda, "bwd", b, c, n_sets, pix_pad,
+                        (*planes, *sets, g), got)
+    before = mf.launch_counts()["mog_field_render"]
+    lam = mf.render_cuda(*planes, *render_sets)
+    assert mf.launch_counts()["mog_field_render"] == before + 1
+    assert torch.equal(lam, mf.render_cuda(*planes, *render_sets))
+    torch.testing.assert_close(lam, _plain_rows(mf._render_torch, planes, render_sets),
+                               **LAM_TOL)
+    _other_path_bitwise(monkeypatch, mf.render_cuda, "render", b, c, n_sets, pix_pad,
+                        (*planes, *render_sets), lam)
+
+
+@pytest.mark.parametrize("s,r,c,side", PIXEL_SET_CASES + [(1, 64, 3, 25), (1, 64, 48, 31),
+                                                          (1, 4096, 48, 25), (1, 1024, 126, 48)])
+def test_staged_path_gives_the_whole_row_bits(cuda, monkeypatch, s, r, c, side):
+    """At every phase-g pixel-set shape and at [1, P] stamp shapes (a star's
+    3 components, a galaxy's 48, config 5's 126), which take the whole-row
+    path, the staged path asked for gives the same bits: K1-fwd both ways,
+    K1-bwd (C > 4) and K7."""
+    planes, sets, _ = _set_problem(cuda, s, r, c, side)
+    b, pix_pad = s * r, sets[0].shape[1]
+    g = torch.as_tensor(np.random.default_rng(b).normal(size=b).astype(np.float32), device=cuda)
+    for centered in (False, True):
+        got = mf.loglik_fwd_cuda(*planes, *sets, centered=centered)
+        assert _other_path_bitwise(monkeypatch, mf.loglik_fwd_cuda, "fwd", b, c, s, pix_pad,
+                                   (*planes, *sets), got, centered=centered)
+    got = mf.loglik_bwd_cuda(*planes, *sets, g)
+    assert _other_path_bitwise(monkeypatch, mf.loglik_bwd_cuda, "bwd", b, c, s, pix_pad,
+                               (*planes, *sets, g), got) == (c > 4)
+    lam = mf.render_cuda(*planes, sets[0], sets[1], sets[3])
+    assert _other_path_bitwise(monkeypatch, mf.render_cuda, "render", b, c, s, pix_pad,
+                               (*planes, sets[0], sets[1], sets[3]), lam)
+
+
+def test_crowded_field_group_runs_through_k1(cuda):
+    """The field's group log density (``field._group_logdensity``) of a
+    galaxy cluster linked into one group of 20 sources (960 components a
+    row, ``bench.field_scale.cluster_group``) at the field's 32 chains:
+    one K1-fwd and one K1-bwd launch (the backward on the staged path), value
+    and gradient equal to the CPU's plain mode at K1's gates."""
+    from celeste_tpu_torch import field as tfield
+    from celeste_tpu_torch.bench.field_scale import cluster_group
+    from celeste_tpu_torch.model.priors import FluxPrior, SourcePriors
+
+    priors = SourcePriors(flux=FluxPrior(log_ref_mean=3.2, log_ref_std=2.0))
+
+    out = {}
+    for device in ("cpu", cuda):
+        scene, _, rects, is_star, pixels = cluster_group(device)
+        fr = tfield._Frames([scene.stamps[0]], [0], 1, priors)
+        sets = [mf.pad_pixel_sets(*(torch.as_tensor(a[None], device=device) for a in pixels))]
+        logd = tfield._group_logdensity(fr, sets, torch.as_tensor(is_star[None], device=device),
+                                        torch.ones(1, len(is_star), dtype=torch.bool,
+                                                   device=device))
+        x = (rects.reshape(1, -1)
+             + 0.01 * np.random.default_rng(3).normal(size=(32, rects.size))).astype(np.float32)
+        xt = torch.tensor(x, device=device, requires_grad=True)
+        before = mf.launch_counts()
+        val = logd(xt)
+        (grad,) = torch.autograd.grad(val.sum(), xt)
+        after = mf.launch_counts()
+        out[str(device)] = (val.detach().cpu(), grad.cpu(),
+                            {k: after[k] - before[k] for k in after})
+    pix_pad = -(-len(pixels[0]) // mf.LANE) * mf.LANE
+    assert mf.components_staged("bwd", mf.k1_geometry(32, pix_pad)[0], 960)
+    assert out["cuda:0"][2] == {"mog_field_loglik_fwd": 1, "mog_field_loglik_bwd": 1,
+                                "mog_field_render": 0}
+    torch.testing.assert_close(out["cuda:0"][0], out["cpu"][0], rtol=2e-6, atol=0.5)
+    torch.testing.assert_close(out["cuda:0"][1], out["cpu"][1], **GRAD_TOL)

@@ -155,3 +155,21 @@ def test_rows_must_split_into_the_sets():
     planes, sets = _problem(3, 2, 3, 24)
     with pytest.raises(ValueError, match="pixel sets"):
         tmf.mog_field_loglik(*(p[:5] for p in planes), sets)
+
+
+@pytest.mark.parametrize("kernel,firsts", [("fwd", {8: 812, 4: 1624, 2: 3248, 1: 6495}),
+                                           ("bwd", {8: 401, 4: 609, 2: 793, 1: 929}),
+                                           ("render", {8: 861, 4: 1721, 2: 3441, 1: 6881})])
+def test_components_staged_only_past_the_whole_row_staging(kernel, firsts):
+    """The path chooser mirrors ``csrc/mog_field.cu``'s shared-memory sizes
+    against the H100's 227 KB a block: a row is staged whole up to the
+    first staged C at each CB (K1-fwd and K7 ~800, K1-bwd ~400 at 8 chains
+    a block), so config 5's 126 components, the field's groups (96, 144)
+    and the pipeline's rows keep the whole-row path; the one-pass backward
+    (C <= 4) never stages."""
+    for cb, first in firsts.items():
+        assert not tmf.components_staged(kernel, cb, first - 1)
+        assert tmf.whole_row_smem(kernel, cb, first - 1) <= tmf.SMEM_OPTIN
+        assert tmf.components_staged(kernel, cb, first)
+        assert not tmf.components_staged(kernel, cb, 144)
+    assert not any(tmf.components_staged("bwd", cb, c) for cb in (1, 8) for c in (1, 4))
