@@ -93,10 +93,23 @@
 // K5 is a third instantiation of the forward kernel (lambda from 0, stored,
 // no reduction) and K6 a second one of the backward kernel (the cotangent row
 // read, not derived), so the render pair shares the gather, the staging, the
-// loops, the scatter and the determinism of K2-K4.  The staged components
-// take 32 bytes per component and warp of shared memory, which caps a tile
-// at about 800 components in the forward and 740 in the backward (config 5
-// has 114).
+// loops, the scatter and the determinism of K2-K4.
+//   Whole tile or staged, no component cap.  The staged components take 32
+// bytes per component and warp of shared memory.  A tile whose K fit the
+// block's 227 KB (K <= 812 for K2 and K3, 876 for K5, 744 for K4 and K6;
+// config 5 has 114) stages them whole once, as above (the whole-tile path).
+// Past that (kernels/tiled_field.py tile_staged decides, from the same
+// sizes) the staged path, a second instantiation (kStaged), stages each
+// warp's components kTileChunk = 256 at a time, with __syncwarp() alone,
+// since a warp stages and reads only its own chain's entries: no block
+// barrier in the loop, so the warps past n_chains still return early.  The
+// forward re-stages the chunks once for each of a lane's two register
+// blocks of kFwdPix pixels, so every pixel still starts at sky (K5: 0) and
+// takes its fmaf's over k = 0 .. K-1 in order: the whole-tile bits.  The
+// backward's moments of an entry depend on that entry alone, so its chunks
+// (multiples of kBwdEntries) go through the same passes, and d_part, the
+// scatter and the determinism are unchanged.  A chunk takes 64 KB a block,
+// which leaves two blocks an SM.
 //
 // Interface: plain C, bound with ctypes.  Each entry launches on the given
 // stream, allocates nothing and returns cudaGetLastError() after its last
@@ -124,9 +137,11 @@ constexpr int kScatterThreads = 256;
 constexpr int kScatterTile = 32;        // plane columns and chains per scatter block
 constexpr int kFwdPix = 16;             // pixels a lane of the forward keeps in registers
 constexpr int kBwdEntries = 8;          // entries per pixel pass of the backward
+constexpr int kTileChunk = 256;         // entries a warp stages at a time, staged path
 static_assert(kPix % (32 * kFwdPix) == 0, "a lane's pixels split into register blocks");
 static_assert(kBwdEntries == 1 || kBwdEntries == 2 || kBwdEntries == 4 || kBwdEntries == 8
               || kBwdEntries == 16, "the halving sum takes 6 * 2^m moments");
+static_assert(kTileChunk % kBwdEntries == 0, "a staged chunk holds whole backward passes");
 
 // What the forward kernel produces: K2 the per-tile log-likelihood, K3 that
 // and the pre-clamp lambda (sky included), K5 the sky-free lambda alone.
@@ -158,12 +173,61 @@ __device__ __forceinline__ void stage_components(
   }
 }
 
+// The staged path's helpers.  Each repeats, term for term, the arithmetic of
+// the whole-tile code it stands beside (stage_components, the forward's
+// component loop, the backward's passes), for one chunk of a tile's
+// components, so that the two paths give the same bits; the whole-tile
+// kernels keep their own text, and with it their SASS.
+
+// stage_components for the chunk of entries k0 .. k0 + n_pad - 1: entry
+// k0 + i goes to w[2i] and w[2i + 1]; entries at or past n_k are all zero.
+__device__ __forceinline__ void stage_chunk(
+    const float* __restrict__ amp, const float* __restrict__ mx,
+    const float* __restrict__ my, const float* __restrict__ pa,
+    const float* __restrict__ pb, const float* __restrict__ pc,
+    const int* __restrict__ src_row, float4* w, int b, int plane_w, int n_comp, int k0,
+    int n_k, int n_pad, int lane) {
+  for (int i = lane; i < n_pad; i += 32) {
+    const int k = k0 + i;
+    float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 q = c;
+    if (k < n_k) {
+      const int col = src_row[k / n_comp] * n_comp + k % n_comp;
+      const size_t j = static_cast<size_t>(b) * plane_w + col;
+      c = make_float4(amp[j], mx[j], my[j], __int_as_float(col));
+      q = make_float4(-0.5f * kLog2e * pa[j], -kLog2e * pb[j], -0.5f * kLog2e * pc[j], 0.0f);
+    }
+    w[2 * i] = c;
+    w[2 * i + 1] = q;
+  }
+}
+
+// The forward's component loop over the n staged entries w[0 .. n - 1]:
+// each of a lane's kFwdPix pixels adds them to its lambda in index order.
+__device__ __forceinline__ void add_chunk(const float4* w, int n, const float (&x)[kFwdPix],
+                                          const float (&y)[kFwdPix], float (&lam)[kFwdPix]) {
+#pragma unroll 2
+  for (int k = 0; k < n; ++k) {
+    const float4 c = w[2 * k];
+    const float4 q = w[2 * k + 1];
+#pragma unroll
+    for (int r = 0; r < kFwdPix; ++r) {
+      const float dx = x[r] - c.y;
+      const float dy = y[r] - c.z;
+      const float u = fmaf(q.x, dx, q.y * dy);                 // qa dx + qb dy
+      lam[r] = fmaf(c.x, ex2_approx(fmaf(u, dx, q.z * dy * dy)), lam[r]);
+    }
+  }
+}
+
 // K2 (kLoglik), K3 (kLoglikLam) and K5 (kRender).  Grid (tiles, chain
 // blocks); K2 and K3 write partial[t, b]; K3 writes the pre-clamp lambda
 // lam[t, b, p] with sky, K5 the sum of the components without it.  K5 reads
 // only px and py of the pixel arrays (the others may be null).  Lane l owns
-// pixels l + 32 j, j = 0 .. 31, taken kFwdPix at a time.
-template <bool kCentered, int kMode>
+// pixels l + 32 j, j = 0 .. 31, taken kFwdPix at a time.  kStaged: the
+// components go through kTileChunk entries of staging, once per register
+// block of pixels (no block barrier: a warp stages only its own chain's).
+template <bool kCentered, int kMode, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 tiled_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
                  const float* __restrict__ my, const float* __restrict__ pa,
@@ -202,9 +266,13 @@ tiled_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
   const int b = blockIdx.y * kWarps + warp;
   const int n_k = s_cap * n_comp;
   float4* w = reinterpret_cast<float4*>(s_par) + warp * 2 * n_k;
-  if (b < n_chains) {
-    stage_components(amp, mx, my, pa, pb, pc, tile_src + static_cast<size_t>(t) * s_cap, w,
-                     b, plane_w, n_comp, n_k, n_k, lane);
+  if constexpr (kStaged) {
+    w = reinterpret_cast<float4*>(s_par) + warp * 2 * kTileChunk;
+  } else {
+    if (b < n_chains) {
+      stage_components(amp, mx, my, pa, pb, pc, tile_src + static_cast<size_t>(t) * s_cap, w,
+                       b, plane_w, n_comp, n_k, n_k, lane);
+    }
   }
   __syncthreads();
   if (b >= n_chains) return;
@@ -220,16 +288,27 @@ tiled_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
       y[r] = s_py[p0 + 32 * r];
       lam[r] = kReduce ? s_sky[p0 + 32 * r] : 0.0f;
     }
+    if constexpr (kStaged) {
+      const int* src_row = tile_src + static_cast<size_t>(t) * s_cap;
+      for (int k0 = 0; k0 < n_k; k0 += kTileChunk) {
+        const int n = min(kTileChunk, n_k - k0);
+        __syncwarp();                    // the last chunk has been read
+        stage_chunk(amp, mx, my, pa, pb, pc, src_row, w, b, plane_w, n_comp, k0, n_k, n, lane);
+        __syncwarp();                    // the chunk staged
+        add_chunk(w, n, x, y, lam);
+      }
+    } else {
 #pragma unroll 2
-    for (int k = 0; k < n_k; ++k) {
-      const float4 c = w[2 * k];
-      const float4 q = w[2 * k + 1];
+      for (int k = 0; k < n_k; ++k) {
+        const float4 c = w[2 * k];
+        const float4 q = w[2 * k + 1];
 #pragma unroll
-      for (int r = 0; r < kFwdPix; ++r) {
-        const float dx = x[r] - c.y;
-        const float dy = y[r] - c.z;
-        const float u = fmaf(q.x, dx, q.y * dy);                 // qa dx + qb dy
-        lam[r] = fmaf(c.x, ex2_approx(fmaf(u, dx, q.z * dy * dy)), lam[r]);
+        for (int r = 0; r < kFwdPix; ++r) {
+          const float dx = x[r] - c.y;
+          const float dy = y[r] - c.z;
+          const float u = fmaf(q.x, dx, q.y * dy);                 // qa dx + qb dy
+          lam[r] = fmaf(c.x, ex2_approx(fmaf(u, dx, q.z * dy * dy)), lam[r]);
+        }
       }
     }
 #pragma unroll
@@ -252,6 +331,74 @@ tiled_fwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
 // the halving levels of the backward's moment sum
 constexpr int kHalvings = halving_levels(kBwdEntries);
 
+// The backward's passes (as in tiled_bwd_kernel) over the n staged entries
+// w[0 .. n - 1], entries k_base .. k_base + n - 1 of the tile, staged with
+// zero entries up to a whole pass: kBwdEntries at a time, the six pixel
+// moments of each summed over the tile and the warp, then each entry's six
+// cotangents written to d_part[q, t * n_k + k, b].
+__device__ __forceinline__ void moment_chunk(
+    const float4* w, int k_base, int n, const float2* s_xy, const float* w_glam,
+    const float* __restrict__ pa, const float* __restrict__ pb, const float* __restrict__ pc,
+    float* __restrict__ d_part, int t, int b, int n_k, int n_chains, int plane_w,
+    size_t plane_stride, int lane) {
+  constexpr int kE = kBwdEntries;
+  const int mine = lane >> (5 - kHalvings);
+  const bool writer = (lane & ((1 << (5 - kHalvings)) - 1)) == 0;
+  for (int k0 = 0; k0 < n; k0 += kE) {
+    float cx[kE], cy[kE], qa[kE], qb[kE], qc[kE];
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      const float4 c = w[2 * (k0 + j)];
+      const float4 q = w[2 * (k0 + j) + 1];
+      cx[j] = c.y;
+      cy[j] = c.z;
+      qa[j] = q.x;
+      qb[j] = q.y;
+      qc[j] = q.z;
+    }
+    float v[6 * kE];
+#pragma unroll
+    for (int i = 0; i < 6 * kE; ++i) v[i] = 0.0f;
+#pragma unroll 2
+    for (int p = lane; p < kPix; p += 32) {
+      const float2 xy = s_xy[p];
+      const float gl = w_glam[p];
+#pragma unroll
+      for (int j = 0; j < kE; ++j) {
+        const float dx = xy.x - cx[j];
+        const float dy = xy.y - cy[j];
+        const float dxx = dx * dx, dxy = dx * dy, dyy = dy * dy;
+        const float ge = gl * ex2_approx(fmaf(qa[j], dxx, fmaf(qb[j], dxy, qc[j] * dyy)));
+        v[6 * j] += ge;
+        v[6 * j + 1] = fmaf(ge, dx, v[6 * j + 1]);
+        v[6 * j + 2] = fmaf(ge, dy, v[6 * j + 2]);
+        v[6 * j + 3] = fmaf(ge, dxx, v[6 * j + 3]);
+        v[6 * j + 4] = fmaf(ge, dxy, v[6 * j + 4]);
+        v[6 * j + 5] = fmaf(ge, dyy, v[6 * j + 5]);
+      }
+    }
+    warp_sum_halving(v, lane);
+    const int i = k0 + mine / 2;
+    const int k = k_base + i;
+    if (writer && k < n_k) {
+      const float4 c = w[2 * i];
+      const float a = c.x;
+      const size_t o = (static_cast<size_t>(t) * n_k + k) * n_chains + b;
+      if (mine & 1) {
+        d_part[3 * plane_stride + o] = -0.5f * a * v[0];
+        d_part[4 * plane_stride + o] = -a * v[1];
+        d_part[5 * plane_stride + o] = -0.5f * a * v[2];
+      } else {
+        const size_t j = static_cast<size_t>(b) * plane_w + __float_as_int(c.w);
+        const float ea = pa[j], eb = pb[j], ec = pc[j];
+        d_part[o] = v[0];
+        d_part[plane_stride + o] = a * fmaf(ea, v[1], eb * v[2]);
+        d_part[2 * plane_stride + o] = a * fmaf(eb, v[1], ec * v[2]);
+      }
+    }
+  }
+}
+
 // K4 (kRender = false) and K6 (kRender = true), part 1.  Grid (tiles, chain
 // blocks).  Each warp stages its chain's components and its pixel cotangent
 // (one row of shared memory per warp): K4 derives g_lam from lambda,
@@ -260,7 +407,9 @@ constexpr int kHalvings = halving_levels(kBwdEntries);
 // time, it sums the six pixel moments over the tile and writes each entry's
 // six cotangents to d_part[q, t * K + k, b].  Moments are kept in v as
 // triples: entry j's (S0, Sx, Sy) at 6j and (Sxx, Sxy, Syy) at 6j + 3.
-template <bool kRender>
+// kStaged: the components go through kTileChunk entries of staging, each
+// chunk's passes (moment_chunk) done before the next is staged.
+template <bool kRender, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 tiled_bwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
                  const float* __restrict__ my, const float* __restrict__ pa,
@@ -288,11 +437,14 @@ tiled_bwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
   const int n_k = s_cap * n_comp;
   const int n_pad = round_up(n_k, kE);
   float4* w = s_par + warp * 2 * n_pad;
+  if constexpr (kStaged) w = s_par + warp * 2 * kTileChunk;
   float* w_glam = s_glam + warp * kPix;
   const size_t row = (static_cast<size_t>(t) * n_chains + b) * kPix;
   if (b < n_chains) {
-    stage_components(amp, mx, my, pa, pb, pc, tile_src + static_cast<size_t>(t) * s_cap, w,
-                     b, plane_w, n_comp, n_k, n_pad, lane);
+    if constexpr (!kStaged) {
+      stage_components(amp, mx, my, pa, pb, pc, tile_src + static_cast<size_t>(t) * s_cap, w,
+                       b, plane_w, n_comp, n_k, n_pad, lane);
+    }
     if (kRender) {
       for (int p = lane; p < kPix; p += 32) w_glam[p] = g[row + p];
     } else {
@@ -309,6 +461,20 @@ tiled_bwd_kernel(const float* __restrict__ amp, const float* __restrict__ mx,
   if (b >= n_chains) return;
 
   const size_t plane_stride = static_cast<size_t>(n_tiles) * n_k * n_chains;
+  if constexpr (kStaged) {
+    const int* src_row = tile_src + static_cast<size_t>(t) * s_cap;
+    for (int k0 = 0; k0 < n_k; k0 += kTileChunk) {
+      const int n = min(kTileChunk, n_k - k0);
+      __syncwarp();                      // the last chunk has been read
+      stage_chunk(amp, mx, my, pa, pb, pc, src_row, w, b, plane_w, n_comp, k0, n_k,
+                  round_up(n, kE), lane);
+      __syncwarp();                      // the chunk staged
+      moment_chunk(w, k0, n, s_xy, w_glam, pa, pb, pc, d_part, t, b, n_k, n_chains, plane_w,
+                   plane_stride, lane);
+    }
+    return;
+  }
+  // the whole tile's passes
   // after the halving sum this lane holds triple `mine`: entry mine / 2 of
   // the pass, first moments if mine is even, second moments if odd
   const int mine = lane >> (5 - kHalvings);
@@ -414,37 +580,43 @@ tiled_scatter_kernel(const float* __restrict__ d_part, const int* __restrict__ c
 }
 
 // The pixel arrays the forward stages (six for K2/K3, px and py for K5) and
-// every warp's 2 K float4 of components.
-size_t fwd_smem_bytes(int n_k, int n_pixel_arrays) {
+// every warp's 2 n_w float4 of components (n_w: K whole, or kTileChunk).
+size_t fwd_smem_bytes(int n_w, int n_pixel_arrays) {
   return n_pixel_arrays * static_cast<size_t>(kPix) * sizeof(float)
-         + kWarps * 2 * static_cast<size_t>(n_k) * sizeof(float4);
+         + kWarps * 2 * static_cast<size_t>(n_w) * sizeof(float4);
 }
 
 // (px, py) pairs, every warp's pixel cotangent row and its components,
 // padded to whole passes of kBwdEntries.
-size_t bwd_smem_bytes(int n_k) {
+size_t bwd_smem_bytes(int n_w) {
   return (2 + kWarps) * static_cast<size_t>(kPix) * sizeof(float)
-         + kWarps * 2 * static_cast<size_t>(round_up(n_k, kBwdEntries)) * sizeof(float4);
+         + kWarps * 2 * static_cast<size_t>(round_up(n_w, kBwdEntries)) * sizeof(float4);
 }
 
+// K2, K3 or K5 on the whole-tile or the staged path
+// (kernels/tiled_field.py tile_staged).
 template <bool kCentered, int kMode>
 cudaError_t launch_fwd(const float* amp, const float* mx, const float* my, const float* pa,
                        const float* pb, const float* pc, const int* tile_src,
                        const float* px, const float* py, const float* counts,
                        const float* sky, const float* mask, float* partial, float* lam,
                        int n_tiles, int n_chains, int plane_w, int s_cap, int n_comp,
-                       cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(s_cap * n_comp, kMode == kRender ? 2 : 6);
-  const cudaError_t err = launch_prep(tiled_fwd_kernel<kCentered, kMode>, smem);
+                       int staged, cudaStream_t stream) {
+  const auto kernel = staged ? tiled_fwd_kernel<kCentered, kMode, true>
+                             : tiled_fwd_kernel<kCentered, kMode, false>;
+  const size_t smem = fwd_smem_bytes(staged ? kTileChunk : s_cap * n_comp,
+                                     kMode == kRender ? 2 : 6);
+  const cudaError_t err = launch_prep(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_tiles, (n_chains + kWarps - 1) / kWarps);
-  tiled_fwd_kernel<kCentered, kMode><<<grid, kThreads, smem, stream>>>(
-      amp, mx, my, pa, pb, pc, tile_src, px, py, counts, sky, mask, partial, lam, n_chains,
-      plane_w, s_cap, n_comp);
+  kernel<<<grid, kThreads, smem, stream>>>(amp, mx, my, pa, pb, pc, tile_src, px, py, counts,
+                                           sky, mask, partial, lam, n_chains, plane_w, s_cap,
+                                           n_comp);
   return cudaGetLastError();
 }
 
-// Part 1 of K4 or K6, then the scatter of part 2 into d_planes.
+// Part 1 of K4 or K6 on the whole-tile or the staged path, then the
+// scatter of part 2 into d_planes.
 template <bool kRender>
 cudaError_t launch_bwd(const float* amp, const float* mx, const float* my, const float* pa,
                        const float* pb, const float* pc, const int* tile_src,
@@ -452,14 +624,15 @@ cudaError_t launch_bwd(const float* amp, const float* mx, const float* my, const
                        const float* mask, const float* lam, const float* g,
                        const int* col_ptr, const int* col_ent, float* d_part, float* d_planes,
                        int n_tiles, int n_chains, int plane_w, int s_cap, int n_comp,
-                       cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(s_cap * n_comp);
-  cudaError_t err = launch_prep(tiled_bwd_kernel<kRender>, smem);
+                       int staged, cudaStream_t stream) {
+  const auto kernel = staged ? tiled_bwd_kernel<kRender, true> : tiled_bwd_kernel<kRender, false>;
+  const size_t smem = bwd_smem_bytes(staged ? kTileChunk : s_cap * n_comp);
+  cudaError_t err = launch_prep(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_tiles, (n_chains + kWarps - 1) / kWarps);
-  tiled_bwd_kernel<kRender><<<grid, kThreads, smem, stream>>>(
-      amp, mx, my, pa, pb, pc, tile_src, px, py, counts, mask, lam, g, d_part, n_tiles,
-      n_chains, plane_w, s_cap, n_comp);
+  kernel<<<grid, kThreads, smem, stream>>>(amp, mx, my, pa, pb, pc, tile_src, px, py, counts,
+                                           mask, lam, g, d_part, n_tiles, n_chains, plane_w,
+                                           s_cap, n_comp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 sgrid((plane_w + kScatterTile - 1) / kScatterTile,
@@ -473,6 +646,10 @@ cudaError_t launch_bwd(const float* amp, const float* mx, const float* my, const
 
 extern "C" {
 
+// The entries' `staged`: 0 for the whole-tile path, 1 for the staged path
+// (kernels/tiled_field.py tile_staged picks it; any tile runs staged, and a
+// whole tile past the block's shared memory fails its launch).
+
 // K2 (lam == nullptr) or K3 (lam != nullptr, [T, B, 1024]): per-tile
 // partial log-likelihoods partial [T, B].
 int tiled_field_fwd(const float* amp, const float* mx, const float* my, const float* pa,
@@ -480,23 +657,23 @@ int tiled_field_fwd(const float* amp, const float* mx, const float* my, const fl
                     const float* py, const float* counts, const float* sky,
                     const float* mask, float* partial, float* lam, int n_tiles,
                     int n_chains, int plane_w, int s_cap, int n_comp, int centered,
-                    void* stream) {
+                    int staged, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (centered) {
     err = lam ? launch_fwd<true, kLoglikLam>(amp, mx, my, pa, pb, pc, tile_src, px, py, counts,
                                              sky, mask, partial, lam, n_tiles, n_chains,
-                                             plane_w, s_cap, n_comp, s)
+                                             plane_w, s_cap, n_comp, staged, s)
               : launch_fwd<true, kLoglik>(amp, mx, my, pa, pb, pc, tile_src, px, py, counts,
                                           sky, mask, partial, lam, n_tiles, n_chains, plane_w,
-                                          s_cap, n_comp, s);
+                                          s_cap, n_comp, staged, s);
   } else {
     err = lam ? launch_fwd<false, kLoglikLam>(amp, mx, my, pa, pb, pc, tile_src, px, py,
                                               counts, sky, mask, partial, lam, n_tiles,
-                                              n_chains, plane_w, s_cap, n_comp, s)
+                                              n_chains, plane_w, s_cap, n_comp, staged, s)
               : launch_fwd<false, kLoglik>(amp, mx, my, pa, pb, pc, tile_src, px, py, counts,
                                            sky, mask, partial, lam, n_tiles, n_chains, plane_w,
-                                           s_cap, n_comp, s);
+                                           s_cap, n_comp, staged, s);
   }
   return static_cast<int>(err);
 }
@@ -511,20 +688,22 @@ int tiled_field_bwd(const float* amp, const float* mx, const float* my, const fl
                     const float* py, const float* counts, const float* mask,
                     const float* lam, const float* g, const int* col_ptr,
                     const int* col_ent, float* d_part, float* d_planes, int n_tiles,
-                    int n_chains, int plane_w, int s_cap, int n_comp, void* stream) {
+                    int n_chains, int plane_w, int s_cap, int n_comp, int staged,
+                    void* stream) {
   return static_cast<int>(launch_bwd<false>(
       amp, mx, my, pa, pb, pc, tile_src, px, py, counts, mask, lam, g, col_ptr, col_ent, d_part,
-      d_planes, n_tiles, n_chains, plane_w, s_cap, n_comp, static_cast<cudaStream_t>(stream)));
+      d_planes, n_tiles, n_chains, plane_w, s_cap, n_comp, staged,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // K5: the sky-free lambda lam [T, B, 1024] of one table's tiles.
 int tiled_field_render(const float* amp, const float* mx, const float* my, const float* pa,
                        const float* pb, const float* pc, const int* tile_src, const float* px,
                        const float* py, float* lam, int n_tiles, int n_chains, int plane_w,
-                       int s_cap, int n_comp, void* stream) {
+                       int s_cap, int n_comp, int staged, void* stream) {
   return static_cast<int>(launch_fwd<false, kRender>(
       amp, mx, my, pa, pb, pc, tile_src, px, py, nullptr, nullptr, nullptr, nullptr, lam,
-      n_tiles, n_chains, plane_w, s_cap, n_comp, static_cast<cudaStream_t>(stream)));
+      n_tiles, n_chains, plane_w, s_cap, n_comp, staged, static_cast<cudaStream_t>(stream)));
 }
 
 // K6: the six plane cotangents d_planes [6, B, plane_w] from the cotangent
@@ -534,10 +713,10 @@ int tiled_field_render_bwd(const float* amp, const float* mx, const float* my,
                            const int* tile_src, const float* px, const float* py,
                            const float* g, const int* col_ptr, const int* col_ent,
                            float* d_part, float* d_planes, int n_tiles, int n_chains,
-                           int plane_w, int s_cap, int n_comp, void* stream) {
+                           int plane_w, int s_cap, int n_comp, int staged, void* stream) {
   return static_cast<int>(launch_bwd<true>(
       amp, mx, my, pa, pb, pc, tile_src, px, py, nullptr, nullptr, nullptr, g, col_ptr, col_ent,
-      d_part, d_planes, n_tiles, n_chains, plane_w, s_cap, n_comp,
+      d_part, d_planes, n_tiles, n_chains, plane_w, s_cap, n_comp, staged,
       static_cast<cudaStream_t>(stream)));
 }
 

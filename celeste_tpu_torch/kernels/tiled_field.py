@@ -15,7 +15,9 @@ Dispatch follows the tensors' device, with no switch and no fallback:
   ``csrc/tiled_field.cu``: K2 (``tiled_fwd_cuda``) for values; under
   autograd, K3 (``tiled_fwd_lam_cuda``, which also keeps lambda) and K4
   (``tiled_bwd_cuda``, the hand backward and its deterministic scatter).
-  A build or launch failure raises.
+  A build or launch failure raises.  Any tile runs in one launch per
+  bucket: one whose components fit a block's shared memory takes the
+  whole-tile path, a larger one the staged path (:func:`tile_staged`).
 - CPU tensors take the plain PyTorch versions the same way: values through
   :func:`_tiled_torch`; a call that needs a gradient keeps lambda in
   :func:`_tiled_lam_torch` and differentiates with :func:`_tiled_bwd_torch`.
@@ -53,6 +55,17 @@ from celeste_tpu_torch.parallel.tiles import (
 
 _SOURCES = ("tiled_field.cu",)
 _MAX_CHAINS = 8 * 65535          # grid.y of the tile kernels is chains / 8
+
+# K2-K6's launch (csrc/tiled_field.cu): a block is one tile and TILE_WARPS
+# chains, a warp a chain, and each warp stages its chain's K = s_cap * C
+# components of the tile in shared memory, 32 bytes each: all of them where
+# they fit the block's SMEM_OPTIN bytes, else TILE_CHUNK at a time (the
+# staged path, no component cap); the backward pads them to whole passes of
+# BWD_ENTRIES.
+TILE_WARPS = 8
+TILE_CHUNK = 256
+BWD_ENTRIES = 8
+SMEM_OPTIN = 232448              # the H100's 227 KB a block
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +113,44 @@ def random_tile_problem(seed: int = 5, b: int = 6, s: int = 4, c: int = 3, t: in
     mask = (rng.random((t, PIX_PER_TILE)) > 0.1).astype(np.float32)
     g = rng.normal(size=b).astype(np.float32)
     return (amp, mx, my, pa, pb, pc), tile_src, (px, py, counts, sky, mask), g
+
+
+def tile_smem_bytes(kernel: str, n_w: int) -> int:
+    """Shared memory of a block of ``kernel`` ("fwd": K2 and K3, "render":
+    K5, "bwd": K4 and K6) whose warps stage ``n_w`` components each
+    (``csrc/tiled_field.cu`` ``fwd_smem_bytes``, ``bwd_smem_bytes``): the
+    pixel arrays (six for K2 and K3, px and py for K5; the backward's (px,
+    py) pairs and every warp's row of pixel cotangents) and two float4 a
+    component and warp."""
+    comps = TILE_WARPS * 32
+    if kernel == "fwd":
+        return 6 * PIX_PER_TILE * 4 + comps * n_w
+    if kernel == "render":
+        return 2 * PIX_PER_TILE * 4 + comps * n_w
+    if kernel == "bwd":
+        return (2 + TILE_WARPS) * PIX_PER_TILE * 4 + comps * (-(-n_w // BWD_ENTRIES) * BWD_ENTRIES)
+    raise ValueError(kernel)
+
+
+def tile_staged(kernel: str, n_k: int) -> bool:
+    """Whether ``kernel`` ("fwd", "render" or "bwd") takes the staged path
+    at ``n_k`` = s_cap * C components a tile: only where the whole tile would
+    not fit a block's shared memory (K > 812 for K2 and K3, 876 for K5, 744
+    for K4 and K6), so that every tile that fits keeps the whole-tile path.
+    The wrappers look it up at each call (the card tests and the smoke
+    replace it to hold the two paths bitwise equal where both fit)."""
+    return tile_smem_bytes(kernel, n_k) > SMEM_OPTIN
+
+
+def tile_chunk_walk(kernel: str, n_k: int, staged: bool) -> list[tuple[int, int]]:
+    """The chunks ``(k0, n)`` in which a warp of ``kernel`` stages and walks
+    a tile's ``n_k`` components, in order (``csrc/tiled_field.cu``, written
+    out): the whole tile at once, or TILE_CHUNK at a time; the backward
+    stages each chunk with zero entries up to whole passes of BWD_ENTRIES,
+    so its ``n`` here is the staged count."""
+    pad = BWD_ENTRIES if kernel == "bwd" else 1
+    step = TILE_CHUNK if staged else max(n_k, 1)
+    return [(k0, -(-min(step, n_k - k0) // pad) * pad) for k0 in range(0, n_k, step)]
 
 
 class TileBucket:
@@ -333,13 +384,13 @@ class _PlainTiled(torch.autograd.Function):
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tiled_field_fwd.argtypes = [p] * 14 + [i] * 6 + [p]
+    lib.tiled_field_fwd.argtypes = [p] * 14 + [i] * 7 + [p]
     lib.tiled_field_fwd.restype = i
-    lib.tiled_field_bwd.argtypes = [p] * 17 + [i] * 5 + [p]
+    lib.tiled_field_bwd.argtypes = [p] * 17 + [i] * 6 + [p]
     lib.tiled_field_bwd.restype = i
-    lib.tiled_field_render.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.tiled_field_render.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.tiled_field_render.restype = i
-    lib.tiled_field_render_bwd.argtypes = [p] * 14 + [i] * 5 + [p]
+    lib.tiled_field_render_bwd.argtypes = [p] * 14 + [i] * 6 + [p]
     lib.tiled_field_render_bwd.restype = i
     lib.tiled_field_error_string.argtypes = [i]
     lib.tiled_field_error_string.restype = ctypes.c_char_p
@@ -417,7 +468,7 @@ def _launch_fwd(planes, tile_src, pixel_tiles, n_comp, centered, keep_lam):
             err = lib.tiled_field_fwd(*_ptrs(planes), tile_src.data_ptr(), *_ptrs(pixel_tiles),
                                       partial.data_ptr(), lam.data_ptr() if keep_lam else None,
                                       n_tiles, b, plane_w, s_cap, n_comp, int(bool(centered)),
-                                      stream)
+                                      int(tile_staged("fwd", s_cap * n_comp)), stream)
         _raise_on_error(lib, err, "tiled_field_fwd")
     return partial.sum(0), lam
 
@@ -470,7 +521,7 @@ def tiled_bwd_cuda(amp, mx, my, pa, pb, pc, tile_src, px, py, counts, sky, mask,
                                       lam.data_ptr(), g.data_ptr(), col_ptr.data_ptr(),
                                       col_ent.data_ptr(), d_part.data_ptr(),
                                       d_planes.data_ptr(), n_tiles, b, plane_w, s_cap, n_comp,
-                                      stream)
+                                      int(tile_staged("bwd", s_cap * n_comp)), stream)
         _raise_on_error(lib, err, "tiled_field_bwd")
     tiled_bwd_cuda.launches += 1
     return tuple(d_planes.unbind(0))
@@ -490,7 +541,8 @@ def tiled_render_cuda(amp, mx, my, pa, pb, pc, tile_src, px, py, *, n_comp: int)
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.tiled_field_render(*_ptrs(planes), tile_src.data_ptr(), px.data_ptr(),
                                          py.data_ptr(), lam.data_ptr(), n_tiles, b, plane_w,
-                                         s_cap, n_comp, stream)
+                                         s_cap, n_comp, int(tile_staged("render", s_cap * n_comp)),
+                                         stream)
         _raise_on_error(lib, err, "tiled_field_render")
     tiled_render_cuda.launches += 1
     return lam
@@ -520,7 +572,8 @@ def tiled_render_bwd_cuda(amp, mx, my, pa, pb, pc, tile_src, px, py, g, col_ptr,
                                              py.data_ptr(), g.data_ptr(), col_ptr.data_ptr(),
                                              col_ent.data_ptr(), d_part.data_ptr(),
                                              d_planes.data_ptr(), n_tiles, b, plane_w, s_cap,
-                                             n_comp, stream)
+                                             n_comp, int(tile_staged("bwd", s_cap * n_comp)),
+                                             stream)
         _raise_on_error(lib, err, "tiled_field_render_bwd")
     tiled_render_bwd_cuda.launches += 1
     return tuple(d_planes.unbind(0))

@@ -28,7 +28,16 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    atol 1e-3; K6 against its plain version and against torch autograd
    through the plain K5, rtol 5e-4, atol 0.1; K6 on the random-plane setup,
    rtol 2e-4, atol 5e-3; K6 twice, bitwise equal; sentinels render exactly
-   0 with finite cotangents;
+   0 with finite cotangents.  Phase 4c: K2-K6 on tiles past the whole-tile
+   staging (the staged path) at B=1024: random problems of 780 (K2, K3 and
+   K5 whole, K4 and K6 staged) and 2400 components a tile (C = 48), and
+   the densest bucket of the tiled crowded_field of 32 sources (24
+   galaxies) and of 48 (32) on 64x64 (891 and 1218), against their plain
+   versions at the tolerances above (K4 and K6 on the kernels' lambda;
+   crowded fields rtol 5e-4, atol 0.1, random problems rtol 2e-4, atol
+   5e-3), one launch a wrapper call, twice bitwise, the two paths bitwise
+   equal where both fit; each timed (a CUDA graph of 5 calls) beside its
+   plain version and bound;
 5. hold the stamp render kernel (K7) against its plain version on star
    (C=3, 25x25) and galaxy (C=48, 31x31) planes at B=32, 1000 and 4096, on
    config 5's dense planes over the 48x128 field at B=1024, and on random
@@ -70,7 +79,13 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    finite samples, ChEES accept >= 0.4, divergence <= 0.05 in both arms,
    max split-R-hat <= 1.1 on the ChEES arm; check the whitening maps on
    the card against float64 on the host; fail on a tiled kernel the run
-   never launched.  Phase b, the warm-start caches, on fresh files: the
+   never launched.  Phase 8c: ``run_experiment`` of ``crowded_field`` with
+   ``tiled=true n_sources=32 n_galaxies=24 shape=64,64`` (256 chains; the
+   densest bucket's 891 components a tile on the staged path), ChEES cut
+   in steps by ENTRY_CROWDED_LARGE, the tiled counters set to 0 just before
+   and read just after: finite samples of the run's shape, K3 and K4
+   launched (printed with R-hat, which is not gated).  Phase b, the
+   warm-start caches, on fresh files: the
    preparation's first call misses and saves, the second hits (live-probe
    gap printed, < 1 nat; the ensemble bitwise the saved one), and on the
    target shifted by +5 nats the live probe is off by >= 4 nats, so a third
@@ -198,14 +213,18 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
 13. print K1's rows by shape as a JSON line (``k1_shapes``, with the time
     lost, launches x (ms - bound), summed per kernel in ``k1_lost_s``), K7's
     likewise (``k7_shapes``, ``k7_lost_s``), the rows of many components
-    (``large_c``; no main-path run launches them), then the kernels' JSON line
+    (``large_c``; no main-path run launches them), the tiled kernels' rows
+    past the whole-tile staging (``large_tile``, the 32-source field's with
+    phase 8c's launches on each bucket and their time lost), then the
+    kernels' JSON line
     (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd, and K1-fwd, K1-bwd and K7 in
     the pixel-set mode: the field runs' launches, timed at the ``field``
     group sampler's shape [128, 96] x 4 sets of 2304 pixels and at the
     candidate cutouts' [16, 48] x 16 sets of 576), each kernel's ms per wrapper
     call (K2-K4: both buckets timed together, divided by their two
     launches; their launches those of both config-5 paths, one band and
-    three; K1's those of config 1's path and the pipeline's, K7's those of
+    three and of phase 8c; K1's those of config 1's path and the
+    pipeline's, K7's those of
     the PPC and the pipeline) with its bound per call (the largest of its bytes over the
     card's memory rate, its float32 operations over the card's float32
     rate, and its exponentials and logarithms over the special-function
@@ -250,10 +269,28 @@ RANDOM_BWD_TOL = (2e-4, 5e-3)
 LAM_TOL = (1e-5, 1e-3)
 BENCH_CHAINS = 65536
 C5_CHAINS = 1024
+# phase 4c: K2-K6 on tiles past the whole-tile staging (the staged path),
+# at B = 1024: random problems of 260 slots of 3 components (780 a tile: K2,
+# K3 and K5 stage it whole, K4 and K6 staged) and of 50 slots of 48 (2400),
+# and the tiled crowded_field of 32 sources (24 galaxies) and of 48 (32) on
+# 64x64, whose densest buckets hold 891 and 1218 components a tile; each
+# case's densest bucket checked and timed
+LARGE_TILE_CHAINS = 1024
+LARGE_TILE_RANDOM = ((260, 3), (50, 48))
+LARGE_TILE_FIELDS = ((32, 24, (64, 64)), (48, 32, (64, 64)))
+TILED_COUNTERS = {"K2": "tiled_field_fwd", "K3": "tiled_field_fwd_lam", "K4": "tiled_field_bwd",
+                  "K5": "tiled_field_render", "K6": "tiled_field_render_bwd"}
 TIMING_CHAINS = (1024, 4096)   # the config-5 kernel timings
 # the entry point's crowded_field run (defaults: 300 warmup, 500 steps, 16
-# leapfrog), in 4 segments with checkpoints: phase a's unbroken ChEES run
-ENTRY_CROWDED = dict(n_warmup=16, n_steps=16, n_leapfrog=8, checkpoint_every=4)
+# leapfrog, depth 6), in 4 segments with checkpoints: phase a's unbroken
+# ChEES run (its trajectories capped at 4 n_leapfrog)
+ENTRY_CROWDED = dict(n_warmup=16, n_steps=16, n_leapfrog=2, max_depth=4, checkpoint_every=4)
+# phase 8c: crowded_field past the whole-tile staging through the entry
+# point (32 sources, 24 of them galaxies, 64x64, the config's 256 chains),
+# its sampler cut in steps (the config: 300 warmup, 500 steps, 16 leapfrog,
+# depth 6; ChEES adapts over at least 100 iterations whatever the warmup)
+ENTRY_CROWDED_LARGE = dict(tiled=True, n_sources=32, n_galaxies=24, shape=(64, 64), n_warmup=10,
+                           n_steps=10, n_leapfrog=1, max_depth=2)
 # phase a: star_single MH as configured (64 chains) and HMC cut in steps (the
 # config: 300 warmup, 500 steps, 16 leapfrog), each in 4 segments
 RESUME_MH = dict(n_steps=400, checkpoint_every=100)
@@ -263,14 +300,14 @@ RESUME_HMC = dict(sampler="hmc", n_warmup=100, n_steps=100, n_leapfrog=8, checkp
 # warmup 60, 240 steps in segments of 48): the three-band flow's counts
 C5_PREP = dict(n_warmup=50, warmup_window=50, probe_steps=4, n_zwarm=10)
 C5_CHEES_WARMUP = 20            # config 5's ChEES adaptation (measure_chees_z's)
-C5_CHEES = dict(warmup_iters=C5_CHEES_WARMUP, n_steps=96, run_segment=48)
+C5_CHEES = dict(warmup_iters=C5_CHEES_WARMUP, n_steps=48, run_segment=48)
 # phase c: config 4 through run_experiment (the config: 8 systems x 8
 # temperatures, 1500 steps after 500 of warmup), cut in steps only
 QUASAR_ENTRY = dict(n_steps=160, n_warmup=60)
 PHOTOZ_TARGETS = 256            # phase d: the bench's photo-z batch
 LADDER_TEMPS, LADDER_STEPS = 8, 20   # phase e: the bimodal ladder
 # config 5's NUTS arm (the JAX bench: 64 steps in segments of 16)
-C5_NUTS = dict(n_steps=16, run_segment=16)
+C5_NUTS = dict(n_steps=8, run_segment=8)
 # config 5 in three bands (g, r, i), cut in steps only (chains, bands,
 # sources and field as the JAX bench has them), against the JAX bench's
 # stage (bench.py _bench_config5_multiband): HMC warmup 150 in windows of 50
@@ -747,6 +784,126 @@ def autograd_render(planes, bucket, g, chunk=128):
     return [torch.cat(d) for d in zip(*out)]
 
 
+@contextlib.contextmanager
+def forced_tile_path(staged):
+    """The tiled kernels' wrappers take the staged (or the whole-tile) path
+    at any tile."""
+    from celeste_tpu_torch.kernels import tiled_field as tf
+
+    real = tf.tile_staged
+    tf.tile_staged = lambda kernel, n_k: staged
+    try:
+        yield
+    finally:
+        tf.tile_staged = real
+
+
+def large_tile_cases(device, b):
+    """Phase 4c's problems at ``b`` chains: (name, buckets, planes, sentinel
+    slot, components a slot, K4's and K6's tolerance) for the random
+    problems of LARGE_TILE_RANDOM (RANDOM_BWD_TOL) and the crowded fields
+    of LARGE_TILE_FIELDS (TILED_BWD_TOL)."""
+    from celeste_tpu_torch.bench.tiled_turns import crowded_tiles, random_tiles
+
+    cases = [(f"random {s * c}", *random_tiles(s, c, b, device, seed=s), RANDOM_BWD_TOL)
+             for s, c in LARGE_TILE_RANDOM]
+    cases += [(f"crowded_field {n}/{ng} {h}x{w}", *crowded_tiles(n, ng, (h, w), b, device),
+               TILED_BWD_TOL) for n, ng, (h, w) in LARGE_TILE_FIELDS]
+    return cases
+
+
+def large_tile_checks(device, card):
+    """Phase 4c: K2-K6 on tiles past the whole-tile staging, the densest
+    bucket of each of large_tile_cases at LARGE_TILE_CHAINS (the card tests
+    take every bucket): K2 and K3's log-likelihood
+    rtol 2e-6, atol 1.0, K3's and K5's lambda rtol 1e-5, atol 1e-3, K4 and
+    K6 against their plain versions on the kernels' own lambda (crowded
+    fields rtol 5e-4, atol 0.1; random problems rtol 2e-4, atol 5e-3); one
+    launch a wrapper call; two calls bitwise equal; where the other path
+    also fits, it gives the same bits.  Each timed: device ms per call (a
+    CUDA graph of 5 calls, best of 3), the plain version's (one call, CUDA
+    events), the bound.  Returns the rows."""
+    from celeste_tpu_torch.bench.timing import graph_ms
+    from celeste_tpu_torch.kernels import tiled_field as tf
+
+    b = LARGE_TILE_CHAINS
+    rng = np.random.default_rng(b)
+    g = torch.as_tensor(rng.normal(size=b).astype(np.float32), device=device)
+    kinds = {"K2": "fwd", "K3": "fwd", "K4": "bwd", "K5": "render", "K6": "bwd"}
+    rows = []
+    for name, buckets, planes, sentinel, c, bwd_tol in large_tile_cases(device, b):
+        i = max(range(len(buckets)), key=lambda j: buckets[j].s_cap)
+        bk = buckets[i]
+        n_k, n_tiles = bk.s_cap * c, bk.tile_src.shape[0]
+        px, py = bk.pixels[:2]
+        cols = bk.columns(c, planes[0].shape[1])
+        g_r = torch.as_tensor(rng.normal(size=(n_tiles, b, 1024)).astype(np.float32),
+                              device=device)
+        (want_ll, want_lam), plain_ms = once_ms(
+            lambda: tf._tiled_lam_torch(planes, bk.tile_src, bk.pixels, c))
+        lam = tf.tiled_fwd_lam_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=c)[1]
+        calls = {
+            "K2": lambda: (tf.tiled_fwd_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=c),),
+            "K3": lambda: tf.tiled_fwd_lam_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=c),
+            "K4": lambda: tf.tiled_bwd_cuda(*planes, bk.tile_src, *bk.pixels, lam, g, *cols,
+                                            n_comp=c),
+            "K5": lambda: (tf.tiled_render_cuda(*planes, bk.tile_src, px, py, n_comp=c),),
+            "K6": lambda: tf.tiled_render_bwd_cuda(*planes, bk.tile_src, px, py, g_r, *cols,
+                                                   n_comp=c)}
+        plains = {
+            "K2": lambda: tf._tiled_torch(planes, bk.tile_src, bk.pixels, c),
+            "K4": lambda: tf._tiled_bwd_torch(planes, bk.tile_src, bk.pixels, lam, g, c),
+            "K5": lambda: tf._tiled_render_torch(planes, bk.tile_src, px, py, c),
+            "K6": lambda: tf._tiled_render_bwd_torch(planes, bk.tile_src, px, py, g_r, c)}
+        bounds = tiled_bounds([bk], sentinel, c, b)
+        for kernel, fn in calls.items():
+            what = f"large tile {name} bucket {i} {kernel} B={b} K={n_k}"
+            before = tf.launch_counts()[TILED_COUNTERS[kernel]]
+            got = [t.clone() for t in fn()]
+            check(tf.launch_counts()[TILED_COUNTERS[kernel]] == before + 1,
+                  f"{what}: not one launch")
+            check(all(torch.equal(x, y) for x, y in zip(got, fn())),
+                  f"{what}: not bitwise repeatable")
+            staged = tf.tile_staged(kinds[kernel], n_k)
+            both = tf.tile_smem_bytes(kinds[kernel], n_k) <= tf.SMEM_OPTIN
+            if both:
+                with forced_tile_path(not staged):
+                    other = fn()
+                check(all(torch.equal(x, y) for x, y in zip(got, other)),
+                      f"{what}: the staged and whole-tile paths differ")
+            if kernel == "K3":
+                want, k_ms = (want_ll, want_lam), plain_ms
+            else:
+                want, k_ms = once_ms(plains[kernel])
+                want = want if isinstance(want, tuple) else (want,)
+            if kernel in ("K2", "K3"):
+                err = max_abs_err(got[0], want[0], *TILED_TOL, what)
+                if kernel == "K3":
+                    max_abs_err(got[1], want[1], *LAM_TOL, what + " lambda")
+            elif kernel == "K5":
+                err = max_abs_err(got[0], want[0], *LAM_TOL, what)
+            else:
+                err = max(max_abs_err(x, w, *bwd_tol, f"{what} d_{p}")
+                          for x, w, p in zip(got, want, ("amp", "mx", "my", "pa", "pb", "pc")))
+            row = {"kernel": kernel, "shape": f"{name} bucket {i}", "chains": b,
+                   "components": n_k, "tiles": n_tiles, "buckets": len(buckets),
+                   "staged": staged,
+                   "both_paths_bitwise": both, "max_abs_err": err, "launches": 0,
+                   "ms": graph_ms(fn, reps=5), "plain_ms": k_ms, "lost_s": 0.0}
+            row["bound_ms"], row["bound_by"] = bounds[kernel]
+            check(row["bound_ms"] <= row["ms"], f"{what}: under its bound")
+            rows.append(row)
+    print(f"[large tile] K2-K6 at {sorted({r['components'] for r in rows})} components a tile "
+          f"(B={b}) match their plain versions, one launch a call, bitwise repeatable, staged "
+          f"== whole-tile where both fit ({card})", flush=True)
+    for r in rows:
+        print(f"    {r['kernel']} {r['shape']}: K={r['components']} T={r['tiles']} "
+              f"staged={r['staged']} ms={r['ms']:.6f} plain={r['plain_ms']:.6f} "
+              f"bound={r['bound_ms']:.6f} ({r['bound_by']}) max abs err "
+              f"{r['max_abs_err']:.4g}", flush=True)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # configs 2 and 3: the stamp render kernel and the separable kernels
 # ---------------------------------------------------------------------------
@@ -1145,6 +1302,47 @@ def config5_path(device, tmp):
           f"traj={res['trajectory_length']:.4f} max_rhat={float(np.max(res['rhat'])):.4f} "
           f"min_ess={float(np.min(res['ess'])):.1f}", flush=True)
     return dense_counts, res
+
+
+def crowded_large_path(device):
+    """Phase 8c: ``run_experiment`` of ``crowded_field`` past the whole-tile
+    staging (ENTRY_CROWDED_LARGE: 32 sources, 24 galaxies, 64x64, 256
+    chains, ChEES cut in steps), the tiled counters set to 0 just before and
+    read just after: the densest bucket's 891 components a tile take the
+    staged path; finite samples of the run's shape; K3 and K4 launched.
+    R-hat printed, not gated.  Returns the run's launches."""
+    from celeste_tpu_torch.experiments import CONFIGS, run_experiment
+    from celeste_tpu_torch.kernels import tiled_field as tf
+
+    cfg = copy.deepcopy(CONFIGS["crowded_field"])
+    cfg.device = str(device)
+    for k, v in ENTRY_CROWDED_LARGE.items():
+        setattr(cfg, k, v)
+    check(all(tf.tile_staged(k, 891) for k in ("fwd", "render", "bwd")),
+          "891 components a tile would not take the staged path")
+    tf.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_experiment(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = tf.launch_counts()
+    n_gal = cfg.n_galaxies
+    d = n_gal * 7 + (cfg.n_sources - n_gal) * 3
+    check(res["samples"].shape == (cfg.n_chains, cfg.n_steps, d),
+          f"crowded_field (32 sources) samples shape {res['samples'].shape}")
+    check(bool(np.isfinite(res["samples"]).all()), "crowded_field (32 sources): non-finite samples")
+    print(f"[entry] run_experiment crowded_field tiled=true n_sources={cfg.n_sources} "
+          f"n_galaxies={n_gal} shape={cfg.shape} chains={cfg.n_chains} warmup={cfg.n_warmup} "
+          f"steps={cfg.n_steps} n_leapfrog={cfg.n_leapfrog} max_depth={cfg.max_depth}: "
+          f"wall={wall:.3f}s accept={res['accept_rate']:.4f} "
+          f"divergence={res['divergence_rate']:.4f} eps={res['step_size']:.4f} "
+          f"traj={res['trajectory_length']:.4f} max_rhat={float(np.max(res['rhat'])):.4f} "
+          f"(printed, not gated) min_ess={float(np.min(res['ess'])):.1f} K3 launches "
+          f"{counts['tiled_field_fwd_lam']}, K4 launches {counts['tiled_field_bwd']} "
+          f"(all: {counts})", flush=True)
+    for name in ("tiled_field_fwd_lam", "tiled_field_bwd"):
+        check(counts[name] > 0, f"the 32-source crowded_field run never launched {name}")
+    return counts
 
 
 def multiband_path(device):
@@ -2923,55 +3121,59 @@ def k1_shape_timings(device, card, config5, launches):
     return rows
 
 
+def tiled_bounds(buckets, sentinel, n_comp, b):
+    """K2-K6's bounds per bucket call of a table's ``buckets`` at ``b``
+    chains, the planes' last slot ``sentinel``: terms count the table
+    entries that are not the sentinel (the work this data needs); the
+    planes, the table, the pixel arrays and the column lists read once,
+    lambda and the outputs written once; over all buckets, divided by their
+    launches."""
+    f4 = 4
+    width = (sentinel + 1) * n_comp
+    planes = 6 * b * width * f4
+    entries = sum(int((bk.tile_src != sentinel).sum()) for bk in buckets) * n_comp * b
+    tiles = sum(bk.tile_src.shape[0] for bk in buckets)
+    slots = sum(bk.tile_src.numel() for bk in buckets)
+    terms, table = entries * 1024, slots * f4
+    cols = (len(buckets) * (width + 1) + slots * n_comp) * f4
+    lam, pixels = tiles * b * 1024 * f4, tiles * b * 1024
+
+    def per_call(ms_by):
+        return ms_by[0] / len(buckets), ms_by[1]
+
+    fwd = terms * (FLOPS_TERM_FORM + FLOPS_TERM_SUM) + pixels * FLOPS_PIXEL_LOGLIK
+    bwd = terms * (FLOPS_TERM_FORM + FLOPS_TERM_MOMENTS) + entries * FLOPS_ENTRY_EPILOGUE
+    return {
+        "K2": per_call(bound(fwd, planes + table + 5 * tiles * 1024 * f4 + tiles * b * f4,
+                             terms + pixels)),
+        "K3": per_call(bound(fwd, planes + table + 5 * tiles * 1024 * f4 + tiles * b * f4 + lam,
+                             terms + pixels)),
+        "K4": per_call(bound(bwd + pixels * FLOPS_PIXEL_GLAM,
+                             2 * planes + table + 4 * tiles * 1024 * f4 + lam + b * f4 + cols,
+                             terms)),
+        "K5": per_call(bound(terms * (FLOPS_TERM_FORM + FLOPS_TERM_SUM),
+                             planes + table + 2 * tiles * 1024 * f4 + lam, terms)),
+        "K6": per_call(bound(bwd, 2 * planes + table + 2 * tiles * 1024 * f4 + lam + cols,
+                             terms)),
+    }
+
+
 def kernel_bounds(config5, sharded5):
     """Each kernel's bound per wrapper call at the shapes it is timed at:
     config 1's 25x25 stamp at B=65536 (625 pixels, padded to 640), config
     5's buckets at B=1024 (the single-device tables for K2-K4, whose bound
     over both buckets is divided by their two launches; the one-rank sharded
-    table for K5 and K6).  Terms count the table entries that are not the
-    sentinel: the work this run's data needs."""
+    table for K5 and K6; ``tiled_bounds``)."""
     from celeste_tpu_torch.model.galaxy import N_GAL
 
     f4 = 4
     out = k1_bounds(BENCH_CHAINS, 3, 625, 640)
     b = TIMING_CHAINS[0]
     sentinel = config5[3]["scene"].n_sources * N_GAL
-    width = (sentinel + 1) * 3
-    planes = 6 * b * width * f4
-
-    def sizes(buckets):
-        """(terms, entries x chains, tiles, table bytes, column-list bytes) of
-        a table's buckets."""
-        entries = sum(int((bk.tile_src != sentinel).sum()) for bk in buckets) * 3 * b
-        tiles = sum(bk.tile_src.shape[0] for bk in buckets)
-        slots = sum(bk.tile_src.numel() for bk in buckets)
-        return (entries * 1024, entries, tiles, slots * f4,
-                (len(buckets) * (width + 1) + slots * 3) * f4)
-
-    def per_call(n_calls, ms_by):
-        return ms_by[0] / n_calls, ms_by[1]
-
-    buckets = config5[3]["tiled_data"].bucket_tables
-    terms, entries, tiles, table, cols = sizes(buckets)
-    lam, pixels = tiles * b * 1024 * f4, tiles * b * 1024
-    fwd = terms * (FLOPS_TERM_FORM + FLOPS_TERM_SUM) + pixels * FLOPS_PIXEL_LOGLIK
-    out["K2"] = per_call(len(buckets), bound(
-        fwd, planes + table + 5 * tiles * 1024 * f4 + tiles * b * f4, terms + pixels))
-    out["K3"] = per_call(len(buckets), bound(
-        fwd, planes + table + 5 * tiles * 1024 * f4 + tiles * b * f4 + lam, terms + pixels))
-    out["K4"] = per_call(len(buckets), bound(
-        terms * (FLOPS_TERM_FORM + FLOPS_TERM_MOMENTS) + pixels * FLOPS_PIXEL_GLAM
-        + entries * FLOPS_ENTRY_EPILOGUE,
-        2 * planes + table + 4 * tiles * 1024 * f4 + lam + b * f4 + cols, terms))
-    buckets = sharded5["loglik"].buckets
-    terms, entries, tiles, table, cols = sizes(buckets)
-    lam = tiles * b * 1024 * f4
-    out["K5"] = per_call(len(buckets), bound(
-        terms * (FLOPS_TERM_FORM + FLOPS_TERM_SUM), planes + table + 2 * tiles * 1024 * f4 + lam,
-        terms))
-    out["K6"] = per_call(len(buckets), bound(
-        terms * (FLOPS_TERM_FORM + FLOPS_TERM_MOMENTS) + entries * FLOPS_ENTRY_EPILOGUE,
-        2 * planes + table + 2 * tiles * 1024 * f4 + lam + cols, terms))
+    single = tiled_bounds(config5[3]["tiled_data"].bucket_tables, sentinel, 3, b)
+    sharded = tiled_bounds(sharded5["loglik"].buckets, sentinel, 3, b)
+    out.update({k: single[k] for k in ("K2", "K3", "K4")})
+    out.update({k: sharded[k] for k in ("K5", "K6")})
     # K7 on config 5's field with the dense planes (12 sources: 10 stars of
     # 3 components, 2 galaxies of 48) at B=1024: a term's form and sum, and
     # the [B, P] store
@@ -3033,6 +3235,9 @@ def main() -> int:
     config5 = build_config5(device=device)
     tiled_errs = tiled_kernel_checks(device, config5)
     render_errs = render_kernel_checks(device, build_config5_sharded(config5[3], None))
+    lap("kernel checks, K1-K6 on config 5")
+    large_tile = large_tile_checks(device, card)
+    lap("phase 4c, K2-K6 past the whole-tile staging")
     k7_err = stamp_render_checks(device, config5)
     k8_errs = sep_kernel_checks(device)
     set_errs, set_problems = pixel_set_checks(device)
@@ -3059,6 +3264,8 @@ def main() -> int:
     for name in ("tiled_field_fwd", "tiled_field_fwd_lam", "tiled_field_bwd"):
         check(c5_counts[name] > 0, f"the config-5 path never launched {name}")
     lap("config 5 and the crowded_field entry run")
+    cl_counts = crowded_large_path(device)
+    lap("phase 8c, crowded_field past the whole-tile staging")
 
     mf.reset_launch_counts()
     tf.reset_launch_counts()
@@ -3131,6 +3338,15 @@ def main() -> int:
         bounds = kernel_bounds(config5, sharded5)
         lap("timings")
     tiled = "celeste_tpu/kernels/tiled_field.py"
+    # K2-K4's launches: both config-5 paths' and the 32-source crowded_field's
+    tiled_counts = (c5_counts, mb_counts, cl_counts)
+    # the large-tile rows of the 32-source field: that run's launches, the
+    # same on each of its buckets; lost = launches x (ms - bound)
+    n, ng, (h, w) = (ENTRY_CROWDED_LARGE[k] for k in ("n_sources", "n_galaxies", "shape"))
+    for r in large_tile:
+        if r["shape"].startswith(f"crowded_field {n}/{ng} {h}x{w} bucket"):
+            r["launches"] = cl_counts[TILED_COUNTERS[r["kernel"]]] // r["buckets"]
+            r["lost_s"] = r["launches"] * (r["ms"] - r["bound_ms"]) * 1e-3
     t5b, trb = t5[TIMING_CHAINS[0]], tr[TIMING_CHAINS[0]]
     # K1's launches: config 1's path and the pipeline's; K7's: the PPC's and
     # the pipeline's
@@ -3142,13 +3358,13 @@ def main() -> int:
          "K1-bwd", k1_counts["mog_field_loglik_bwd"] + pipe_counts["mog_field_loglik_bwd"],
          k1_errs["bwd"], t1["bwd_ms"], t1["bwd_plain_ms"]),
         ("tiled_field_fwd", "tiled_field.cu", f"{tiled}:57", "K2",
-         c5_counts["tiled_field_fwd"] + mb_counts["tiled_field_fwd"], tiled_errs["K2"],
+         sum(c["tiled_field_fwd"] for c in tiled_counts), tiled_errs["K2"],
          t5b["K2"], t5b["K2_plain"]),
         ("tiled_field_fwd_lam", "tiled_field.cu", f"{tiled}:84", "K3",
-         c5_counts["tiled_field_fwd_lam"] + mb_counts["tiled_field_fwd_lam"], tiled_errs["K3"],
+         sum(c["tiled_field_fwd_lam"] for c in tiled_counts), tiled_errs["K3"],
          t5b["K3"], t5b["K3_plain"]),
         ("tiled_field_bwd", "tiled_field.cu", f"{tiled}:108", "K4",
-         c5_counts["tiled_field_bwd"] + mb_counts["tiled_field_bwd"], tiled_errs["K4"],
+         sum(c["tiled_field_bwd"] for c in tiled_counts), tiled_errs["K4"],
          t5b["K4"], t5b["K4_plain"]),
         ("tiled_field_render", "tiled_field.cu", f"{tiled}:632", "K5",
          sh_counts["tiled_field_render"], render_errs["K5"], trb["K5"], trb["K5_plain"]),
@@ -3191,6 +3407,7 @@ def main() -> int:
     print(json.dumps({"k7_shapes": k7_rows, "k7_lost_s": sum(r["lost_s"] for r in k7_rows)}),
           flush=True)
     print(json.dumps({"large_c": large_c}), flush=True)
+    print(json.dumps({"large_tile": large_tile}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -498,6 +498,170 @@ def test_tiled_wrappers_reject_bad_inputs(cuda, config5):
 # the render kernels K5, K6 (the source-sharded field)
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# K2-K6 past the whole-tile staging: the staged path (no component cap)
+# ---------------------------------------------------------------------------
+
+# components a tile: 780 (260 random slots of 3: K2, K3 and K5 whole, K4
+# and K6 staged), the densest buckets of the tiled crowded_field of 32
+# sources (24 galaxies) and of 48 (32) on 64x64 (891, 1218), and 50 random
+# slots of 48 (2400); at 203 chains, whose last block of 8 is not whole
+LARGE_TILES = ("random 780", "crowded 891", "crowded 1218", "random 2400")
+LARGE_TILE_CHAINS = 203
+TILED_COUNTERS = {"K2": "tiled_field_fwd", "K3": "tiled_field_fwd_lam", "K4": "tiled_field_bwd",
+                  "K5": "tiled_field_render", "K6": "tiled_field_render_bwd"}
+TILED_KINDS = {"K2": "fwd", "K3": "fwd", "K4": "bwd", "K5": "render", "K6": "bwd"}
+
+
+def _large_tile_problem(cuda, name, b):
+    """(buckets, planes, sentinel, components a slot, K4's and K6's
+    tolerance) of one of LARGE_TILES."""
+    from celeste_tpu_torch.bench.tiled_turns import crowded_tiles, random_tiles
+
+    if name.startswith("random"):
+        s, c = {"random 780": (260, 3), "random 2400": (50, 48)}[name]
+        return (*random_tiles(s, c, b, cuda, seed=s), RENDER_BWD_RANDOM_TOL)
+    n, ng = {"crowded 891": (32, 24), "crowded 1218": (48, 32)}[name]
+    return (*crowded_tiles(n, ng, (64, 64), b, cuda), TILED_GRAD_TOL)
+
+
+def _tiled_calls(planes, bk, c, lam, g, g_r):
+    """{kernel: a wrapper call returning its outputs as a tuple} of one
+    bucket; K4 reads ``lam``, K6 the cotangent ``g_r``."""
+    px, py = bk.pixels[:2]
+    cols = bk.columns(c, planes[0].shape[1])
+    return {
+        "K2": lambda: (tf.tiled_fwd_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=c),),
+        "K3": lambda: tf.tiled_fwd_lam_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=c),
+        "K4": lambda: tf.tiled_bwd_cuda(*planes, bk.tile_src, *bk.pixels, lam, g, *cols,
+                                        n_comp=c),
+        "K5": lambda: (tf.tiled_render_cuda(*planes, bk.tile_src, px, py, n_comp=c),),
+        "K6": lambda: tf.tiled_render_bwd_cuda(*planes, bk.tile_src, px, py, g_r, *cols,
+                                               n_comp=c)}
+
+
+def _force_tile_path(monkeypatch, staged: bool):
+    """Make the tiled wrappers take the staged (or the whole-tile) path."""
+    monkeypatch.setattr(tf, "tile_staged", lambda kernel, n_k: staged)
+
+
+def _bucket_inputs(cuda, planes, bk, c, seed):
+    """K3's lambda for K4, the output cotangent g [B] and K6's [T, B, PIX]."""
+    b = planes[0].shape[0]
+    rng = np.random.default_rng(seed)
+    g = torch.as_tensor(rng.normal(size=b).astype(np.float32), device=cuda)
+    g_r = torch.as_tensor(rng.normal(size=(bk.tile_src.shape[0], b, 1024)).astype(np.float32),
+                          device=cuda)
+    lam = tf.tiled_fwd_lam_cuda(*planes, bk.tile_src, *bk.pixels, n_comp=c)[1]
+    return lam, g, g_r
+
+
+@pytest.mark.parametrize("name", LARGE_TILES)
+def test_large_tiles_match_plain(cuda, monkeypatch, name):
+    """K2-K6 on every bucket of a table past the whole-tile staging against
+    their plain versions: K2 and K3's log-likelihood rtol 2e-6 + atol 1.0,
+    K3's and K5's lambda rtol 1e-5 + atol 1e-3, K4 and K6 on the kernels'
+    own lambda (crowded fields rtol 5e-4 + atol 0.1, random problems rtol
+    2e-4 + atol 5e-3); one launch a call; two calls bitwise equal; where the
+    other path also fits, it gives the same bits."""
+    buckets, planes, _, c, bwd_tol = _large_tile_problem(cuda, name, LARGE_TILE_CHAINS)
+    assert any(tf.tile_staged("bwd", bk.s_cap * c) for bk in buckets)
+    for i, bk in enumerate(buckets):
+        n_k = bk.s_cap * c
+        lam, g, g_r = _bucket_inputs(cuda, planes, bk, c, seed=i)
+        px, py = bk.pixels[:2]
+        want_ll, want_lam = tf._tiled_lam_torch(planes, bk.tile_src, bk.pixels, c)
+        want = {"K2": (want_ll,), "K3": (want_ll, want_lam),
+                "K4": tf._tiled_bwd_torch(planes, bk.tile_src, bk.pixels, lam, g, c),
+                "K5": (tf._tiled_render_torch(planes, bk.tile_src, px, py, c),),
+                "K6": tf._tiled_render_bwd_torch(planes, bk.tile_src, px, py, g_r, c)}
+        tols = {"K2": [TILED_TOL], "K3": [TILED_TOL, LAM_TOL], "K4": [bwd_tol] * 6,
+                "K5": [LAM_TOL], "K6": [bwd_tol] * 6}
+        for kernel, fn in _tiled_calls(planes, bk, c, lam, g, g_r).items():
+            before = tf.launch_counts()[TILED_COUNTERS[kernel]]
+            got = [t.clone() for t in fn()]
+            assert tf.launch_counts()[TILED_COUNTERS[kernel]] == before + 1, kernel
+            assert all(torch.equal(a, a2) for a, a2 in zip(got, fn())), kernel
+            for a, w, tol in zip(got, want[kernel], tols[kernel]):
+                torch.testing.assert_close(a, w, **tol, msg=f"{name} bucket {i} {kernel}")
+            if tf.tile_smem_bytes(TILED_KINDS[kernel], n_k) <= tf.SMEM_OPTIN:
+                with monkeypatch.context() as m:
+                    _force_tile_path(m, not tf.tile_staged(TILED_KINDS[kernel], n_k))
+                    other = fn()
+                assert all(torch.equal(a, o) for a, o in zip(got, other)), kernel
+
+
+@pytest.mark.parametrize("n_k", [114, 600])
+def test_staged_tile_path_gives_the_whole_tile_bits(cuda, config5, monkeypatch, n_k):
+    """Tiles that fit the whole-tile staging, config 5's two buckets (99 and
+    114 components) at 1000 chains and 200 random slots of 3 (600) at 203:
+    the staged path asked for gives K2-K6's bits."""
+    if n_k == 114:
+        buckets, planes, c = config5[3]["tiled_data"].bucket_tables, _c5_planes(config5, 1000), 3
+    else:
+        from celeste_tpu_torch.bench.tiled_turns import random_tiles
+
+        buckets, planes, _, c = random_tiles(200, 3, LARGE_TILE_CHAINS, cuda, seed=6)
+    assert max(bk.s_cap for bk in buckets) * c == n_k
+    for i, bk in enumerate(buckets):
+        assert not any(tf.tile_staged(k, bk.s_cap * c) for k in ("fwd", "render", "bwd"))
+        lam, g, g_r = _bucket_inputs(cuda, planes, bk, c, seed=i)
+        for kernel, fn in _tiled_calls(planes, bk, c, lam, g, g_r).items():
+            whole = [t.clone() for t in fn()]
+            with monkeypatch.context() as m:
+                _force_tile_path(m, True)
+                staged = fn()
+            assert all(torch.equal(a, s_) for a, s_ in zip(whole, staged)), (kernel, i)
+
+
+def test_whole_tile_past_the_staging_fails_loudly(cuda, monkeypatch):
+    """At 891 components a tile (297 random slots of 3) every kernel takes
+    the staged path; the whole-tile path asked for there is refused by the
+    launch: each wrapper raises, counting nothing."""
+    from celeste_tpu_torch.bench.tiled_turns import random_tiles
+
+    (bk,), planes, _, c = random_tiles(297, 3, 16, cuda, seed=9)
+    assert all(tf.tile_staged(k, 891) for k in ("fwd", "render", "bwd"))
+    lam, g, g_r = _bucket_inputs(cuda, planes, bk, c, seed=0)
+    calls = _tiled_calls(planes, bk, c, lam, g, g_r)
+    _force_tile_path(monkeypatch, False)
+    for kernel, fn in calls.items():
+        before = tf.launch_counts()
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fn()
+        assert tf.launch_counts() == before, kernel
+
+
+def test_crowded_field_past_the_whole_tile_runs_on_the_card(cuda):
+    """``crowded_field tiled=true`` with 32 sources (24 galaxies) on 64x64,
+    through ``experiments._crowded_problem``: its log density and gradient
+    at 8 chains through K3 and K4 (the densest bucket's 891 components a
+    tile on the staged path), one launch of each per bucket, equal to the
+    CPU's plain path at the tiled gates."""
+    import copy
+
+    from celeste_tpu_torch.experiments import CONFIGS, _crowded_problem
+
+    out = {}
+    for device in ("cpu", cuda):
+        cfg = copy.deepcopy(CONFIGS["crowded_field"])
+        cfg.tiled, cfg.n_sources, cfg.n_galaxies, cfg.shape = True, 32, 24, (64, 64)
+        _, logd, x0 = _crowded_problem(cfg, torch.device(device))
+        xs = (x0[None] + 0.01 * np.random.default_rng(8).normal(size=(8, x0.size)))
+        xt = torch.tensor(xs.astype(np.float32), device=device, requires_grad=True)
+        before = tf.launch_counts()
+        val = logd(xt)
+        (grad,) = torch.autograd.grad(val.sum(), xt)
+        after = tf.launch_counts()
+        out[str(device)] = (val.detach().cpu(), grad.cpu(),
+                            {k: after[k] - before[k] for k in after})
+    assert out["cuda:0"][2] == {"tiled_field_fwd": 0, "tiled_field_fwd_lam": 2,
+                                "tiled_field_bwd": 2, "tiled_field_render": 0,
+                                "tiled_field_render_bwd": 0}
+    torch.testing.assert_close(out["cuda:0"][0], out["cpu"][0], **TILED_TOL)
+    torch.testing.assert_close(out["cuda:0"][1], out["cpu"][1], **TILED_GRAD_TOL)
+
+
 @pytest.fixture(scope="module")
 def sharded5(config5):
     """Config 5 on one rank: the rectangular posterior's sharded pieces."""
