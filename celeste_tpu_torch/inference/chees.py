@@ -42,6 +42,7 @@ import torch
 
 from celeste_tpu_torch.inference.hmc import value_and_grad
 from celeste_tpu_torch.inference.type_switch import CandidateStreams
+from celeste_tpu_torch.utils.profiling import span
 
 # energy error (nats) above which a proposal counts as diverged, as in NUTS
 _DIVERGENCE_THRESHOLD = 1000.0
@@ -168,37 +169,39 @@ def _ensemble_step(state: ChEESState, logdensity_fn, h, n_leap, ens: Groups):
     ``n_leap[g]`` leapfrog steps of its size in ``h``
     (:func:`_row_step_sizes`), the loop max(n_leap) steps with each
     group's x and p stopped after its own count."""
-    xs = state.xs
-    p0 = ens.normal(None, xs)
-    half_h = 0.5 * h
-    energy0 = -state.logps + 0.5 * torch.sum(p0 * p0, dim=-1)
-    x, p, logp, g = xs, p0, state.logps, state.grads
-    for k in range(max(n_leap)):
-        p_half = p + half_h * g
-        x_new = x + h * p_half
-        logp_new, g_new = value_and_grad(logdensity_fn, x_new)
-        p_new = p_half + half_h * g_new
-        if min(n_leap) > k:
-            x, p, logp, g = x_new, p_new, logp_new, g_new
-        else:
-            # groups past their own count keep their end point
-            live = ens.rows(torch.tensor([n > k for n in n_leap], device=xs.device))
-            x = torch.where(live[:, None], x_new, x)
-            p = torch.where(live[:, None], p_new, p)
-            logp = torch.where(live, logp_new, logp)
-            g = torch.where(live[:, None], g_new, g)
-    energy1 = -logp + 0.5 * torch.sum(p * p, dim=-1)
-    # divergence: a non-finite or a large finite energy error (the NUTS
-    # threshold, so that divergence rates compare across samplers)
-    diverged = ~torch.isfinite(energy1) | (energy1 - energy0 > _DIVERGENCE_THRESHOLD)
-    d_energy = torch.where(diverged, torch.full_like(energy0, -float("inf")), energy0 - energy1)
-    accept_prob = torch.clamp(torch.exp(d_energy), max=1.0)
-    accept = ens.uniform(None, accept_prob) < accept_prob
-    new = ChEESState(xs=torch.where(accept[:, None], x, xs),
-                     logps=torch.where(accept, logp, state.logps),
-                     grads=torch.where(accept[:, None], g, state.grads))
-    # x and the velocity (unit mass: p) at the proposal end, for the ChEES gradient
-    return new, accept_prob, x, p, diverged
+    with span("sampler.step"):
+        xs = state.xs
+        p0 = ens.normal(None, xs)
+        half_h = 0.5 * h
+        energy0 = -state.logps + 0.5 * torch.sum(p0 * p0, dim=-1)
+        x, p, logp, g = xs, p0, state.logps, state.grads
+        for k in range(max(n_leap)):
+            p_half = p + half_h * g
+            x_new = x + h * p_half
+            logp_new, g_new = value_and_grad(logdensity_fn, x_new)
+            p_new = p_half + half_h * g_new
+            if min(n_leap) > k:
+                x, p, logp, g = x_new, p_new, logp_new, g_new
+            else:
+                # groups past their own count keep their end point
+                live = ens.rows(torch.tensor([n > k for n in n_leap], device=xs.device))
+                x = torch.where(live[:, None], x_new, x)
+                p = torch.where(live[:, None], p_new, p)
+                logp = torch.where(live, logp_new, logp)
+                g = torch.where(live[:, None], g_new, g)
+        energy1 = -logp + 0.5 * torch.sum(p * p, dim=-1)
+        # divergence: a non-finite or a large finite energy error (the NUTS
+        # threshold, so that divergence rates compare across samplers)
+        diverged = ~torch.isfinite(energy1) | (energy1 - energy0 > _DIVERGENCE_THRESHOLD)
+        d_energy = torch.where(diverged, torch.full_like(energy0, -float("inf")),
+                               energy0 - energy1)
+        accept_prob = torch.clamp(torch.exp(d_energy), max=1.0)
+        accept = ens.uniform(None, accept_prob) < accept_prob
+        new = ChEESState(xs=torch.where(accept[:, None], x, xs),
+                         logps=torch.where(accept, logp, state.logps),
+                         grads=torch.where(accept[:, None], g, state.grads))
+        # x and the velocity (unit mass: p) at the proposal end, for the ChEES gradient
+        return new, accept_prob, x, p, diverged
 
 
 def _chees_grad(xs, x1, v1, accept_prob, ens: Groups):

@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from celeste_tpu_torch.utils.profiling import span
+
 
 class HMCState(NamedTuple):
     x: torch.Tensor       # [B, D]
@@ -33,7 +35,7 @@ class HMCInfo(NamedTuple):
 
 def value_and_grad(logdensity_fn, x):
     """(logp [B], d logp / dx [B, D]) of a batched log density."""
-    with torch.enable_grad():
+    with span("sampler.grad"), torch.enable_grad():
         xr = x.detach().requires_grad_(True)
         logp = logdensity_fn(xr)
         (grad,) = torch.autograd.grad(logp.sum(), xr)

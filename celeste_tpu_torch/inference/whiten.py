@@ -28,6 +28,7 @@ import torch
 from celeste_tpu_torch.inference.hmc import hmc_warmup_finish, hmc_warmup_init, hmc_warmup_window
 from celeste_tpu_torch.inference.nuts import nuts_kernel
 from celeste_tpu_torch.inference.runner import run_chains_ensemble
+from celeste_tpu_torch.utils.profiling import span
 
 
 def _mm64(a, b):
@@ -71,7 +72,8 @@ def whiten_logdensity(logdensity_fn, mean, cov):
         return fn(v.reshape(m.shape[0], -1, d)).reshape(v.shape)
 
     def to_x(z):
-        return by_group(lambda zg: m + _mm64(zg, chol_t), z)
+        with span("whiten.to_x"):
+            return by_group(lambda zg: m + _mm64(zg, chol_t), z)
 
     def to_z(x):
         x = torch.as_tensor(x, dtype=torch.float32)

@@ -51,6 +51,7 @@ from celeste_tpu_torch.model.params import GalaxyParams, StarParams
 from celeste_tpu_torch.model.priors import SourcePriors
 from celeste_tpu_torch.parallel.collectives import replicated_in, sum_over
 from celeste_tpu_torch.parallel.mesh import axis_index, axis_size
+from celeste_tpu_torch.utils.profiling import span
 
 
 def STAR_D(n_bands):
@@ -141,16 +142,18 @@ def scene_field_planes(scene: CrowdedScene, vecs, stamp, band):
 
 def _crowded_logprior(scene: CrowdedScene, priors: SourcePriors, vecs):
     """Prior + log |det J| of every source, [B]."""
-    lp = 0.0
-    blocks, _ = scene.block_slices()
-    for (off, d, kind), params in zip(blocks, scene.unpack(vecs)):
-        v = vecs[..., off:off + d]
-        if kind == "star":
-            lp = lp + priors.star_logpdf(params) + StarParams.log_det_jacobian(v, scene.n_bands)
-        else:
-            lp = (lp + priors.galaxy_logpdf(params)
-                  + GalaxyParams.log_det_jacobian(v, scene.n_bands))
-    return lp
+    with span("posterior.prior"):
+        lp = 0.0
+        blocks, _ = scene.block_slices()
+        for (off, d, kind), params in zip(blocks, scene.unpack(vecs)):
+            v = vecs[..., off:off + d]
+            if kind == "star":
+                lp = (lp + priors.star_logpdf(params)
+                      + StarParams.log_det_jacobian(v, scene.n_bands))
+            else:
+                lp = (lp + priors.galaxy_logpdf(params)
+                      + GalaxyParams.log_det_jacobian(v, scene.n_bands))
+        return lp
 
 
 def make_crowded_logdensity(scene: CrowdedScene, stamps: Sequence, bands: Sequence[int],
@@ -247,8 +250,10 @@ def make_tiled_crowded_logdensity(scene: CrowdedScene, stamp, band, positions_px
     def logdensity(vecs):
         ll = 0.0
         for st, b, data in zip(stamps, bands, datas):
-            planes = planes_fn(scene, vecs, st, b)
-            ll = ll + tiled_field_loglik(planes, data, n_comp=n_comp, centered=centered)
+            with span("posterior.planes"):
+                planes = planes_fn(scene, vecs, st, b)
+            with span("posterior.likelihood"):
+                ll = ll + tiled_field_loglik(planes, data, n_comp=n_comp, centered=centered)
         return ll + _crowded_logprior(scene, priors, vecs)
 
     return logdensity, (datas if is_multi else datas[0])

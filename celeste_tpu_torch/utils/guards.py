@@ -11,8 +11,6 @@ from __future__ import annotations
 
 import torch
 
-from celeste_tpu_torch.inference.hmc import value_and_grad
-
 
 def checked_logdensity(logdensity_fn):
     """Return ``(checked, run)`` for a log-density ``[B, D] -> [B]``:
@@ -20,6 +18,8 @@ def checked_logdensity(logdensity_fn):
     first chains whose log-density or gradient is not finite (None when all
     are), and ``run(x)`` returns ``logp`` or raises ``FloatingPointError``
     with that message.  Debug tool: one gradient per call."""
+    # imported here: inference.hmc imports utils.profiling, which loads this package
+    from celeste_tpu_torch.inference.hmc import value_and_grad
 
     def checked(x):
         logp, grad = value_and_grad(logdensity_fn, x)

@@ -2,8 +2,8 @@
 
 ``trace_context`` wraps a block in a ``torch.profiler`` trace (CPU, and the
 card's kernels where CUDA is present), written as a Chrome trace that
-Perfetto reads; ``timed`` is the synchronised timing harness; ``named_scope``
-labels a block in the trace (``torch.profiler.record_function``).
+Perfetto reads; ``timed`` is the synchronised timing harness; ``span``
+names a layer of the hot path in the trace.
 """
 
 from __future__ import annotations
@@ -15,14 +15,46 @@ import time
 
 import torch
 
-named_scope = torch.profiler.record_function
+SPAN_PREFIX = "celeste."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``celeste.<name>``
+    while a profiler is recording, else one shared no-op context.  The
+    profiler records the ranges beside the device's activity, and the
+    device operations they launch carry their ids; a span changes no value
+    and synchronises nothing.
+    The hot path's spans:
+
+    - ``sampler.step``: one jittered-HMC step of a ChEES ensemble
+      (``inference.chees._ensemble_step``);
+    - ``sampler.grad``: one value and gradient (``inference.hmc.value_and_grad``),
+      its forward call and ``torch.autograd.grad``;
+    - ``whiten.to_x``: the z -> x map of ``inference.whiten.whiten_logdensity``;
+    - ``posterior.planes``, ``posterior.likelihood``: one band's plane
+      preparation and tiled likelihood call in
+      ``parallel.crowded.make_tiled_crowded_logdensity``;
+    - ``posterior.prior``: the priors and log-Jacobians of every source
+      (``parallel.crowded._crowded_logprior``).
+
+    Backward operations run outside these ranges (on autograd's device
+    thread on the card); a reader puts them down to the span of the forward
+    operation with the same sequence number.
+    """
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
 def trace_context(logdir: str | None = None):
     """Profile the enclosed block; yields the profiler and writes its Chrome
     trace to ``logdir/trace.json`` (default: a directory under the system's
-    temporary directory)."""
+    temporary directory).  The trace shows the hot path's :func:`span`
+    ranges: ``celeste.sampler.step``, ``celeste.sampler.grad``,
+    ``celeste.whiten.to_x``, ``celeste.posterior.planes``,
+    ``celeste.posterior.likelihood`` and ``celeste.posterior.prior``."""
     logdir = logdir or os.path.join(tempfile.gettempdir(), "celeste_tpu_torch_trace")
     os.makedirs(logdir, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]

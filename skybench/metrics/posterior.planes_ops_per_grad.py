@@ -1,0 +1,10 @@
+"""Device kernels and copies put down to the program's
+``celeste.posterior.planes`` span (each band's plane preparation, its
+backward by sequence number; ``skybench.spans``) in a traced window, over the
+value-and-gradient evaluations the window computed."""
+
+from skybench import spans
+
+
+def read(rec):
+    return spans.per_grad_ops(rec, "posterior.planes")
