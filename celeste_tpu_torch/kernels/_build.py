@@ -40,11 +40,12 @@ def _nvcc() -> str:
                        "CUDA kernels of celeste_tpu_torch")
 
 
-def build_library(name: str, sources) -> Path:
+def build_library(name: str, sources, flags=()) -> Path:
     """Compile ``sources`` (file names under csrc/) into one shared library
     unless it is built; the file name carries the hash of the sources, the
-    shared headers (csrc/*.cuh) and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    shared headers (csrc/*.cuh) and the flags (``NVCC_FLAGS`` and the
+    library's own ``flags``)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     for path in [CSRC_DIR / s for s in sources] + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -53,7 +54,7 @@ def build_library(name: str, sources) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in sources)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), *(str(CSRC_DIR / s) for s in sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building {name}:\n"
@@ -62,13 +63,13 @@ def build_library(name: str, sources) -> Path:
     return out
 
 
-def load_library(name: str, sources, declare) -> ctypes.CDLL:
+def load_library(name: str, sources, declare, flags=()) -> ctypes.CDLL:
     """Build (if needed) and load a library once per process;
     ``declare(lib)`` sets the argtypes and restype of every entry."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build_library(name, sources)))
+            lib = ctypes.CDLL(str(build_library(name, sources, flags)))
             declare(lib)
             _loaded[name] = lib
         return lib

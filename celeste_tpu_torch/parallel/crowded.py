@@ -195,7 +195,9 @@ def make_tiled_crowded_logdensity(scene: CrowdedScene, stamp, band, positions_px
     [S], or [S, N_GAL] per block from ``model.galaxy.block_support_radii``).
     Mixed-kind scenes use the component-block layout (slots K wide; a star
     owns one block, a galaxy N_GAL), so per-tile work tracks the true
-    component count.
+    component count.  Every band's planes come from one call of
+    ``kernels.scene_planes.ScenePlanes``: on the card one launch of its
+    forward kernel, and one of its backward under autograd.
 
     ``stamp`` and ``band`` may be lists, one entry per band, for a joint
     multi-band field: one tile map and one ``TiledStampData`` per band, and
@@ -206,12 +208,8 @@ def make_tiled_crowded_logdensity(scene: CrowdedScene, stamp, band, positions_px
     [n_bands, S, 2] array is ambiguous and raises.  Returns ``(logdensity,
     data)``: the ``TiledStampData``, or their list when ``stamp`` is a list.
     """
-    from celeste_tpu_torch.kernels.tiled_field import (
-        TiledStampData,
-        scene_planes_blocked,
-        scene_planes_padded,
-        tiled_field_loglik,
-    )
+    from celeste_tpu_torch.kernels.scene_planes import ScenePlanes
+    from celeste_tpu_torch.kernels.tiled_field import TiledStampData, tiled_field_loglik
     from celeste_tpu_torch.model.galaxy import N_GAL
     from celeste_tpu_torch.parallel.tiles import build_block_tile_map, build_tile_map
 
@@ -245,13 +243,13 @@ def make_tiled_crowded_logdensity(scene: CrowdedScene, stamp, band, positions_px
         else:
             tm = build_tile_map(pos, radii_px, shape, s_max=s_max)
         datas.append(TiledStampData(tm, st, n_buckets=n_buckets))
-    planes_fn = scene_planes_blocked if mixed else scene_planes_padded
+    scene_planes = ScenePlanes(scene, stamps, bands)
 
     def logdensity(vecs):
+        with span("posterior.planes"):
+            band_planes = scene_planes(vecs)
         ll = 0.0
-        for st, b, data in zip(stamps, bands, datas):
-            with span("posterior.planes"):
-                planes = planes_fn(scene, vecs, st, b)
+        for planes, data in zip(band_planes, datas):
             with span("posterior.likelihood"):
                 ll = ll + tiled_field_loglik(planes, data, n_comp=n_comp, centered=centered)
         return ll + _crowded_logprior(scene, priors, vecs)

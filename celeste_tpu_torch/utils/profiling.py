@@ -32,8 +32,9 @@ def span(name: str):
     - ``sampler.grad``: one value and gradient (``inference.hmc.value_and_grad``),
       its forward call and ``torch.autograd.grad``;
     - ``whiten.to_x``: the z -> x map of ``inference.whiten.whiten_logdensity``;
-    - ``posterior.planes``, ``posterior.likelihood``: one band's plane
-      preparation and tiled likelihood call in
+    - ``posterior.planes``: every band's plane preparation, one call of
+      ``kernels.scene_planes.ScenePlanes``, and ``posterior.likelihood``: one
+      band's tiled likelihood call, in
       ``parallel.crowded.make_tiled_crowded_logdensity``;
     - ``posterior.prior``: the priors and log-Jacobians of every source
       (``parallel.crowded._crowded_logprior``).

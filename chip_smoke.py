@@ -16,7 +16,15 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    and holed masks; values rtol 2e-6, atol 0.5 (galaxies 1.0), gradients
    against the plain backward rtol 5e-4, atol 5e-2, finite for a
    zero-amplitude component; each kernel called twice, bitwise equal;
-4. hold the tiled kernels (K2, K3, K4) against theirs on config-5 planes at
+4. hold the plane kernels (``csrc/scene_planes.cu``, the forward and its
+   hand backward) against their plain version (``scene_planes_blocked`` per
+   band, and torch autograd through it) at the benchmark cells' shapes,
+   config 5 at 65536 chains in r and at 32768 in g, r, i: the planes' bits
+   equal; per state column, the gradient's distance from the plain one in
+   float64 at most 4 times the float32 plain version's plus 1e-4 of the
+   column's largest magnitude; each kernel twice bitwise; timed beside their bounds
+   (bytes) and the plain version, in a ``scene_planes`` JSON line; then
+   hold the tiled kernels (K2, K3, K4) against theirs on config-5 planes at
    B=1000 and 4096, centered both ways, full and holed masks: K2 and K3's
    log-likelihood rtol 2e-6, atol 1.0; K3's lambda rtol 1e-5, atol 1e-3; K4
    against torch autograd through the plain forward, rtol 5e-4, atol 0.1;
@@ -217,7 +225,8 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
     past the whole-tile staging (``large_tile``, the 32-source field's with
     phase 8c's launches on each bucket and their time lost), then the
     kernels' JSON line
-    (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd, and K1-fwd, K1-bwd and K7 in
+    (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd, the plane kernels at config 5's
+    65536 chains in r, and K1-fwd, K1-bwd and K7 in
     the pixel-set mode: the field runs' launches, timed at the ``field``
     group sampler's shape [128, 96] x 4 sets of 2304 pixels and at the
     candidate cutouts' [16, 48] x 16 sets of 576), each kernel's ms per wrapper
@@ -632,6 +641,91 @@ def random_tile_problem(device, seed, b):
     return ([torch.as_tensor(p, device=device) for p in planes],
             torch.as_tensor(tile_src, device=device), tile_src,
             [torch.as_tensor(p, device=device) for p in pixels], torch.as_tensor(g, device=device))
+
+
+# the plane kernels at the benchmark cells' shapes: (name, chains, bands)
+SCENE_PLANES_SHAPES = (("c5_r", 65536, 1), ("c5_gri", 32768, 3))
+
+
+def scene_planes_bounds(prep, b):
+    """The plane kernels' bounds in ms at ``b`` chains, bytes over the HBM
+    rate (their FP32 work, ~30 operations and two special functions a
+    column, is far below it): the forward reads the states and writes every
+    band's six planes once; the backward reads the states and the live
+    columns' six cotangents of every band and writes the gradient once."""
+    f4, n_pb = 4, len(prep.bands)
+    live = sum(prep.src_w if kind == "galaxy" else prep.n_comp for kind in prep.scene.kinds)
+    states = b * prep.d_total * f4
+    fwd = states + n_pb * 6 * b * prep.plane_w * f4
+    bwd = 2 * states + n_pb * 6 * b * live * f4
+    return fwd / HBM_BYTES_PER_S * 1e3, bwd / HBM_BYTES_PER_S * 1e3
+
+
+def scene_planes_checks(device, card, config5):
+    """The plane kernels against their plain version at SCENE_PLANES_SHAPES
+    (config 5's truth plus noise of 0.01): the planes, the gradient of
+    random cotangents, two calls of each kernel bitwise; then each timed
+    (best of 3 runs of 20 calls) beside its bound and the plain version (the
+    plain backward's time is that of the plain forward and its autograd
+    backward, less the forward's).  Prints and returns the rows."""
+    from celeste_tpu_torch.bench.config5 import build_config5_multiband
+    from celeste_tpu_torch.kernels import scene_planes as sp
+
+    builds = {1: config5, 3: build_config5_multiband(device=device)}
+    rows = []
+    for name, b, nb in SCENE_PLANES_SHAPES:
+        _, _, vec, info = builds[nb]
+        stamps = info["stamps"] if nb > 1 else [info["stamp"]]
+        prep = sp.ScenePlanes(info["scene"], stamps, range(nb))
+        gen = torch.Generator(device=device).manual_seed(17)
+        vecs = vec[None] + 0.01 * torch.randn(b, vec.shape[0], generator=gen, device=device)
+
+        def plain(v):
+            return [prep.plain(prep.scene, v, st, q) for q, st in enumerate(stamps)]
+
+        got, want = sp.scene_planes_fwd_cuda(prep, vecs), plain(vecs)
+        check(all(torch.equal(got[q, i], want[q][i]) for q in range(nb) for i in range(6)),
+              f"{name}: the plane forward's bits differ from the plain version's")
+        err_fwd = 0.0
+        cots = [torch.randn(b, prep.plane_w, generator=gen, device=device)
+                for _ in range(6 * nb)]
+        grad = sp.scene_planes_bwd_cuda(prep, vecs, cots)
+        x = vecs.clone().requires_grad_(True)
+
+        def plain_vjp(x=x, cots=cots):
+            return torch.autograd.grad([p for band in plain(x) for p in band], x, cots)[0]
+
+        want_g = plain_vjp()
+        ref = plain_vjp(vecs.double().requires_grad_(True), [c.double() for c in cots])
+        err_g = (grad.double() - ref).abs().amax(dim=0)
+        bound = (4.0 * (want_g.double() - ref).abs().amax(dim=0)
+                 + 1e-4 * ref.abs().amax(dim=0))
+        check(bool((err_g <= bound).all()),
+              f"{name}: the plane backward is off the plain gradient by {float(err_g.max()):.4g}")
+        err_g = float((grad - want_g).abs().max())
+        del ref
+        check(torch.equal(got, sp.scene_planes_fwd_cuda(prep, vecs)),
+              f"{name}: two forward calls differ")
+        check(torch.equal(grad, sp.scene_planes_bwd_cuda(prep, vecs, cots)),
+              f"{name}: two backward calls differ")
+        fwd_bound, bwd_bound = scene_planes_bounds(prep, b)
+        fwd_ms = time_ms(lambda: sp.scene_planes_fwd_cuda(prep, vecs), 20)
+        bwd_ms = time_ms(lambda: sp.scene_planes_bwd_cuda(prep, vecs, cots), 20)
+        plain_fwd_ms = time_ms(lambda: plain(vecs), 3)
+        plain_vjp_ms = time_ms(plain_vjp, 3)
+        for kernel, ms, bound_ms, plain_ms, err in (
+                ("planes-fwd", fwd_ms, fwd_bound, plain_fwd_ms, err_fwd),
+                ("planes-bwd", bwd_ms, bwd_bound, plain_vjp_ms - plain_fwd_ms, err_g)):
+            check(bound_ms <= ms, f"{name} {kernel}: {ms:.6f} ms under its bound {bound_ms:.6f}")
+            rows.append({"kernel": kernel, "shape": name, "chains": b, "bands": nb,
+                         "ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                         "plain_ms": plain_ms, "max_abs_err": err, "card": card})
+            print(f"[kernels] {kernel} {name} B={b}: {ms:.6f} ms, bound {bound_ms:.6f} ms "
+                  f"(bytes), plain {plain_ms:.6f} ms, max abs err {err:.4g}", flush=True)
+        del got, want, grad, cots, x, want_g
+        torch.cuda.empty_cache()
+    print(json.dumps({"scene_planes": rows}), flush=True)
+    return rows
 
 
 def tiled_kernel_checks(device, config5):
@@ -3201,6 +3295,7 @@ def main() -> int:
     from celeste_tpu_torch.bench.config5 import build_config5, build_config5_sharded
     from celeste_tpu_torch.kernels import mog_field as mf
     from celeste_tpu_torch.kernels import mog_field_sep as ms
+    from celeste_tpu_torch.kernels import scene_planes as sp
     from celeste_tpu_torch.kernels import tiled_field as tf
     from celeste_tpu_torch.kernels._build import build_library
     from celeste_tpu_torch.parallel import process_group
@@ -3216,10 +3311,12 @@ def main() -> int:
     tmp = tmp_dir.name
 
     # one nvcc per library, started together; the loads then find them built
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        list(pool.map(build_library, ("mog_field", "tiled_field", "mog_field_sep"),
-                      (mf._SOURCES, tf._SOURCES, ms._SOURCES)))
-    libs = [mf.build_kernels(), tf.build_kernels(), ms.build_kernels()]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        list(pool.map(build_library,
+                      ("mog_field", "tiled_field", "mog_field_sep", "scene_planes"),
+                      (mf._SOURCES, tf._SOURCES, ms._SOURCES, sp._SOURCES),
+                      ((), (), (), sp._FLAGS)))
+    libs = [mf.build_kernels(), tf.build_kernels(), ms.build_kernels(), sp.build_kernels()]
     print(f"[build] {', '.join(lib.name for lib in libs)} built and loaded in "
           f"{time.perf_counter() - t_start:.3f} s", flush=True)
     laps = [t_start]
@@ -3233,9 +3330,10 @@ def main() -> int:
 
     k1_errs = stamp_kernel_checks(device)
     config5 = build_config5(device=device)
+    planes_rows = scene_planes_checks(device, card, config5)
     tiled_errs = tiled_kernel_checks(device, config5)
     render_errs = render_kernel_checks(device, build_config5_sharded(config5[3], None))
-    lap("kernel checks, K1-K6 on config 5")
+    lap("kernel checks, K1-K6 and the plane kernels on config 5")
     large_tile = large_tile_checks(device, card)
     lap("phase 4c, K2-K6 past the whole-tile staging")
     k7_err = stamp_render_checks(device, config5)
@@ -3256,6 +3354,7 @@ def main() -> int:
         check(k1_counts[name] > 0, f"the config-1 path never launched {name}")
     lap("config 1")
 
+    planes_launches = [sp.scene_planes_fwd_cuda.launches, sp.scene_planes_bwd_cuda.launches]
     mf.reset_launch_counts()
     tf.reset_launch_counts()
     dense_counts, crowded_unbroken = config5_path(device, tmp)
@@ -3275,6 +3374,12 @@ def main() -> int:
           flush=True)
     for name in ("tiled_field_fwd", "tiled_field_fwd_lam", "tiled_field_bwd"):
         check(mb_counts[name] > 0, f"the three-band config-5 path never launched {name}")
+    # the plane kernels' launches on the three config-5 paths (one band, phase
+    # 8c, three bands)
+    planes_launches = [sp.scene_planes_fwd_cuda.launches - planes_launches[0],
+                       sp.scene_planes_bwd_cuda.launches - planes_launches[1]]
+    check(min(planes_launches) > 0, f"the config-5 paths launched the plane kernels "
+                                    f"{planes_launches} times")
     lap("config 5 in three bands")
 
     resume_path(device, tmp, crowded_unbroken)
@@ -3380,6 +3485,15 @@ def main() -> int:
          "K8-bwd", k8_counts["mog_field_sep_bwd"], k8_errs["bwd"], t8["K8_bwd_ms"],
          t8["K8_bwd_plain_ms"]),
     ]
+    # the plane kernels: the config-5 paths' launches, timed at the c5_r
+    # cell's shape (SCENE_PLANES_SHAPES' first)
+    for key, launches in zip(("planes-fwd", "planes-bwd"), planes_launches):
+        r = next(r for r in planes_rows if r["kernel"] == key)
+        bounds[key] = (r["bound_ms"], r["bound_by"])
+        rows.append((f"scene_planes_{key[-3:]}", "scene_planes.cu",
+                     "none: the plain per-source graph, which XLA fuses "
+                     "(celeste_tpu/kernels/tiled_field.py scene_planes_blocked)", key, launches,
+                     r["max_abs_err"], r["ms"], r["plain_ms"]))
     # the pixel-set mode: launches of both field paths, timed at the field's
     # group sampling shape (K1) and its candidate cutouts (K7)
     for key, shape in (("K1-fwd", "group 48x48 R=32"), ("K1-bwd", "group 48x48 R=32"),
