@@ -33,6 +33,7 @@ sum) give every rank the single-process gradient.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -197,7 +198,10 @@ def make_tiled_crowded_logdensity(scene: CrowdedScene, stamp, band, positions_px
     owns one block, a galaxy N_GAL), so per-tile work tracks the true
     component count.  Every band's planes come from one call of
     ``kernels.scene_planes.ScenePlanes``: on the card one launch of its
-    forward kernel, and one of its backward under autograd.
+    forward kernel, and one of its backward under autograd.  The prior of
+    every source comes from one call of ``kernels.scene_prior.ScenePrior``
+    (one launch each way on the card) where the colours are Gaussian; a
+    ``ColorGMM`` colour prior keeps :func:`_crowded_logprior`.
 
     ``stamp`` and ``band`` may be lists, one entry per band, for a joint
     multi-band field: one tile map and one ``TiledStampData`` per band, and
@@ -209,6 +213,7 @@ def make_tiled_crowded_logdensity(scene: CrowdedScene, stamp, band, positions_px
     data)``: the ``TiledStampData``, or their list when ``stamp`` is a list.
     """
     from celeste_tpu_torch.kernels.scene_planes import ScenePlanes
+    from celeste_tpu_torch.kernels.scene_prior import ScenePrior
     from celeste_tpu_torch.kernels.tiled_field import TiledStampData, tiled_field_loglik
     from celeste_tpu_torch.model.galaxy import N_GAL
     from celeste_tpu_torch.parallel.tiles import build_block_tile_map, build_tile_map
@@ -244,6 +249,10 @@ def make_tiled_crowded_logdensity(scene: CrowdedScene, stamp, band, positions_px
             tm = build_tile_map(pos, radii_px, shape, s_max=s_max)
         datas.append(TiledStampData(tm, st, n_buckets=n_buckets))
     scene_planes = ScenePlanes(scene, stamps, bands)
+    if priors.flux.color_gmm is None:
+        prior = ScenePrior(scene, priors, stamps[0].counts.device)
+    else:
+        prior = partial(_crowded_logprior, scene, priors)
 
     def logdensity(vecs):
         with span("posterior.planes"):
@@ -252,7 +261,7 @@ def make_tiled_crowded_logdensity(scene: CrowdedScene, stamp, band, positions_px
         for planes, data in zip(band_planes, datas):
             with span("posterior.likelihood"):
                 ll = ll + tiled_field_loglik(planes, data, n_comp=n_comp, centered=centered)
-        return ll + _crowded_logprior(scene, priors, vecs)
+        return ll + prior(vecs)
 
     return logdensity, (datas if is_multi else datas[0])
 

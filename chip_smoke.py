@@ -23,7 +23,10 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
    equal; per state column, the gradient's distance from the plain one in
    float64 at most 4 times the float32 plain version's plus 1e-4 of the
    column's largest magnitude; each kernel twice bitwise; timed beside their bounds
-   (bytes) and the plain version, in a ``scene_planes`` JSON line; then
+   (bytes) and the plain version, in a ``scene_planes`` JSON line; the prior
+   kernels (``csrc/scene_prior.cu``) the same way against
+   ``_crowded_logprior`` and its autograd gradient at the same shapes, the
+   values rtol 2e-6, atol 1e-4, in a ``scene_prior`` JSON line; then
    hold the tiled kernels (K2, K3, K4) against theirs on config-5 planes at
    B=1000 and 4096, centered both ways, full and holed masks: K2 and K3's
    log-likelihood rtol 2e-6, atol 1.0; K3's lambda rtol 1e-5, atol 1e-3; K4
@@ -225,8 +228,8 @@ Phases, each of which fails loudly (non-zero exit, no caught exception):
     past the whole-tile staging (``large_tile``, the 32-source field's with
     phase 8c's launches on each bucket and their time lost), then the
     kernels' JSON line
-    (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd, the plane kernels at config 5's
-    65536 chains in r, and K1-fwd, K1-bwd and K7 in
+    (K1-fwd, K1-bwd, K2-K7, K8-fwd, K8-bwd, the plane and prior kernels at
+    config 5's 65536 chains in r, and K1-fwd, K1-bwd and K7 in
     the pixel-set mode: the field runs' launches, timed at the ``field``
     group sampler's shape [128, 96] x 4 sets of 2304 pixels and at the
     candidate cutouts' [16, 48] x 16 sets of 576), each kernel's ms per wrapper
@@ -3252,6 +3255,76 @@ def tiled_bounds(buckets, sentinel, n_comp, b):
     }
 
 
+def scene_prior_bounds(prep, b):
+    """The prior kernels' bounds in ms at ``b`` chains, bytes over the HBM
+    rate (their FP32 work, a few special functions a source band, is far
+    below it): the forward reads the states and writes a float a chain; the
+    backward reads the states and the cotangent and writes the gradient."""
+    states = b * prep.d_total * 4
+    return (states + b * 4) / HBM_BYTES_PER_S * 1e3, (2 * states + b * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def scene_prior_checks(device, card, config5):
+    """The prior kernels against ``_crowded_logprior`` at SCENE_PLANES_SHAPES
+    (config 5's truth plus noise of 0.01): the values rtol 2e-6, atol 1e-4;
+    per state column, the gradient's distance from the plain one in float64
+    at most 4 times the float32 plain version's plus 1e-4 of the column's
+    largest magnitude; two calls of each kernel bitwise; then each timed
+    (best of 3 runs of 20 calls) beside its bound and the plain version (the
+    plain backward's time is that of the plain forward and its autograd
+    backward, less the forward's).  Prints and returns the rows."""
+    from celeste_tpu_torch.bench.config5 import build_config5_multiband
+    from celeste_tpu_torch.kernels import scene_prior as sp
+    from celeste_tpu_torch.model.priors import SourcePriors
+
+    builds = {1: config5, 3: build_config5_multiband(device=device)}
+    rows = []
+    for name, b, nb in SCENE_PLANES_SHAPES:
+        _, _, vec, info = builds[nb]
+        prep = sp.ScenePrior(info["scene"], SourcePriors(), device)
+        gen = torch.Generator(device=device).manual_seed(19)
+        vecs = vec[None] + 0.01 * torch.randn(b, vec.shape[0], generator=gen, device=device)
+        got, want = sp.scene_prior_fwd_cuda(prep, vecs), prep.plain(vecs)
+        err_fwd = max_abs_err(got, want, 2e-6, 1e-4, f"{name}: the prior forward")
+        g = torch.randn(b, generator=gen, device=device)
+        grad = sp.scene_prior_bwd_cuda(prep, vecs, g)
+        x = vecs.clone().requires_grad_(True)
+
+        def plain_vjp(x=x, g=g):
+            return torch.autograd.grad(prep.plain(x), x, g)[0]
+
+        want_g = plain_vjp()
+        ref = plain_vjp(vecs.double().requires_grad_(True), g.double())
+        err_g = (grad.double() - ref).abs().amax(dim=0)
+        bound = (4.0 * (want_g.double() - ref).abs().amax(dim=0)
+                 + 1e-4 * ref.abs().amax(dim=0))
+        check(bool((err_g <= bound).all()),
+              f"{name}: the prior backward is off the plain gradient by {float(err_g.max()):.4g}")
+        err_g = float((grad - want_g).abs().max())
+        check(torch.equal(got, sp.scene_prior_fwd_cuda(prep, vecs)),
+              f"{name}: two prior forward calls differ")
+        check(torch.equal(grad, sp.scene_prior_bwd_cuda(prep, vecs, g)),
+              f"{name}: two prior backward calls differ")
+        fwd_bound, bwd_bound = scene_prior_bounds(prep, b)
+        fwd_ms = time_ms(lambda: sp.scene_prior_fwd_cuda(prep, vecs), 20)
+        bwd_ms = time_ms(lambda: sp.scene_prior_bwd_cuda(prep, vecs, g), 20)
+        plain_fwd_ms = time_ms(lambda: prep.plain(vecs), 3)
+        plain_vjp_ms = time_ms(plain_vjp, 3)
+        for kernel, ms, bound_ms, plain_ms, err in (
+                ("prior", fwd_ms, fwd_bound, plain_fwd_ms, err_fwd),
+                ("prior-bwd", bwd_ms, bwd_bound, plain_vjp_ms - plain_fwd_ms, err_g)):
+            check(bound_ms <= ms, f"{name} {kernel}: {ms:.6f} ms under its bound {bound_ms:.6f}")
+            rows.append({"kernel": kernel, "shape": name, "chains": b, "bands": nb,
+                         "ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                         "plain_ms": plain_ms, "max_abs_err": err, "card": card})
+            print(f"[kernels] {kernel} {name} B={b}: {ms:.6f} ms, bound {bound_ms:.6f} ms "
+                  f"(bytes), plain {plain_ms:.6f} ms, max abs err {err:.4g}", flush=True)
+        del got, want, grad, x, want_g, ref
+        torch.cuda.empty_cache()
+    print(json.dumps({"scene_prior": rows}), flush=True)
+    return rows
+
+
 def kernel_bounds(config5, sharded5):
     """Each kernel's bound per wrapper call at the shapes it is timed at:
     config 1's 25x25 stamp at B=65536 (625 pixels, padded to 640), config
@@ -3296,6 +3369,7 @@ def main() -> int:
     from celeste_tpu_torch.kernels import mog_field as mf
     from celeste_tpu_torch.kernels import mog_field_sep as ms
     from celeste_tpu_torch.kernels import scene_planes as sp
+    from celeste_tpu_torch.kernels import scene_prior as spr
     from celeste_tpu_torch.kernels import tiled_field as tf
     from celeste_tpu_torch.kernels._build import build_library
     from celeste_tpu_torch.parallel import process_group
@@ -3311,12 +3385,14 @@ def main() -> int:
     tmp = tmp_dir.name
 
     # one nvcc per library, started together; the loads then find them built
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         list(pool.map(build_library,
-                      ("mog_field", "tiled_field", "mog_field_sep", "scene_planes"),
-                      (mf._SOURCES, tf._SOURCES, ms._SOURCES, sp._SOURCES),
-                      ((), (), (), sp._FLAGS)))
-    libs = [mf.build_kernels(), tf.build_kernels(), ms.build_kernels(), sp.build_kernels()]
+                      ("mog_field", "tiled_field", "mog_field_sep", "scene_planes",
+                       "scene_prior"),
+                      (mf._SOURCES, tf._SOURCES, ms._SOURCES, sp._SOURCES, spr._SOURCES),
+                      ((), (), (), sp._FLAGS, spr._FLAGS)))
+    libs = [mf.build_kernels(), tf.build_kernels(), ms.build_kernels(), sp.build_kernels(),
+            spr.build_kernels()]
     print(f"[build] {', '.join(lib.name for lib in libs)} built and loaded in "
           f"{time.perf_counter() - t_start:.3f} s", flush=True)
     laps = [t_start]
@@ -3331,6 +3407,7 @@ def main() -> int:
     k1_errs = stamp_kernel_checks(device)
     config5 = build_config5(device=device)
     planes_rows = scene_planes_checks(device, card, config5)
+    prior_rows = scene_prior_checks(device, card, config5)
     tiled_errs = tiled_kernel_checks(device, config5)
     render_errs = render_kernel_checks(device, build_config5_sharded(config5[3], None))
     lap("kernel checks, K1-K6 and the plane kernels on config 5")
@@ -3355,6 +3432,7 @@ def main() -> int:
     lap("config 1")
 
     planes_launches = [sp.scene_planes_fwd_cuda.launches, sp.scene_planes_bwd_cuda.launches]
+    prior_launches = [spr.scene_prior_fwd_cuda.launches, spr.scene_prior_bwd_cuda.launches]
     mf.reset_launch_counts()
     tf.reset_launch_counts()
     dense_counts, crowded_unbroken = config5_path(device, tmp)
@@ -3380,6 +3458,10 @@ def main() -> int:
                        sp.scene_planes_bwd_cuda.launches - planes_launches[1]]
     check(min(planes_launches) > 0, f"the config-5 paths launched the plane kernels "
                                     f"{planes_launches} times")
+    prior_launches = [spr.scene_prior_fwd_cuda.launches - prior_launches[0],
+                      spr.scene_prior_bwd_cuda.launches - prior_launches[1]]
+    check(min(prior_launches) > 0, f"the config-5 paths launched the prior kernels "
+                                   f"{prior_launches} times")
     lap("config 5 in three bands")
 
     resume_path(device, tmp, crowded_unbroken)
@@ -3493,6 +3575,14 @@ def main() -> int:
         rows.append((f"scene_planes_{key[-3:]}", "scene_planes.cu",
                      "none: the plain per-source graph, which XLA fuses "
                      "(celeste_tpu/kernels/tiled_field.py scene_planes_blocked)", key, launches,
+                     r["max_abs_err"], r["ms"], r["plain_ms"]))
+    # the prior kernels likewise
+    for key, launches in zip(("prior", "prior-bwd"), prior_launches):
+        r = next(r for r in prior_rows if r["kernel"] == key)
+        bounds[key] = (r["bound_ms"], r["bound_by"])
+        rows.append(("scene_prior_" + ("bwd" if key.endswith("bwd") else "fwd"), "scene_prior.cu",
+                     "none: the plain per-source graph, which XLA fuses "
+                     "(celeste_tpu/parallel/crowded.py _crowded_logprior)", key, launches,
                      r["max_abs_err"], r["ms"], r["plain_ms"]))
     # the pixel-set mode: launches of both field paths, timed at the field's
     # group sampling shape (K1) and its candidate cutouts (K7)

@@ -128,3 +128,42 @@ def test_profiled_segment_gives_the_same_samples_bitwise(field):
         assert torch.equal(a, b)
     for a, b in zip(plain[2], traced[2]):
         assert torch.equal(a, b)
+
+
+def test_the_prior_kernel_pair_is_put_down_to_the_prior_span(field, monkeypatch):
+    """On the card the tiled log density's prior is one forward and one
+    backward launch of ``kernels.scene_prior.ScenePrior``'s kernel pair.
+    Here the kernel path is taken on the CPU, with the two launches stood in
+    for by the plain prior: the pair's forward operation lies inside
+    ``celeste.posterior.prior``, and its backward node leads there by
+    sequence number, so the launches of both are put down to the span."""
+    from celeste_tpu_torch.kernels import scene_prior as sp
+
+    def fwd(prep, vecs):
+        fwd.launches += 1
+        with torch.no_grad():
+            return prep.plain(vecs)
+
+    def bwd(prep, vecs, g):
+        bwd.launches += 1
+        with torch.enable_grad():
+            x = vecs.detach().requires_grad_(True)
+            return torch.autograd.grad(prep.plain(x), x, g)[0]
+
+    fwd.launches = bwd.launches = 0
+    monkeypatch.setattr(sp, "scene_prior_fwd_cuda", fwd)
+    monkeypatch.setattr(sp, "scene_prior_bwd_cuda", bwd)
+    monkeypatch.setattr(sp.ScenePrior, "__call__", sp.ScenePrior.launch)
+    logd_z, state = field
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _step(logd_z, state)
+    events = _host_events(prof)
+    assert (fwd.launches, bwd.launches) == (1, 1)
+    kernel = [e for e in events if e[2] == "_ScenePriorKernel"]
+    assert len(kernel) == 1 and _innermost_span(events, kernel[0]) == "posterior.prior"
+    nodes = [e for e in events if e[2] == BACKWARD + "_ScenePriorKernelBackward"]
+    assert len(nodes) == 1 and nodes[0][4] >= 0
+    forward = [e for e in events if (e[3], e[4]) == (nodes[0][5], nodes[0][4])
+               and not e[2].startswith(BACKWARD) and e[5] == 0]
+    assert forward and forward[0][2] == "_ScenePriorKernel"
+    assert _innermost_span(events, forward[0]) == "posterior.prior"
