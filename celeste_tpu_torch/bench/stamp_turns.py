@@ -147,7 +147,7 @@ def declare_parent(lib, geometry):
     without the staged flag and scratch (``"sets"``), also without the
     pixel-set count (``"k7"``), and also without the geometry arguments of
     K7 (``"k1"``) or of K1 and K7 (``"none"``)."""
-    mf._declare(lib)
+    mf.LIBRARY.declare(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
     if geometry == "all":
         return
@@ -424,7 +424,7 @@ def main() -> int:
         report["sass_inner_loops"][tag] = sass_loops(so, args.out.with_name(f"sass_{tag}.txt"))
         libs[tag] = ctypes.CDLL(str(so))
     declare_parent(libs["parent"], args.parent_geometry)
-    mf._declare(libs["new"])
+    mf.LIBRARY.declare(libs["new"])
     print(f"[stamp_turns] card: {card}", flush=True)
     print(json.dumps({"registers": report["registers"]}), flush=True)
     for tag, kernels in report["sass_inner_loops"].items():
@@ -458,7 +458,7 @@ def main() -> int:
             report["sass_inner_loops"][f"K8 {tag}"] = sass_loops(
                 so, args.out.with_name(f"sass_sep_{tag}.txt"))
             sep[tag] = ctypes.CDLL(str(so))
-            ms._declare(sep[tag])
+            ms.LIBRARY.declare(sep[tag])
         print(json.dumps({"K8 registers": {t: report["registers"][f"K8 {t}"] for t in sep}}),
               flush=True)
         for tag in sep:

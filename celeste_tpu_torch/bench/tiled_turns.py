@@ -228,7 +228,7 @@ def bucket_calls(lib, planes, bucket, n_comp, g, g_render, lam_in, staged_flag, 
 
 def declare_parent(lib, staged_flag):
     """The parent's entries: this tree's, or without the staged argument."""
-    tf._declare(lib)
+    tf.LIBRARY.declare(lib)
     if staged_flag:
         return
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -272,7 +272,7 @@ def main() -> int:
         code[tag] = sass(so, args.out.with_name(f"sass_tiled_{tag}.txt"))
         libs[tag] = ctypes.CDLL(str(so))
     declare_parent(libs["parent"], args.parent_staged_flag)
-    tf._declare(libs["new"])
+    tf.LIBRARY.declare(libs["new"])
     for name, instrs in code["parent"].items():
         new_name = name if args.parent_staged_flag else whole_tile_name(name)
         report["same_sass_as_parent"][new_name] = code["new"].get(new_name) == instrs

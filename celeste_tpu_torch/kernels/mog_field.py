@@ -29,17 +29,14 @@ package, and ``chip_smoke.py`` holds the kernels against them on the card.
 
 from __future__ import annotations
 
-import ctypes
-from pathlib import Path
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from celeste_tpu_torch.kernels._build import Library, check_tensor, cuda_device, ptrs
 from celeste_tpu_torch.likelihood._pixel import LAMBDA_MIN, pixel_loglik
 
 LANE = 128
-_SOURCES = ("mog_field.cu",)
 
 # K1's launch geometry (csrc/mog_field.cu): a block is WARPS warps, split
 # between CB chains and WARPS / CB warps per chain; a cluster of T <= 8
@@ -336,28 +333,13 @@ def k1_pixel_slices(n_pix: int, cb: int, t: int) -> list[list[int]]:
 # CUDA kernels: ctypes wrappers
 # ---------------------------------------------------------------------------
 
-def _declare(lib):
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mog_field_loglik_fwd.argtypes = [p] * 12 + [i] * 8 + [p]
-    lib.mog_field_loglik_fwd.restype = i
-    lib.mog_field_loglik_bwd.argtypes = [p] * 19 + [i] * 7 + [p]
-    lib.mog_field_loglik_bwd.restype = i
-    lib.mog_field_render.argtypes = [p] * 10 + [i] * 7 + [p]
-    lib.mog_field_render.restype = i
-    lib.mog_field_error_string.argtypes = [i]
-    lib.mog_field_error_string.restype = ctypes.c_char_p
-
-
-def _lib():
-    from celeste_tpu_torch.kernels._build import load_library
-
-    return load_library("mog_field", _SOURCES, _declare)
-
-
-def build_kernels():
-    """Build and load the CUDA library now (it is otherwise built at the
-    first launch).  Returns the path of the shared library."""
-    return Path(_lib()._name)
+LIBRARY = Library("mog_field", ("mog_field.cu",), {
+    "mog_field_loglik_fwd": "p" * 12 + "i" * 8 + "p",
+    "mog_field_loglik_bwd": "p" * 19 + "i" * 7 + "p",
+    "mog_field_render": "p" * 10 + "i" * 7 + "p",
+})
+build_kernels = LIBRARY.build
+launch_counts, reset_launch_counts = LIBRARY.launch_counts, LIBRARY.reset_launch_counts
 
 
 def _check_inputs(planes, pixels, extra=()):
@@ -372,34 +354,14 @@ def _check_inputs(planes, pixels, extra=()):
     n_sets, n_pix = pixels[0].shape
     if n_sets < 1 or amp.shape[0] % n_sets:
         raise ValueError(f"{amp.shape[0]} rows do not split into {n_sets} pixel sets")
-    device = amp.device
-    if device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
-    named = ([(t, tuple(amp.shape), "plane") for t in planes]
-             + [(t, (n_sets, n_pix), "pixel array") for t in pixels]
-             + [(t, shape, name) for t, shape, name in extra])
-    for t, shape, name in named:
-        if t.device != device:
-            raise ValueError(f"{name} on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} has dtype {t.dtype}, expected torch.float32")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
+    device = cuda_device(amp)
+    for t in planes:
+        check_tensor(t, "plane", amp.shape, device)
+    for t in pixels:
+        check_tensor(t, "pixel array", (n_sets, n_pix), device)
+    for t, shape, name in extra:
+        check_tensor(t, name, shape, device)
     return amp.shape[0], amp.shape[1], n_pix, n_sets, device
-
-
-def _raise_on_error(lib, err, name, b, c):
-    """Raise on a launch's error code, naming the kernel, B, C and the
-    error."""
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed at B={b}, C={c}: "
-                           f"{lib.mog_field_error_string(err).decode()} ({err})")
-
-
-def _ptrs(ts):
-    return [t.data_ptr() for t in ts]
 
 
 def loglik_fwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask,
@@ -410,21 +372,12 @@ def loglik_fwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask,
     pixels = (px, py, counts, sky, mask)
     b, c, p, s, device = _check_inputs(planes, pixels)
     out = torch.empty(b, dtype=torch.float32, device=device)
-    if b == 0:
-        return out
-    cb, t = k1_geometry(b, p, s)
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.mog_field_loglik_fwd(*_ptrs(planes), *_ptrs(pixels), out.data_ptr(),
-                                       b, c, p, s, int(bool(centered)), cb, t,
-                                       int(components_staged("fwd", cb, c)), stream)
-    _raise_on_error(lib, err, "mog_field_loglik_fwd", b, c)
-    loglik_fwd_cuda.launches += 1
+    if b:
+        cb, t = k1_geometry(b, p, s)
+        LIBRARY.launch("mog_field_loglik_fwd", device, *ptrs(planes), *ptrs(pixels),
+                       out.data_ptr(), b, c, p, s, int(bool(centered)), cb, t,
+                       int(components_staged("fwd", cb, c)), at={"B": b, "C": c})
     return out
-
-
-loglik_fwd_cuda.launches = 0
 
 
 def loglik_bwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
@@ -435,23 +388,14 @@ def loglik_bwd_cuda(amp, mx, my, pa, pb, pc, px, py, counts, sky, mask, g):
     pixels = (px, py, counts, sky, mask)
     b, c, p, s, device = _check_inputs(planes, pixels, extra=[(g, (amp.shape[0],), "g")])
     grads = tuple(torch.empty(b, c, dtype=torch.float32, device=device) for _ in range(6))
-    if b == 0:
-        return grads
-    cb, t = k1_geometry(b, p, s)
-    staged = components_staged("bwd", cb, c)
-    glam = torch.empty(b, p, dtype=torch.float32, device=device) if staged else None
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.mog_field_loglik_bwd(*_ptrs(planes), *_ptrs(pixels), g.data_ptr(),
-                                       *_ptrs(grads), None if glam is None else glam.data_ptr(),
-                                       b, c, p, s, cb, t, int(staged), stream)
-    _raise_on_error(lib, err, "mog_field_loglik_bwd", b, c)
-    loglik_bwd_cuda.launches += 1
+    if b:
+        cb, t = k1_geometry(b, p, s)
+        staged = components_staged("bwd", cb, c)
+        glam = torch.empty(b, p, dtype=torch.float32, device=device) if staged else None
+        LIBRARY.launch("mog_field_loglik_bwd", device, *ptrs(planes), *ptrs(pixels),
+                       g.data_ptr(), *ptrs(grads), None if glam is None else glam.data_ptr(),
+                       b, c, p, s, cb, t, int(staged), at={"B": b, "C": c})
     return grads
-
-
-loglik_bwd_cuda.launches = 0
 
 
 def render_cuda(amp, mx, my, pa, pb, pc, px, py, sky):
@@ -461,33 +405,12 @@ def render_cuda(amp, mx, my, pa, pb, pc, px, py, sky):
     pixels = (px, py, sky)
     b, c, p, s, device = _check_inputs(planes, pixels)
     out = torch.empty(b, p, dtype=torch.float32, device=device)
-    if b == 0 or p == 0:
-        return out
-    cb, t = k7_geometry(b, p, s)
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.mog_field_render(*_ptrs(planes), *_ptrs(pixels), out.data_ptr(),
-                                   b, c, p, s, cb, t, int(components_staged("render", cb, c)),
-                                   stream)
-    _raise_on_error(lib, err, "mog_field_render", b, c)
-    render_cuda.launches += 1
+    if b and p:
+        cb, t = k7_geometry(b, p, s)
+        LIBRARY.launch("mog_field_render", device, *ptrs(planes), *ptrs(pixels),
+                       out.data_ptr(), b, c, p, s, cb, t,
+                       int(components_staged("render", cb, c)), at={"B": b, "C": c})
     return out
-
-
-render_cuda.launches = 0
-
-
-def reset_launch_counts():
-    loglik_fwd_cuda.launches = 0
-    loglik_bwd_cuda.launches = 0
-    render_cuda.launches = 0
-
-
-def launch_counts():
-    return {"mog_field_loglik_fwd": loglik_fwd_cuda.launches,
-            "mog_field_loglik_bwd": loglik_bwd_cuda.launches,
-            "mog_field_render": render_cuda.launches}
 
 
 class _LoglikKernel(torch.autograd.Function):

@@ -29,16 +29,14 @@ the pixels (both for the tests).
 
 from __future__ import annotations
 
-import ctypes
 import math
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from celeste_tpu_torch.kernels._build import Library, check_tensor, cuda_device, ptrs
 from celeste_tpu_torch.likelihood._pixel import LAMBDA_MIN, pixel_loglik
 
-_SOURCES = ("mog_field_sep.cu",)
 # the kernels' walk (csrc/mog_field_sep.cu kBandPix, kMaxBandRows): bands of
 # whole rows, as many as fit BAND_PIX pixels, at most MAX_BAND_ROWS
 BAND_PIX = 2048
@@ -190,26 +188,12 @@ def sep_as_k1(amp, cx, cy, iv, xs, ys, counts, sky, mask):
 # CUDA kernels: ctypes wrappers
 # ---------------------------------------------------------------------------
 
-def _declare(lib):
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mog_field_sep_fwd.argtypes = [p] * 10 + [i] * 5 + [p]
-    lib.mog_field_sep_fwd.restype = i
-    lib.mog_field_sep_bwd.argtypes = [p] * 14 + [i] * 4 + [p]
-    lib.mog_field_sep_bwd.restype = i
-    lib.mog_field_sep_error_string.argtypes = [i]
-    lib.mog_field_sep_error_string.restype = ctypes.c_char_p
-
-
-def _lib():
-    from celeste_tpu_torch.kernels._build import load_library
-
-    return load_library("mog_field_sep", _SOURCES, _declare)
-
-
-def build_kernels():
-    """Build and load the CUDA library now (it is otherwise built at the
-    first launch).  Returns the path of the shared library."""
-    return Path(_lib()._name)
+LIBRARY = Library("mog_field_sep", ("mog_field_sep.cu",), {
+    "mog_field_sep_fwd": "p" * 10 + "i" * 5 + "p",
+    "mog_field_sep_bwd": "p" * 14 + "i" * 4 + "p",
+})
+build_kernels = LIBRARY.build
+launch_counts, reset_launch_counts = LIBRARY.launch_counts, LIBRARY.reset_launch_counts
 
 
 def _check_inputs(planes, pixels, extra=()):
@@ -221,33 +205,14 @@ def _check_inputs(planes, pixels, extra=()):
     if pixels[2].dim() != 2:
         raise ValueError(f"counts must be [H, W], got {tuple(pixels[2].shape)}")
     h, w = pixels[2].shape
-    device = amp.device
-    if device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
+    device = cuda_device(amp)
     named = ([(t, tuple(amp.shape), "plane") for t in planes]
              + [(pixels[0], (1, w), "xs"), (pixels[1], (1, h), "ys")]
              + [(t, (h, w), name) for t, name in zip(pixels[2:], ("counts", "sky", "mask"))]
              + list(extra))
     for t, shape, name in named:
-        if t.device != device:
-            raise ValueError(f"{name} on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} has dtype {t.dtype}, expected torch.float32")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
+        check_tensor(t, name, shape, device)
     return amp.shape[0], amp.shape[1], h, w, device
-
-
-def _raise_on_error(lib, err, name):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.mog_field_sep_error_string(err).decode()} ({err})")
-
-
-def _ptrs(ts):
-    return [t.data_ptr() for t in ts]
 
 
 def sep_fwd_cuda(amp, cx, cy, iv, xs, ys, counts, sky, mask, centered: bool = False):
@@ -256,19 +221,10 @@ def sep_fwd_cuda(amp, cx, cy, iv, xs, ys, counts, sky, mask, centered: bool = Fa
     pixels = (xs, ys, counts, sky, mask)
     b, c, h, w, device = _check_inputs(planes, pixels)
     out = torch.empty(b, dtype=torch.float32, device=device)
-    if b == 0:
-        return out
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.mog_field_sep_fwd(*_ptrs(planes), *_ptrs(pixels), out.data_ptr(),
-                                    b, c, h, w, int(bool(centered)), stream)
-    _raise_on_error(lib, err, "mog_field_sep_fwd")
-    sep_fwd_cuda.launches += 1
+    if b:
+        LIBRARY.launch("mog_field_sep_fwd", device, *ptrs(planes), *ptrs(pixels),
+                       out.data_ptr(), b, c, h, w, int(bool(centered)))
     return out
-
-
-sep_fwd_cuda.launches = 0
 
 
 def sep_bwd_cuda(amp, cx, cy, iv, xs, ys, counts, sky, mask, g):
@@ -277,29 +233,10 @@ def sep_bwd_cuda(amp, cx, cy, iv, xs, ys, counts, sky, mask, g):
     pixels = (xs, ys, counts, sky, mask)
     b, c, h, w, device = _check_inputs(planes, pixels, extra=[(g, (amp.shape[0],), "g")])
     grads = tuple(torch.empty(b, c, dtype=torch.float32, device=device) for _ in range(4))
-    if b == 0:
-        return grads
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.mog_field_sep_bwd(*_ptrs(planes), *_ptrs(pixels), g.data_ptr(),
-                                    *_ptrs(grads), b, c, h, w, stream)
-    _raise_on_error(lib, err, "mog_field_sep_bwd")
-    sep_bwd_cuda.launches += 1
+    if b:
+        LIBRARY.launch("mog_field_sep_bwd", device, *ptrs(planes), *ptrs(pixels),
+                       g.data_ptr(), *ptrs(grads), b, c, h, w)
     return grads
-
-
-sep_bwd_cuda.launches = 0
-
-
-def reset_launch_counts():
-    sep_fwd_cuda.launches = 0
-    sep_bwd_cuda.launches = 0
-
-
-def launch_counts():
-    return {"mog_field_sep_fwd": sep_fwd_cuda.launches,
-            "mog_field_sep_bwd": sep_bwd_cuda.launches}
 
 
 class _SepKernel(torch.autograd.Function):

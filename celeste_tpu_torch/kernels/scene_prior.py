@@ -1,6 +1,7 @@
 """The crowded field's prior: every source's prior and log |det J| of a
-joint state, summed per chain, as ``parallel.crowded._crowded_logprior``
-gives it.
+joint state, summed per chain, as the plain :func:`scene_logprior` gives it
+(``parallel.crowded._crowded_logprior`` is it in the ``posterior.prior``
+span).
 
 :class:`ScenePrior` is built once per log density
 (``parallel.crowded.make_tiled_crowded_logdensity``) for priors with
@@ -13,52 +14,32 @@ fallback:
   one launch, and under autograd ``scene_prior_bwd_cuda`` turns the
   per-chain cotangent into the states' gradient in one launch.  The prior's
   constants and the per-source table (kind, offset in the state) are
-  uploaded once, when the object is built, so a call copies nothing from
-  the host and synchronises nothing.  A build or launch failure raises.
-- CPU tensors take the plain version, ``_crowded_logprior``, differentiated
-  by autograd.
+  uploaded once, when the object is built (``kernels/_scene.py``).  A build
+  or launch failure raises.
+- CPU tensors take the plain version, :func:`scene_logprior`,
+  differentiated by autograd.
 
-Either way the call sits in the ``posterior.prior`` span.
+The caller opens the ``posterior.prior`` span around the call.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from celeste_tpu_torch.utils.profiling import span
+from celeste_tpu_torch.kernels._build import Library, check_tensor
+from celeste_tpu_torch.kernels._scene import SceneFunction, ScenePair, source_table
 
-_SOURCES = ("scene_prior.cu",)
-# every product and sum rounded on its own, as the plain version's separate
-# elementwise operations round them
-_FLAGS = ("-fmad=false",)
-MAX_BANDS = 8                    # csrc/scene_prior.cu kMaxBands
-
-
-def _declare(lib):
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.scene_prior_fwd.argtypes = [p] * 4 + [i] * 5 + [p]
-    lib.scene_prior_fwd.restype = i
-    lib.scene_prior_bwd.argtypes = [p] * 5 + [i] * 5 + [p]
-    lib.scene_prior_bwd.restype = i
-    lib.scene_prior_error_string.argtypes = [i]
-    lib.scene_prior_error_string.restype = ctypes.c_char_p
-
-
-def _lib():
-    from celeste_tpu_torch.kernels._build import load_library
-
-    return load_library("scene_prior", _SOURCES, _declare, _FLAGS)
-
-
-def build_kernels():
-    """Build and load the CUDA library now (it is otherwise built at the
-    first launch).  Returns the path of the shared library."""
-    return Path(_lib()._name)
+# built with every product and sum rounded on its own, as the plain
+# version's separate elementwise operations round them
+LIBRARY = Library("scene_prior", ("scene_prior.cu",), {
+    "scene_prior_fwd": "p" * 4 + "i" * 5 + "p",
+    "scene_prior_bwd": "p" * 5 + "i" * 5 + "p",
+}, flags=("-fmad=false",))
+build_kernels = LIBRARY.build
+launch_counts, reset_launch_counts = LIBRARY.launch_counts, LIBRARY.reset_launch_counts
 
 
 def _beta_log_norm(a, b):
@@ -82,7 +63,7 @@ def pack_constants(scene, priors):
     prior with fewer colours than the scene has."""
     flux, pos, shape = priors.flux, priors.position, priors.shape
     if flux.color_gmm is not None:
-        raise ValueError("a ColorGMM colour prior has no kernel; it keeps _crowded_logprior")
+        raise ValueError("a ColorGMM colour prior has no kernel; it keeps scene_logprior")
     nb = scene.n_bands
     if min(len(flux.color_mean), len(flux.color_std)) < nb - 1:
         raise ValueError(f"{len(flux.color_mean)} colour means and {len(flux.color_std)} "
@@ -99,69 +80,55 @@ def pack_constants(scene, priors):
     floats = np.concatenate([np.asarray(fixed, np.float32),
                              np.asarray(flux.color_mean[:nb - 1], np.float32),
                              colour_std, np.log(colour_std)]).astype(np.float32)
-    blocks, _ = scene.block_slices()
-    table = np.asarray([[int(kind == "galaxy"), off] for off, _, kind in blocks],
-                       np.int32).reshape(-1)
     # FluxPrior.logpdf's clamp of the reference slot, indexed as torch indexes
     ref = range(nb)[min(flux.ref_band, nb - 1)]
-    return floats, table, ref
+    return floats, source_table(scene), ref
 
 
-class ScenePrior:
+def scene_logprior(scene, priors, vecs):
+    """The plain version: prior + log |det J| [B] of every source of the
+    joint states ``vecs``, summed per chain, differentiable by autograd."""
+    from celeste_tpu_torch.model.params import GalaxyParams, StarParams
+
+    lp = 0.0
+    blocks, _ = scene.block_slices()
+    for (off, d, kind), params in zip(blocks, scene.unpack(vecs)):
+        v = vecs[..., off:off + d]
+        if kind == "star":
+            lp = lp + priors.star_logpdf(params) + StarParams.log_det_jacobian(v, scene.n_bands)
+        else:
+            lp = (lp + priors.galaxy_logpdf(params)
+                  + GalaxyParams.log_det_jacobian(v, scene.n_bands))
+    return lp
+
+
+class ScenePrior(ScenePair):
     """``prior(vecs [B, D_total]) -> [B]``: the sum over the scene's sources
     of prior + log |det J|."""
 
     def __init__(self, scene, priors, device):
-        self.scene, self.priors = scene, priors
-        consts, table, self.ref_band = pack_constants(scene, priors)
-        self.d_total = scene.dim
-        self.consts = self.table = None
-        device = torch.device(device)
-        if device.type == "cuda":
-            if scene.n_bands > MAX_BANDS:
-                raise ValueError(f"the prior kernels take at most {MAX_BANDS} bands")
-            self.consts = torch.as_tensor(consts, device=device)
-            self.table = torch.as_tensor(table, device=device)
+        self.priors = priors
+        self._packed = pack_constants(scene, priors)
+        self.ref_band = self._packed[2]
+        super().__init__(scene, device)
+
+    def pack(self):
+        return self._packed[:2]
 
     def plain(self, vecs):
-        from celeste_tpu_torch.parallel.crowded import _crowded_logprior
-
-        return _crowded_logprior(self.scene, self.priors, vecs)
-
-    def __call__(self, vecs):
-        if vecs.device.type == "cpu":
-            return self.plain(vecs)
-        if vecs.device.type != "cuda":
-            raise ValueError(f"the scene prior has no implementation on {vecs.device}")
-        return self.launch(vecs)
+        return scene_logprior(self.scene, self.priors, vecs)
 
     def launch(self, vecs):
-        """The kernel pair under autograd, in the ``posterior.prior`` span."""
-        with span("posterior.prior"):
-            return _ScenePriorKernel.apply(self, vecs)
+        return _ScenePriorKernel.apply(self, vecs)
 
-    def check(self, vecs):
-        """Raise unless ``vecs`` is a float32 [B, D_total] CUDA tensor on the
-        device of the constants."""
-        if self.consts is None or vecs.device != self.consts.device:
-            raise ValueError(f"states on {vecs.device}, the prior's constants on "
-                             f"{None if self.consts is None else self.consts.device}")
-        if vecs.dtype != torch.float32 or vecs.dim() != 2 or vecs.shape[1] != self.d_total:
-            raise ValueError(f"states must be float32 [B, {self.d_total}], got {vecs.dtype} "
-                             f"{tuple(vecs.shape)}")
-        if not vecs.is_contiguous():
-            raise ValueError("states are not contiguous")
+    def fwd(self, vecs):
+        return scene_prior_fwd_cuda(self, vecs)
+
+    def bwd(self, vecs, grads):
+        return scene_prior_bwd_cuda(self, vecs, grads[0])
 
     def _dims(self, b):
         return b, self.d_total, self.scene.n_sources, self.scene.n_bands, self.ref_band
-
-
-def _launch(name, *args):
-    lib = _lib()
-    err = getattr(lib, name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.scene_prior_error_string(err).decode()} ({err})")
 
 
 def scene_prior_fwd_cuda(prep: ScenePrior, vecs):
@@ -170,15 +137,9 @@ def scene_prior_fwd_cuda(prep: ScenePrior, vecs):
     b = vecs.shape[0]
     out = torch.empty(b, dtype=torch.float32, device=vecs.device)
     if b:
-        with torch.cuda.device(vecs.device):
-            stream = torch.cuda.current_stream(vecs.device).cuda_stream
-            _launch("scene_prior_fwd", vecs.data_ptr(), prep.consts.data_ptr(),
-                    prep.table.data_ptr(), out.data_ptr(), *prep._dims(b), stream)
-    scene_prior_fwd_cuda.launches += 1
+        LIBRARY.launch("scene_prior_fwd", vecs.device, vecs.data_ptr(), prep.consts.data_ptr(),
+                       prep.table.data_ptr(), out.data_ptr(), *prep._dims(b))
     return out
-
-
-scene_prior_fwd_cuda.launches = 0
 
 
 def scene_prior_bwd_cuda(prep: ScenePrior, vecs, g):
@@ -187,34 +148,14 @@ def scene_prior_bwd_cuda(prep: ScenePrior, vecs, g):
     prep.check(vecs)
     b = vecs.shape[0]
     g = g.contiguous()
-    if g.dtype != torch.float32 or tuple(g.shape) != (b,) or g.device != vecs.device:
-        raise ValueError(f"the cotangent is {g.dtype} {tuple(g.shape)} on {g.device}, "
-                         f"expected float32 [{b}] on {vecs.device}")
+    check_tensor(g, "the cotangent", (b,), vecs.device)
     grad = torch.empty_like(vecs)
     if b:
-        with torch.cuda.device(vecs.device):
-            stream = torch.cuda.current_stream(vecs.device).cuda_stream
-            _launch("scene_prior_bwd", vecs.data_ptr(), g.data_ptr(), prep.consts.data_ptr(),
-                    prep.table.data_ptr(), grad.data_ptr(), *prep._dims(b), stream)
-    scene_prior_bwd_cuda.launches += 1
+        LIBRARY.launch("scene_prior_bwd", vecs.device, vecs.data_ptr(), g.data_ptr(),
+                       prep.consts.data_ptr(), prep.table.data_ptr(), grad.data_ptr(),
+                       *prep._dims(b))
     return grad
 
 
-scene_prior_bwd_cuda.launches = 0
-
-
-class _ScenePriorKernel(torch.autograd.Function):
-    """The forward launch, with the backward launch as its gradient; only
-    the states are saved."""
-
-    @staticmethod
-    def forward(ctx, prep, vecs):
-        vecs = vecs.contiguous()
-        ctx.save_for_backward(vecs)
-        ctx.prep = prep
-        return scene_prior_fwd_cuda(prep, vecs)
-
-    @staticmethod
-    def backward(ctx, g):
-        (vecs,) = ctx.saved_tensors
-        return None, scene_prior_bwd_cuda(ctx.prep, vecs, g)
+class _ScenePriorKernel(SceneFunction):
+    """The prior pair under autograd."""

@@ -39,12 +39,10 @@ version works through the chains in chunks, so that its memory stays bounded
 
 from __future__ import annotations
 
-import ctypes
-from pathlib import Path
-
 import numpy as np
 import torch
 
+from celeste_tpu_torch.kernels._build import Library, check_tensor, cuda_device, ptrs
 from celeste_tpu_torch.likelihood._pixel import LAMBDA_MIN, pixel_loglik
 from celeste_tpu_torch.parallel.tiles import (
     PIX_PER_TILE,
@@ -53,7 +51,6 @@ from celeste_tpu_torch.parallel.tiles import (
     tile_pixel_coords,
 )
 
-_SOURCES = ("tiled_field.cu",)
 _MAX_CHAINS = 8 * 65535          # grid.y of the tile kernels is chains / 8
 
 # K2-K6's launch (csrc/tiled_field.cu): a block is one tile and TILE_WARPS
@@ -382,41 +379,15 @@ class _PlainTiled(torch.autograd.Function):
 # CUDA kernels: ctypes wrappers
 # ---------------------------------------------------------------------------
 
-def _declare(lib):
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tiled_field_fwd.argtypes = [p] * 14 + [i] * 7 + [p]
-    lib.tiled_field_fwd.restype = i
-    lib.tiled_field_bwd.argtypes = [p] * 17 + [i] * 6 + [p]
-    lib.tiled_field_bwd.restype = i
-    lib.tiled_field_render.argtypes = [p] * 10 + [i] * 6 + [p]
-    lib.tiled_field_render.restype = i
-    lib.tiled_field_render_bwd.argtypes = [p] * 14 + [i] * 6 + [p]
-    lib.tiled_field_render_bwd.restype = i
-    lib.tiled_field_error_string.argtypes = [i]
-    lib.tiled_field_error_string.restype = ctypes.c_char_p
-
-
-def _lib():
-    from celeste_tpu_torch.kernels._build import load_library
-
-    return load_library("tiled_field", _SOURCES, _declare)
-
-
-def build_kernels():
-    """Build and load the CUDA library now (it is otherwise built at the
-    first launch).  Returns the path of the shared library."""
-    return Path(_lib()._name)
-
-
-def _check(t, shape, dtype, device, name):
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
+LIBRARY = Library("tiled_field", ("tiled_field.cu",), {
+    "tiled_field_fwd": "p" * 14 + "i" * 7 + "p",
+    "tiled_field_bwd": "p" * 17 + "i" * 6 + "p",
+    "tiled_field_render": "p" * 10 + "i" * 6 + "p",
+    "tiled_field_render_bwd": "p" * 14 + "i" * 6 + "p",
+}, counters=("tiled_field_fwd", "tiled_field_fwd_lam", "tiled_field_bwd", "tiled_field_render",
+             "tiled_field_render_bwd"))
+build_kernels = LIBRARY.build
+launch_counts, reset_launch_counts = LIBRARY.launch_counts, LIBRARY.reset_launch_counts
 
 
 def _check_inputs(planes, tile_src, pixel_tiles, n_comp):
@@ -427,33 +398,26 @@ def _check_inputs(planes, tile_src, pixel_tiles, n_comp):
     not read here (that would synchronise): ``TiledStampData`` builds them in
     range, and ``tile_columns`` checks a table it is given."""
     amp = planes[0]
-    if amp.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {amp.device}")
+    device = cuda_device(amp)
     if amp.dim() != 2 or amp.shape[1] % n_comp:
         raise ValueError(f"planes must be [B, (S+1)*{n_comp}], got {tuple(amp.shape)}")
     b, plane_w = amp.shape
     if b > _MAX_CHAINS:
         raise ValueError(f"{b} chains exceed the tile kernels' limit of {_MAX_CHAINS}")
-    device = amp.device
     for t in planes:
-        _check(t, (b, plane_w), torch.float32, device, "plane")
+        check_tensor(t, "plane", (b, plane_w), device)
     if tile_src.dim() != 2:
         raise ValueError(f"tile_src must be [T, s_cap], got {tuple(tile_src.shape)}")
-    _check(tile_src, tile_src.shape, torch.int32, device, "tile_src")
+    check_tensor(tile_src, "tile_src", tile_src.shape, device, torch.int32)
     n_tiles, s_cap = tile_src.shape
     for t in pixel_tiles:
-        _check(t, (n_tiles, PIX_PER_TILE), torch.float32, device, "pixel tile")
+        check_tensor(t, "pixel tile", (n_tiles, PIX_PER_TILE), device)
     return b, plane_w, n_tiles, s_cap, device
 
 
-def _raise_on_error(lib, err, name):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.tiled_field_error_string(err).decode()} ({err})")
-
-
-def _ptrs(ts):
-    return [t.data_ptr() for t in ts]
+def _check_columns(col_ptr, col_ent, plane_w, n_entries, device):
+    check_tensor(col_ptr, "col_ptr", (plane_w + 1,), device, torch.int32)
+    check_tensor(col_ent, "col_ent", (n_entries,), device, torch.int32)
 
 
 def _launch_fwd(planes, tile_src, pixel_tiles, n_comp, centered, keep_lam):
@@ -462,14 +426,11 @@ def _launch_fwd(planes, tile_src, pixel_tiles, n_comp, centered, keep_lam):
     lam = (torch.empty(n_tiles, b, PIX_PER_TILE, dtype=torch.float32, device=device)
            if keep_lam else None)
     if b and n_tiles:
-        lib = _lib()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.tiled_field_fwd(*_ptrs(planes), tile_src.data_ptr(), *_ptrs(pixel_tiles),
-                                      partial.data_ptr(), lam.data_ptr() if keep_lam else None,
-                                      n_tiles, b, plane_w, s_cap, n_comp, int(bool(centered)),
-                                      int(tile_staged("fwd", s_cap * n_comp)), stream)
-        _raise_on_error(lib, err, "tiled_field_fwd")
+        LIBRARY.launch("tiled_field_fwd", device, *ptrs(planes), tile_src.data_ptr(),
+                       *ptrs(pixel_tiles), partial.data_ptr(),
+                       lam.data_ptr() if keep_lam else None, n_tiles, b, plane_w, s_cap, n_comp,
+                       int(bool(centered)), int(tile_staged("fwd", s_cap * n_comp)),
+                       counter="tiled_field_fwd_lam" if keep_lam else "tiled_field_fwd")
     return partial.sum(0), lam
 
 
@@ -478,23 +439,14 @@ def tiled_fwd_cuda(amp, mx, my, pa, pb, pc, tile_src, px, py, counts, sky, mask,
     """Launch K2: the tiled log-likelihood [B] of one bucket's tiles."""
     out, _ = _launch_fwd((amp, mx, my, pa, pb, pc), tile_src, (px, py, counts, sky, mask),
                          n_comp, centered, keep_lam=False)
-    tiled_fwd_cuda.launches += 1
     return out
-
-
-tiled_fwd_cuda.launches = 0
 
 
 def tiled_fwd_lam_cuda(amp, mx, my, pa, pb, pc, tile_src, px, py, counts, sky, mask, *,
                        n_comp: int, centered: bool = False):
     """Launch K3: (log-likelihood [B], pre-clamp lambda [T, B, PIX])."""
-    out = _launch_fwd((amp, mx, my, pa, pb, pc), tile_src, (px, py, counts, sky, mask),
-                      n_comp, centered, keep_lam=True)
-    tiled_fwd_lam_cuda.launches += 1
-    return out
-
-
-tiled_fwd_lam_cuda.launches = 0
+    return _launch_fwd((amp, mx, my, pa, pb, pc), tile_src, (px, py, counts, sky, mask),
+                       n_comp, centered, keep_lam=True)
 
 
 def tiled_bwd_cuda(amp, mx, my, pa, pb, pc, tile_src, px, py, counts, sky, mask, lam, g,
@@ -505,29 +457,18 @@ def tiled_bwd_cuda(amp, mx, my, pa, pb, pc, tile_src, px, py, counts, sky, mask,
     planes = (amp, mx, my, pa, pb, pc)
     pixel_tiles = (px, py, counts, sky, mask)
     b, plane_w, n_tiles, s_cap, device = _check_inputs(planes, tile_src, pixel_tiles, n_comp)
-    _check(lam, (n_tiles, b, PIX_PER_TILE), torch.float32, device, "lam")
-    _check(g, (b,), torch.float32, device, "g")
-    _check(col_ptr, (plane_w + 1,), torch.int32, device, "col_ptr")
-    _check(col_ent, (n_tiles * s_cap * n_comp,), torch.int32, device, "col_ent")
+    check_tensor(lam, "lam", (n_tiles, b, PIX_PER_TILE), device)
+    check_tensor(g, "g", (b,), device)
+    n_k = s_cap * n_comp
+    _check_columns(col_ptr, col_ent, plane_w, n_tiles * n_k, device)
     d_planes = torch.empty(6, b, plane_w, dtype=torch.float32, device=device)
     if b:
-        d_part = torch.empty(6, n_tiles * s_cap * n_comp, b, dtype=torch.float32,
-                             device=device)
-        lib = _lib()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.tiled_field_bwd(*_ptrs(planes), tile_src.data_ptr(), px.data_ptr(),
-                                      py.data_ptr(), counts.data_ptr(), mask.data_ptr(),
-                                      lam.data_ptr(), g.data_ptr(), col_ptr.data_ptr(),
-                                      col_ent.data_ptr(), d_part.data_ptr(),
-                                      d_planes.data_ptr(), n_tiles, b, plane_w, s_cap, n_comp,
-                                      int(tile_staged("bwd", s_cap * n_comp)), stream)
-        _raise_on_error(lib, err, "tiled_field_bwd")
-    tiled_bwd_cuda.launches += 1
+        d_part = torch.empty(6, n_tiles * n_k, b, dtype=torch.float32, device=device)
+        LIBRARY.launch("tiled_field_bwd", device, *ptrs(planes),
+                       *ptrs((tile_src, px, py, counts, mask, lam, g, col_ptr, col_ent, d_part,
+                              d_planes)),
+                       n_tiles, b, plane_w, s_cap, n_comp, int(tile_staged("bwd", n_k)))
     return tuple(d_planes.unbind(0))
-
-
-tiled_bwd_cuda.launches = 0
 
 
 def tiled_render_cuda(amp, mx, my, pa, pb, pc, tile_src, px, py, *, n_comp: int):
@@ -536,19 +477,10 @@ def tiled_render_cuda(amp, mx, my, pa, pb, pc, tile_src, px, py, *, n_comp: int)
     b, plane_w, n_tiles, s_cap, device = _check_inputs(planes, tile_src, (px, py), n_comp)
     lam = torch.empty(n_tiles, b, PIX_PER_TILE, dtype=torch.float32, device=device)
     if b and n_tiles:
-        lib = _lib()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.tiled_field_render(*_ptrs(planes), tile_src.data_ptr(), px.data_ptr(),
-                                         py.data_ptr(), lam.data_ptr(), n_tiles, b, plane_w,
-                                         s_cap, n_comp, int(tile_staged("render", s_cap * n_comp)),
-                                         stream)
-        _raise_on_error(lib, err, "tiled_field_render")
-    tiled_render_cuda.launches += 1
+        LIBRARY.launch("tiled_field_render", device, *ptrs(planes),
+                       *ptrs((tile_src, px, py, lam)), n_tiles, b, plane_w, s_cap, n_comp,
+                       int(tile_staged("render", s_cap * n_comp)))
     return lam
-
-
-tiled_render_cuda.launches = 0
 
 
 def tiled_render_bwd_cuda(amp, mx, my, pa, pb, pc, tile_src, px, py, g, col_ptr, col_ent, *,
@@ -558,41 +490,16 @@ def tiled_render_bwd_cuda(amp, mx, my, pa, pb, pc, tile_src, px, py, g, col_ptr,
     :func:`tile_columns` of the same table, as int32 tensors on the card."""
     planes = (amp, mx, my, pa, pb, pc)
     b, plane_w, n_tiles, s_cap, device = _check_inputs(planes, tile_src, (px, py), n_comp)
-    _check(g, (n_tiles, b, PIX_PER_TILE), torch.float32, device, "g")
-    _check(col_ptr, (plane_w + 1,), torch.int32, device, "col_ptr")
-    _check(col_ent, (n_tiles * s_cap * n_comp,), torch.int32, device, "col_ent")
+    check_tensor(g, "g", (n_tiles, b, PIX_PER_TILE), device)
+    n_k = s_cap * n_comp
+    _check_columns(col_ptr, col_ent, plane_w, n_tiles * n_k, device)
     d_planes = torch.empty(6, b, plane_w, dtype=torch.float32, device=device)
     if b:
-        d_part = torch.empty(6, n_tiles * s_cap * n_comp, b, dtype=torch.float32,
-                             device=device)
-        lib = _lib()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.tiled_field_render_bwd(*_ptrs(planes), tile_src.data_ptr(), px.data_ptr(),
-                                             py.data_ptr(), g.data_ptr(), col_ptr.data_ptr(),
-                                             col_ent.data_ptr(), d_part.data_ptr(),
-                                             d_planes.data_ptr(), n_tiles, b, plane_w, s_cap,
-                                             n_comp, int(tile_staged("bwd", s_cap * n_comp)),
-                                             stream)
-        _raise_on_error(lib, err, "tiled_field_render_bwd")
-    tiled_render_bwd_cuda.launches += 1
+        d_part = torch.empty(6, n_tiles * n_k, b, dtype=torch.float32, device=device)
+        LIBRARY.launch("tiled_field_render_bwd", device, *ptrs(planes),
+                       *ptrs((tile_src, px, py, g, col_ptr, col_ent, d_part, d_planes)),
+                       n_tiles, b, plane_w, s_cap, n_comp, int(tile_staged("bwd", n_k)))
     return tuple(d_planes.unbind(0))
-
-
-tiled_render_bwd_cuda.launches = 0
-
-_WRAPPERS = {"tiled_field_fwd": tiled_fwd_cuda, "tiled_field_fwd_lam": tiled_fwd_lam_cuda,
-             "tiled_field_bwd": tiled_bwd_cuda, "tiled_field_render": tiled_render_cuda,
-             "tiled_field_render_bwd": tiled_render_bwd_cuda}
-
-
-def reset_launch_counts():
-    for wrapper in _WRAPPERS.values():
-        wrapper.launches = 0
-
-
-def launch_counts():
-    return {name: wrapper.launches for name, wrapper in _WRAPPERS.items()}
 
 
 class _TiledKernel(torch.autograd.Function):

@@ -47,6 +47,7 @@ from celeste_tpu_torch.kernels.mog_field import (
     mog_field_loglik,
     stamp_pixel_data,
 )
+from celeste_tpu_torch.kernels.scene_prior import scene_logprior
 from celeste_tpu_torch.likelihood._pixel import pixel_loglik
 from celeste_tpu_torch.model.params import GalaxyParams, StarParams
 from celeste_tpu_torch.model.priors import SourcePriors
@@ -142,19 +143,10 @@ def scene_field_planes(scene: CrowdedScene, vecs, stamp, band):
 
 
 def _crowded_logprior(scene: CrowdedScene, priors: SourcePriors, vecs):
-    """Prior + log |det J| of every source, [B]."""
+    """Prior + log |det J| of every source, [B], in the ``posterior.prior``
+    span: ``kernels.scene_prior.scene_logprior``."""
     with span("posterior.prior"):
-        lp = 0.0
-        blocks, _ = scene.block_slices()
-        for (off, d, kind), params in zip(blocks, scene.unpack(vecs)):
-            v = vecs[..., off:off + d]
-            if kind == "star":
-                lp = (lp + priors.star_logpdf(params)
-                      + StarParams.log_det_jacobian(v, scene.n_bands))
-            else:
-                lp = (lp + priors.galaxy_logpdf(params)
-                      + GalaxyParams.log_det_jacobian(v, scene.n_bands))
-        return lp
+        return scene_logprior(scene, priors, vecs)
 
 
 def make_crowded_logdensity(scene: CrowdedScene, stamps: Sequence, bands: Sequence[int],
@@ -201,7 +193,10 @@ def make_tiled_crowded_logdensity(scene: CrowdedScene, stamp, band, positions_px
     forward kernel, and one of its backward under autograd.  The prior of
     every source comes from one call of ``kernels.scene_prior.ScenePrior``
     (one launch each way on the card) where the colours are Gaussian; a
-    ``ColorGMM`` colour prior keeps :func:`_crowded_logprior`.
+    ``ColorGMM`` colour prior keeps its plain version,
+    ``kernels.scene_prior.scene_logprior``.  Planes, each band's likelihood
+    and the prior sit in the spans ``posterior.planes``,
+    ``posterior.likelihood`` and ``posterior.prior``.
 
     ``stamp`` and ``band`` may be lists, one entry per band, for a joint
     multi-band field: one tile map and one ``TiledStampData`` per band, and
@@ -252,7 +247,7 @@ def make_tiled_crowded_logdensity(scene: CrowdedScene, stamp, band, positions_px
     if priors.flux.color_gmm is None:
         prior = ScenePrior(scene, priors, stamps[0].counts.device)
     else:
-        prior = partial(_crowded_logprior, scene, priors)
+        prior = partial(scene_logprior, scene, priors)
 
     def logdensity(vecs):
         with span("posterior.planes"):
@@ -261,7 +256,9 @@ def make_tiled_crowded_logdensity(scene: CrowdedScene, stamp, band, positions_px
         for planes, data in zip(band_planes, datas):
             with span("posterior.likelihood"):
                 ll = ll + tiled_field_loglik(planes, data, n_comp=n_comp, centered=centered)
-        return ll + prior(vecs)
+        with span("posterior.prior"):
+            lp = prior(vecs)
+        return ll + lp
 
     return logdensity, (datas if is_multi else datas[0])
 

@@ -37,8 +37,9 @@ def span(name: str):
       band's tiled likelihood call, in
       ``parallel.crowded.make_tiled_crowded_logdensity``;
     - ``posterior.prior``: the priors and log-Jacobians of every source
-      (``parallel.crowded._crowded_logprior``; in the tiled log density on
-      the card, ``kernels.scene_prior.ScenePrior``'s kernel pair).
+      (``parallel.crowded._crowded_logprior``; in the tiled log density,
+      beside the other two, around its prior call: on the card
+      ``kernels.scene_prior.ScenePrior``'s kernel pair).
 
     Backward operations run outside these ranges (on autograd's device
     thread on the card); a reader puts them down to the span of the forward

@@ -683,10 +683,7 @@ def scene_planes_checks(device, card, config5):
         gen = torch.Generator(device=device).manual_seed(17)
         vecs = vec[None] + 0.01 * torch.randn(b, vec.shape[0], generator=gen, device=device)
 
-        def plain(v):
-            return [prep.plain(prep.scene, v, st, q) for q, st in enumerate(stamps)]
-
-        got, want = sp.scene_planes_fwd_cuda(prep, vecs), plain(vecs)
+        got, want = sp.scene_planes_fwd_cuda(prep, vecs), prep.plain(vecs)
         check(all(torch.equal(got[q, i], want[q][i]) for q in range(nb) for i in range(6)),
               f"{name}: the plane forward's bits differ from the plain version's")
         err_fwd = 0.0
@@ -696,7 +693,7 @@ def scene_planes_checks(device, card, config5):
         x = vecs.clone().requires_grad_(True)
 
         def plain_vjp(x=x, cots=cots):
-            return torch.autograd.grad([p for band in plain(x) for p in band], x, cots)[0]
+            return torch.autograd.grad([p for band in prep.plain(x) for p in band], x, cots)[0]
 
         want_g = plain_vjp()
         ref = plain_vjp(vecs.double().requires_grad_(True), [c.double() for c in cots])
@@ -714,7 +711,7 @@ def scene_planes_checks(device, card, config5):
         fwd_bound, bwd_bound = scene_planes_bounds(prep, b)
         fwd_ms = time_ms(lambda: sp.scene_planes_fwd_cuda(prep, vecs), 20)
         bwd_ms = time_ms(lambda: sp.scene_planes_bwd_cuda(prep, vecs, cots), 20)
-        plain_fwd_ms = time_ms(lambda: plain(vecs), 3)
+        plain_fwd_ms = time_ms(lambda: prep.plain(vecs), 3)
         plain_vjp_ms = time_ms(plain_vjp, 3)
         for kernel, ms, bound_ms, plain_ms, err in (
                 ("planes-fwd", fwd_ms, fwd_bound, plain_fwd_ms, err_fwd),
@@ -1874,9 +1871,6 @@ class ShapeLaunches:
                     self.inputs[key] = ([a.clone() if torch.is_tensor(a) else a for a in args],
                                         kw)
             return out
-        # the wrapped function adds to the counter of the name it is bound
-        # to in the module, which is ``call`` while the block runs
-        call.launches = fn.launches
         return call
 
     def __enter__(self):
@@ -1891,7 +1885,6 @@ class ShapeLaunches:
         from celeste_tpu_torch.kernels import mog_field as mf
 
         for _, attr, _ in self.NAMES:
-            self._orig[attr].launches = getattr(mf, attr).launches
             setattr(mf, attr, self._orig[attr])
 
     def check_totals(self, counts):
@@ -3371,7 +3364,6 @@ def main() -> int:
     from celeste_tpu_torch.kernels import scene_planes as sp
     from celeste_tpu_torch.kernels import scene_prior as spr
     from celeste_tpu_torch.kernels import tiled_field as tf
-    from celeste_tpu_torch.kernels._build import build_library
     from celeste_tpu_torch.parallel import process_group
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3384,15 +3376,9 @@ def main() -> int:
     tmp_dir = tempfile.TemporaryDirectory(prefix="celeste_smoke_")
     tmp = tmp_dir.name
 
-    # one nvcc per library, started together; the loads then find them built
+    # one nvcc per library, started together
     with ThreadPoolExecutor(max_workers=5) as pool:
-        list(pool.map(build_library,
-                      ("mog_field", "tiled_field", "mog_field_sep", "scene_planes",
-                       "scene_prior"),
-                      (mf._SOURCES, tf._SOURCES, ms._SOURCES, sp._SOURCES, spr._SOURCES),
-                      ((), (), (), sp._FLAGS, spr._FLAGS)))
-    libs = [mf.build_kernels(), tf.build_kernels(), ms.build_kernels(), sp.build_kernels(),
-            spr.build_kernels()]
+        libs = list(pool.map(lambda m: m.build_kernels(), (mf, tf, ms, sp, spr)))
     print(f"[build] {', '.join(lib.name for lib in libs)} built and loaded in "
           f"{time.perf_counter() - t_start:.3f} s", flush=True)
     laps = [t_start]
@@ -3431,8 +3417,7 @@ def main() -> int:
         check(k1_counts[name] > 0, f"the config-1 path never launched {name}")
     lap("config 1")
 
-    planes_launches = [sp.scene_planes_fwd_cuda.launches, sp.scene_planes_bwd_cuda.launches]
-    prior_launches = [spr.scene_prior_fwd_cuda.launches, spr.scene_prior_bwd_cuda.launches]
+    planes_before, prior_before = sp.launch_counts(), spr.launch_counts()
     mf.reset_launch_counts()
     tf.reset_launch_counts()
     dense_counts, crowded_unbroken = config5_path(device, tmp)
@@ -3454,12 +3439,10 @@ def main() -> int:
         check(mb_counts[name] > 0, f"the three-band config-5 path never launched {name}")
     # the plane kernels' launches on the three config-5 paths (one band, phase
     # 8c, three bands)
-    planes_launches = [sp.scene_planes_fwd_cuda.launches - planes_launches[0],
-                       sp.scene_planes_bwd_cuda.launches - planes_launches[1]]
+    planes_launches = [n - planes_before[k] for k, n in sp.launch_counts().items()]
     check(min(planes_launches) > 0, f"the config-5 paths launched the plane kernels "
                                     f"{planes_launches} times")
-    prior_launches = [spr.scene_prior_fwd_cuda.launches - prior_launches[0],
-                      spr.scene_prior_bwd_cuda.launches - prior_launches[1]]
+    prior_launches = [n - prior_before[k] for k, n in spr.launch_counts().items()]
     check(min(prior_launches) > 0, f"the config-5 paths launched the prior kernels "
                                    f"{prior_launches} times")
     lap("config 5 in three bands")

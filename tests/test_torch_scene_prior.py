@@ -218,7 +218,7 @@ def test_cpu_branch_is_the_plain_prior_bit_for_bit(name):
     x = vecs.clone().requires_grad_(True)
     (got,) = torch.autograd.grad(prep(x), x, g)
     assert torch.equal(got, _plain_grad(scene, priors, vecs, g))
-    assert prep.consts is None and sp.scene_prior_fwd_cuda.launches == 0
+    assert prep.consts is None and sp.launch_counts()["scene_prior_fwd"] == 0
 
 
 @pytest.mark.parametrize("kind", ["near", "far", "steep"])
@@ -406,13 +406,15 @@ def test_two_calls_give_equal_bits(cuda, c5, name):
 def test_one_forward_and_one_backward_launch_per_gradient(cuda, c5, name):
     _, vec, logd = c5[name]
     x = (vec[None] + torch.zeros(513, vec.shape[0], device=cuda)).requires_grad_(True)
-    before = (sp.scene_prior_fwd_cuda.launches, sp.scene_prior_bwd_cuda.launches)
+    before = sp.launch_counts()
     lp = logd(x)
-    mid = (sp.scene_prior_fwd_cuda.launches, sp.scene_prior_bwd_cuda.launches)
+    mid = sp.launch_counts()
     (g,) = torch.autograd.grad(lp.sum(), x)
-    after = (sp.scene_prior_fwd_cuda.launches, sp.scene_prior_bwd_cuda.launches)
-    assert (mid[0] - before[0], mid[1] - before[1]) == (1, 0)
-    assert (after[0] - mid[0], after[1] - mid[1]) == (0, 1)
+    after = sp.launch_counts()
+    assert (mid["scene_prior_fwd"] - before["scene_prior_fwd"],
+            mid["scene_prior_bwd"] - before["scene_prior_bwd"]) == (1, 0)
+    assert (after["scene_prior_fwd"] - mid["scene_prior_fwd"],
+            after["scene_prior_bwd"] - mid["scene_prior_bwd"]) == (0, 1)
     assert bool(torch.isfinite(lp).all()) and bool(torch.isfinite(g).all())
 
 

@@ -139,18 +139,19 @@ def test_the_prior_kernel_pair_is_put_down_to_the_prior_span(field, monkeypatch)
     sequence number, so the launches of both are put down to the span."""
     from celeste_tpu_torch.kernels import scene_prior as sp
 
+    calls = {"fwd": 0, "bwd": 0}
+
     def fwd(prep, vecs):
-        fwd.launches += 1
+        calls["fwd"] += 1
         with torch.no_grad():
             return prep.plain(vecs)
 
     def bwd(prep, vecs, g):
-        bwd.launches += 1
+        calls["bwd"] += 1
         with torch.enable_grad():
             x = vecs.detach().requires_grad_(True)
             return torch.autograd.grad(prep.plain(x), x, g)[0]
 
-    fwd.launches = bwd.launches = 0
     monkeypatch.setattr(sp, "scene_prior_fwd_cuda", fwd)
     monkeypatch.setattr(sp, "scene_prior_bwd_cuda", bwd)
     monkeypatch.setattr(sp.ScenePrior, "__call__", sp.ScenePrior.launch)
@@ -158,7 +159,7 @@ def test_the_prior_kernel_pair_is_put_down_to_the_prior_span(field, monkeypatch)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _step(logd_z, state)
     events = _host_events(prof)
-    assert (fwd.launches, bwd.launches) == (1, 1)
+    assert calls == {"fwd": 1, "bwd": 1}
     kernel = [e for e in events if e[2] == "_ScenePriorKernel"]
     assert len(kernel) == 1 and _innermost_span(events, kernel[0]) == "posterior.prior"
     nodes = [e for e in events if e[2] == BACKWARD + "_ScenePriorKernelBackward"]
